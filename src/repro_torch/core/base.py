@@ -23,6 +23,7 @@ from .types import Base, Segment, ShrinkConfig, SubBase
 __all__ = [
     "base_predictions",
     "base_predictions_batch",
+    "base_predictions_ragged",
     "construct_base",
     "origin_index",
     "practical_eps_b",
@@ -119,6 +120,37 @@ def base_predictions_batch(bases: list[Base], device: torch.device | str) -> tor
     start = torch.repeat_interleave(cat(0).to(torch.float64), lens, output_size=total)
     t = torch.arange(n, dtype=torch.float64, device=device).repeat(s)
     return (theta + slope * (t - start)).view(s, n)
+
+
+def base_predictions_ragged(
+    bases: list[Base], pad_to: int, device: torch.device | str
+) -> torch.Tensor:
+    """[S, pad_to] float64: row i holds the base predictions of
+    ``bases[i]`` (any mix of lengths) in its first ``bases[i].n`` slots
+    and 0.0 beyond."""
+    s = len(bases)
+    out = torch.zeros((s, pad_to), dtype=torch.float64, device=device)
+    ns = [b.n for b in bases]
+    if max(ns, default=0) > pad_to:
+        raise ValueError(f"pad_to={pad_to} smaller than longest base n={max(ns)}")
+    total = sum(ns)
+    if total == 0:
+        return out
+    flats = [_flat_segments(b) for b in bases]
+
+    def cat(i: int) -> torch.Tensor:
+        return torch.from_numpy(np.concatenate([f[i] for f in flats])).to(device)
+
+    lens = cat(1)
+    theta = torch.repeat_interleave(cat(2), lens, output_size=total)
+    slope = torch.repeat_interleave(cat(3), lens, output_size=total)
+    start = torch.repeat_interleave(cat(0).to(torch.float64), lens, output_size=total)
+    n_t = torch.tensor(ns, dtype=torch.int64, device=device)
+    series_of = torch.repeat_interleave(torch.arange(s, device=device), n_t, output_size=total)
+    first = torch.repeat_interleave(torch.cumsum(n_t, 0) - n_t, n_t, output_size=total)
+    t_local = torch.arange(total, device=device) - first
+    out[series_of, t_local] = theta + slope * (t_local.to(torch.float64) - start)
+    return out
 
 
 def base_predictions(base: Base, device: torch.device | str) -> torch.Tensor:

@@ -94,6 +94,7 @@ def fluctuation_table(
     delta_global: torch.Tensor,
     config: ShrinkConfig,
     n_hint: int | None = None,
+    lengths=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Vectorized Alg. 2 over a batch of series: the (level, eps_hat) of a
     cone starting at every (series, index).
@@ -102,6 +103,10 @@ def fluctuation_table(
     delta_global: [S] per-series global max - min.
     n_hint:       series length that sets L (default T), as the scan of a
                   series whose L was pinned by its caller.
+    lengths:      optional [S] valid samples per row (ragged rows padded to
+                  T).  Row s gets its own L from ``lengths[s]`` and its
+                  windows stop at its end, as if it were scanned alone;
+                  entries past the end are 0-level placeholders.
 
     Returns (levels int64 [S, T], eps_hat float64 [S, T]).
     """
@@ -109,9 +114,32 @@ def fluctuation_table(
     if t == 0:
         z = values.new_zeros((s, 0))
         return z.long(), z
-    w = max(default_interval_length(t if n_hint is None else int(n_hint), config), 2)
-    delta_local = _sliding_forward(values, w, True) - _sliding_forward(values, w, False)
+    if lengths is None:
+        w = max(default_interval_length(t if n_hint is None else int(n_hint), config), 2)
+        delta_local = _sliding_forward(values, w, True) - _sliding_forward(values, w, False)
+    else:
+        if n_hint is not None:
+            raise ValueError("pass n_hint or lengths, not both")
+        ns = torch.as_tensor(lengths, dtype=torch.int64).reshape(-1).tolist()
+        ln = torch.tensor(ns, dtype=torch.int64, device=values.device)
+        pad = torch.arange(t, device=values.device)[None, :] >= ln[:, None]
+        # -inf never raises a max and +inf never lowers a min: the windows
+        # stop at each row's end
+        vmax_in = values.masked_fill(pad, -math.inf)
+        vmin_in = values.masked_fill(pad, math.inf)
+        delta_local = torch.empty_like(values)
+        ws = [max(default_interval_length(n, config), 2) for n in ns]
+        for w in sorted(set(ws)):
+            rows = torch.tensor([i for i, wi in enumerate(ws) if wi == w], device=values.device)
+            delta_local[rows] = _sliding_forward(vmax_in[rows], w, True) - _sliding_forward(
+                vmin_in[rows], w, False
+            )
     delta_local[:, -1] = 0.0  # size-1 window
+    if lengths is not None:
+        live = [i for i, n in enumerate(ns) if n > 0]
+        if live:
+            delta_local[live, [ns[i] - 1 for i in live]] = 0.0
+        delta_local[pad] = 0.0
     dg = delta_global.to(torch.float64).reshape(s, 1)
     beta = torch.where(dg > 0, delta_local / dg, torch.zeros_like(delta_local))
     levels = torch.round(beta.clamp(0.0, 1.0) * config.beta_levels).long()

@@ -3,7 +3,7 @@ counterpart of ``repro.core.serialize``: the ``SHRB`` base blob and the
 ``SHRR`` v3 residual pyramid blob, byte for byte the reference's layouts
 (normative spec in ``docs/wire-format.md``).  Host code: these are a few
 varints per segment and a directory per series.  The ``SHRKS`` framed
-stream container comes in a later slice of the port.
+stream container is not ported yet.
 """
 from __future__ import annotations
 

@@ -9,15 +9,15 @@ runs on the card unless it is given ``device="cpu"``:
     vhat  = codec.decompress_at(cs, 1e-2)   # float64 tensor, |vhat - v| <= 1e-2
     exact = codec.decompress_at(cs, 0.0)    # lossless
     css   = codec.compress_batch(values_st, eps_targets=[1e-2])  # [S, T]
+    css   = codec.compress_batch([v1, v2, v3], eps_targets=[1e-2])  # ragged
     blob  = cs_to_bytes(cs); cs2 = cs_from_bytes(blob)
 
 On the device: the fluctuation table, the cone scan (CUDA kernel), the
-segment compaction, the base predictions, the pyramid quantizer and the
-rANS coder (CUDA kernels) with everything around it.  On the host: the
-``Segment`` records, base merging (Alg. 4/5) and the byte framing.
-
-This slice takes equal-length batches only; a ragged batch raises
-:class:`ConfigError`.
+segment compaction, the base predictions, the pyramid quantizer, the
+entropy features and the rANS coder (CUDA kernels) with everything around
+it.  On the host: the ``Segment`` records, base merging (Alg. 4/5), the
+byte framing and the host entropy backends.  The entropy backend defaults
+to ``"best"``, the reference's cost model.
 """
 from __future__ import annotations
 
@@ -30,13 +30,18 @@ import numpy as np
 import torch
 
 from . import entropy
-from .base import base_predictions, base_predictions_batch, construct_base
+from .base import (
+    base_predictions,
+    base_predictions_batch,
+    base_predictions_ragged,
+    construct_base,
+)
 from .device import resolve_device
 from .errors import (
-    ConfigError,
     CorruptFrameError,
     FormatError,
     LayerCorruptError,
+    ShrinkError,
     TruncatedArchiveError,
 )
 from .residuals import (
@@ -45,7 +50,7 @@ from .residuals import (
     normalize_tiers,
     quantize_pyramid_batch,
 )
-from .semantics import extract_semantics, extract_semantics_batch, global_range
+from .semantics import extract_semantics, extract_semantics_batch, global_range, row_ranges
 from .serialize import decode_base, decode_pyramid, encode_base, encode_pyramid, pyramid_layers
 from .types import Base, CompressedSeries, ShrinkConfig
 
@@ -77,11 +82,10 @@ def _as_values(values, device: torch.device) -> torch.Tensor:
 @dataclass
 class ShrinkCodec:
     config: ShrinkConfig
-    backend: str = "rans"
+    backend: str = "best"
     device: torch.device | str | None = None
 
     def __post_init__(self) -> None:
-        entropy._check_backend(self.backend)
         self.device = resolve_device(self.device)
 
     @classmethod
@@ -91,7 +95,7 @@ class ShrinkCodec:
         frac: float = 0.05,
         lam: float = 1e-5,
         beta_levels: int = 16,
-        backend: str = "rans",
+        backend: str = "best",
         device: torch.device | str | None = None,
     ) -> "ShrinkCodec":
         dev = resolve_device(device)
@@ -138,21 +142,26 @@ class ShrinkCodec:
         eps_targets: list[float],
         decimals: int | None = None,
         lengths=None,
+        max_buckets: int | None = None,
     ) -> list[CompressedSeries]:
-        """Batched Alg. 1 over S equal-length series: ``values[S, T]`` (or a
-        list of equal-length 1-D series).  Each output is byte-identical to
-        the reference's ``compress_batch`` on the same input."""
+        """Batched Alg. 1 over S series: ``values[S, T]``, ``values[S, T]``
+        with ``lengths[S]`` (row i holds ``lengths[i]`` real samples), or a
+        list of 1-D series of any lengths, empty ones included.  Ragged
+        input is cut into at most ``max_buckets`` percentile length buckets
+        (default: about one per 4 series, between 4 and 16), each scanned
+        with the valid-length mask, and every layer of every series shares
+        one entropy pass.  Each output is byte-identical to the reference's
+        ``compress_batch`` on the same input."""
         if isinstance(values, (list, tuple)):
             if lengths is not None:
                 raise ValueError("pass lengths only with a padded [S, T] array")
             arrs = [_as_values(v, self.device).reshape(-1) for v in values]
-            if len({a.numel() for a in arrs}) > 1:
-                raise ConfigError("ragged batches come in a later slice of the port")
-            values = (
-                torch.stack(arrs)
-                if arrs
-                else torch.zeros((0, 0), dtype=torch.float64, device=self.device)
-            )
+            ns = np.array([a.numel() for a in arrs], dtype=np.int64)
+            if ns.size and (ns == ns[0]).all():  # rectangular in disguise
+                return self._compress_batch_rect(
+                    torch.stack(arrs), eps_targets, decimals
+                )
+            return self._compress_batch_ragged(arrs, ns, eps_targets, decimals, max_buckets)
         values = _as_values(values, self.device)
         if values.ndim != 2:
             raise ValueError(f"expected values[S, T], got shape {tuple(values.shape)}")
@@ -160,8 +169,13 @@ class ShrinkCodec:
             ns = np.asarray(lengths, dtype=np.int64).ravel()
             if ns.shape != (values.shape[0],):
                 raise ValueError(f"lengths must be [S]={values.shape[0]}, got shape {ns.shape}")
-            if (ns != values.shape[1]).any():
-                raise ConfigError("ragged batches come in a later slice of the port")
+            if (ns < 0).any() or (ns > values.shape[1]).any():
+                raise ValueError(f"lengths must lie in [0, T={values.shape[1]}]")
+            if not (ns == values.shape[1]).all():
+                arrs = [values[i, : ns[i]] for i in range(values.shape[0])]
+                return self._compress_batch_ragged(
+                    arrs, ns, eps_targets, decimals, max_buckets
+                )
         return self._compress_batch_rect(values, eps_targets, decimals)
 
     def _compress_batch_rect(
@@ -170,8 +184,7 @@ class ShrinkCodec:
         s, n = values.shape
         if n:
             seg_lists = extract_semantics_batch(values, self.config)
-            vmins = values.amin(dim=1).tolist()
-            vmaxs = values.amax(dim=1).tolist()
+            vmins, vmaxs = row_ranges(values)
         else:
             seg_lists = [[] for _ in range(s)]
             vmins = vmaxs = [0.0] * s
@@ -179,6 +192,64 @@ class ShrinkCodec:
             construct_base(seg_lists[i], n, vmins[i], vmaxs[i], self.config) for i in range(s)
         ]
         return encode_frames_with_bases(values, bases, eps_targets, decimals, backend=self.backend)
+
+    def _compress_batch_ragged(
+        self,
+        arrs: list[torch.Tensor],
+        ns: np.ndarray,
+        eps_targets: list[float],
+        decimals: int | None,
+        max_buckets: int | None,
+    ) -> list[CompressedSeries]:
+        """Mixed lengths: percentile length buckets padded to their longest
+        series, masked scans and quantizers, one entropy pass."""
+        tiers = normalize_tiers(eps_targets, decimals)
+        s = len(arrs)
+        if max_buckets is None:
+            max_buckets = int(np.clip(s // 4, 4, 16))
+        if max_buckets < 1:
+            raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+        out: list[CompressedSeries | None] = [None] * s
+        for i in np.flatnonzero(ns == 0):
+            # an empty series carries an empty base and empty or absent layers
+            base = construct_base([], 0, 0.0, 0.0, self.config)
+            out[i] = encode_with_base(arrs[i], base, tiers, decimals, backend=self.backend)
+        nonempty = np.flatnonzero(ns > 0)
+        order = nonempty[np.argsort(ns[nonempty], kind="stable")]
+        buckets = (
+            [b for b in np.array_split(order, min(max_buckets, order.size)) if b.size]
+            if order.size
+            else []
+        )
+        done: list[tuple[int, Base, float, list]] = []
+        for bucket in buckets:
+            nb = ns[bucket]
+            t_pad = int(nb.max())
+            ln = torch.as_tensor(nb, device=self.device)
+            valid = torch.arange(t_pad, device=self.device)[None, :] < ln[:, None]
+            vals = torch.zeros((bucket.size, t_pad), dtype=torch.float64, device=self.device)
+            vals[valid] = torch.cat([arrs[i] for i in bucket])
+            seg_lists = extract_semantics_batch(vals, self.config, lengths=nb)
+            vmins, vmaxs = row_ranges(vals, valid)
+            bases = [
+                construct_base(seg_lists[r], int(nb[r]), vmins[r], vmaxs[r], self.config)
+                for r in range(bucket.size)
+            ]
+            preds = base_predictions_ragged(bases, t_pad, self.device)
+            eps_hats = (vals - preds).masked_fill(~valid, 0.0).abs().amax(dim=1).tolist()
+            streams = quantize_pyramid_batch(vals, preds, tiers, decimals, lengths=nb)
+            done += [(int(i), bases[r], eps_hats[r], streams[r]) for r, i in enumerate(bucket)]
+        todo = [st for *_, row in done for st in row if st is not None]
+        blobs = iter(encode_residuals_batch(todo, backend=self.backend))
+        for i, base, eps_hat, row in done:
+            payloads = [None if st is None else next(blobs) for st in row]
+            out[i] = CompressedSeries(
+                base=base,
+                base_bytes=encode_base(base),
+                pyramid=pyramid_layers(tiers, row, payloads),
+                eps_b_practical=float(eps_hat),
+            )
+        return out
 
     def decompress_at(self, cs: CompressedSeries, eps: float) -> torch.Tensor:
         return decompress_at(cs, eps, device=self.device)
@@ -247,7 +318,9 @@ class ProgressiveDecoder:
         layer (a failed build or launch) propagates unchanged."""
         try:
             q = entropy.decode_ints(layer.payload, self.device)
-        except (struct.error, IndexError, KeyError) as e:
+        except ShrinkError:
+            raise
+        except entropy.PAYLOAD_ERRORS as e:
             raise LayerCorruptError(
                 f"pyramid layer payload failed entropy decode: {e}", layer=d
             ) from e
@@ -275,7 +348,7 @@ def encode_with_base(
     base: Base,
     eps_targets: list[float],
     decimals: int | None = None,
-    backend: str = "rans",
+    backend: str = "best",
 ) -> CompressedSeries:
     """Residual-encoding tail of Alg. 1 for one series with its base: the
     S = 1 case of :func:`encode_frames_with_bases`."""
@@ -289,12 +362,11 @@ def encode_frames_with_bases(
     bases: list[Base],
     eps_targets: list[float],
     decimals: int | None = None,
-    backend: str = "rans",
+    backend: str = "best",
 ) -> list[CompressedSeries]:
     """Batched residual encoding of F equal-length frames whose bases are
     built: one prediction pass, one pyramid quantization and one entropy
     pass over every layer of every frame."""
-    entropy._check_backend(backend)
     values = values.to(torch.float64)
     f_count, n = values.shape
     base_bytes = [encode_base(b) for b in bases]

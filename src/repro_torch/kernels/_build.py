@@ -27,7 +27,7 @@ import threading
 
 __all__ = ["KERNELS", "build_all", "check", "function", "launches", "reset_launches"]
 
-KERNELS = ("cone_scan", "rans")
+KERNELS = ("cone_scan", "rans", "residual_quant", "dequant", "base_fit")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = [
@@ -36,7 +36,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-launches: dict[str, int] = {"cone_scan": 0, "rans_encode": 0, "rans_decode": 0}
+launches: dict[str, int] = {
+    "cone_scan": 0, "rans_encode": 0, "rans_decode": 0, "residual_quant": 0, "dequant": 0,
+    "base_fit": 0,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

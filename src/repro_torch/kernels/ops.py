@@ -17,17 +17,25 @@ from __future__ import annotations
 import torch
 
 from ._build import launches, reset_launches
+from .base_fit import base_fit
 from .cone_scan import cone_scan
+from .dequant import dequant
+from .rans import ID_SYM as RANS_ID_SYM
 from .rans import decode_rows as rans_decode_rows
 from .rans import encode_rows as rans_encode_rows
+from .residual_quant import residual_quant
 
 __all__ = [
+    "base_fit",
     "compact_segments",
     "cone_scan",
+    "dequant",
     "launches",
+    "RANS_ID_SYM",
     "rans_decode_rows",
     "rans_encode_rows",
     "reset_launches",
+    "residual_quant",
 ]
 
 
