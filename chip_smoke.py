@@ -2,7 +2,10 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--series 1024] [--samples 16384] [--seed 0]
-                          [--ragged-series 1024] [--kv-batch 4] [--trace DIR]
+                          [--ragged-series 1024] [--kv-batch 4]
+                          [--gw-series 256] [--gw-samples 131072]
+                          [--gw-range-queries 1024] [--gw-analytics-queries 768]
+                          [--trace DIR]
 
 Phases, each of which must pass (any failure exits non-zero before the
 result line):
@@ -40,10 +43,29 @@ result line):
    (the largest error in half-steps is printed); memory bits against
    bf16; rows whose bf16 theta/slope differ from the CPU route on a
    sample of 64-row blocks (printed, not hidden).
+8. streamed gateway, range serving and analytics at a gateway's scale:
+   ``ShrinkStreamCodec`` ingests S = 256 seeded sensors of T = 131,072
+   samples (``repro_torch.launch.serve.sensor_values``) chunk-interleaved
+   (chunk 4096, frames of 8192, pinned value range, rANS, tiers 1e-2 and
+   1e-3 of the range and lossless, 4 decimals, eps_b 2% of the range) into
+   a SHRKS container; 1024 range queries through ``RangeQueryBatcher``
+   (32 cached frames), each within its eps of the raw values; 768
+   ``AnalyticsEngine`` queries in the reference's mix (sketch and tiered
+   aggregates, exact ``count_where``), each containing the numpy truth
+   and every count exact.  The CPU route gives the same container bytes
+   for 8 of the series and the same answers for 64 of the queries; both
+   routes' runs of those 64 are timed (q/s side by side), and a third run
+   on the card counts its synchronizing CUDA calls.
+   ``segment_agg`` against its plain version: float64 on the largest
+   input the path gave it and on one launch over every segment of the
+   container, float32 on the same rows.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
-With ``--trace DIR`` a sixth phase times the main path stage by stage
+With ``--trace DIR`` phase 8 also profiles an eighth of its ingest and
+128 of its analytics queries (torch.profiler: device busy share and top
+device ops; cProfile: the host functions with the most time), and a last
+phase times the main path stage by stage
 (the codec's own functions, called in its order) and traces one
 compress_batch and the lossless decode of 64 series with torch.profiler:
 device time by kernel and copy, the device busy share (the union of the
@@ -83,6 +105,11 @@ GOLDEN_N, GOLDEN_DECIMALS = 1536, 3  # tests/golden/regen.py
 KV_LAYERS, KV_HEADS, KV_DIM = 32, 8, 128
 KV_PREFILL, KV_MAX_SEQ = 2048, 8192
 KV_CHUNK_ROWS = 1 << 20  # rows per pass of the plain versions' comparisons
+# phase 8: the serve launcher's frame, chunk and cache sizes; the series and
+# queries the CPU route repeats
+GW_FRAME, GW_CHUNK, GW_CACHE = 8192, 4096, 32
+GW_CPU_SERIES, GW_CPU_QUERIES = 8, 64
+GW_QUERY_SEED = 1  # the reference launcher's query seed
 
 
 def fail(msg: str) -> None:
@@ -149,6 +176,16 @@ class Recorder:
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.orig)
+
+
+class LargestRecorder(Recorder):
+    """A :class:`Recorder` that keeps the arguments of the call whose first
+    argument has the most rows."""
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None or args[0].shape[0] > self.args[0][0].shape[0]:
+            self.args = (args, kwargs)
+        return self.orig(*args, **kwargs)
 
 
 def gateway_batch(series: int, samples: int, seed: int) -> np.ndarray:
@@ -524,6 +561,250 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, nops
     }
 
 
+def stream_gateway(P, v: np.ndarray, series, cfg, tiers, dev):
+    """Chunk-interleaved ingest of the rows ``series`` of v into a SHRKS
+    container on ``dev``, with the value range of all of v pinned; returns
+    (the codec, the container)."""
+    sc = P.ShrinkStreamCodec(cfg, tiers, decimals=DECIMALS, backend="rans",
+                             value_range=(float(v.min()), float(v.max())),
+                             frame_len=GW_FRAME, device=dev)
+    for c0 in range(0, v.shape[1], GW_CHUNK):
+        for sid in series:
+            sc.ingest(v[sid, c0 : c0 + GW_CHUNK], series_id=sid)
+    return sc, sc.finalize()
+
+
+def count_syncs(fn):
+    """Run ``fn`` with CUDA's sync debug mode warning on every synchronizing
+    call; returns (its result, the number of such calls)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def same_bits(got, want) -> bool:
+    def bits(t):
+        return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+    return all(a.shape == b.shape and torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+
+
+def check_segment_agg(P, SA, Sz, blob: bytes, largest, launches: dict, dev) -> dict:
+    """``segment_agg`` against its plain version: float64 on the largest
+    input of the analytics run and on one launch over every segment of the
+    container (a = 0, b = length), float32 on the same rows."""
+    from repro_torch.core.base import _flat_segments
+
+    got = SA.segment_agg_cuda(*largest)
+    check(same_bits(got, SA.segment_agg_plain(*largest)),
+          f"segment_agg f64 differs from its plain version on the path's largest input "
+          f"(max err {max_abs_err(got, SA.segment_agg_plain(*largest))})")
+    metas, _ = Sz.parse_framed_container(blob)
+    thetas, slopes, lens = [], [], []
+    for m in metas:
+        _, ln, th, sl = _flat_segments(P.cs_from_bytes(Sz.frame_payload(blob, m)).base)
+        thetas.append(th)
+        slopes.append(sl)
+        lens.append(ln)
+    lens = np.concatenate(lens).astype(np.float64)
+    rows = [torch.as_tensor(x, device=dev).reshape(-1, 1)
+            for x in (np.concatenate(thetas), np.concatenate(slopes), np.zeros_like(lens), lens)]
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        cols = [x.to(dtype) for x in rows]
+        got = SA.segment_agg_cuda(*cols)
+        want, plain_s = sync_time(lambda: SA.segment_agg_plain(*cols))
+        err = max_abs_err(got, want)
+        check(same_bits(got, want),
+              f"segment_agg {dtype} differs from its plain version on every segment (max err {err})")
+        res[dtype] = (err, event_ms(lambda: SA.segment_agg_cuda(*cols), 20), plain_s * 1e3)
+    m = rows[0].shape[0]
+    err, ms, plain_ms = res[torch.float64]
+    # the events above time the wrapper's calls back to back (packing and the
+    # ctypes launch included); the profiler gives the kernel's own device time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            SA.segment_agg_cuda(*rows)
+        torch.cuda.synchronize()
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if "segment_agg" in e.key) / 20
+    # a row: four float64 scalars read, four written; ~40 float64 operations
+    row = kernel_row("segment_agg", "src/repro_torch/kernels/csrc/segment_agg.cu",
+                     "src/repro/kernels/segment_agg.py:37", launches, err, ms, plain_ms,
+                     64 * m, 40 * m, FP64_OPS_PER_S, [m, 1])
+    row.update({"dtype": "float64", "kernel_device_ms": kernel_us / 1e3 or None,
+                "largest_path_input_rows": int(largest[0].shape[0]),
+                "f32_max_abs_err": res[torch.float32][0], "f32_ms": res[torch.float32][1],
+                "f32_plain_ms": res[torch.float32][2]})
+    return row
+
+
+def profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg, tiers, blob,
+                     dev, out_dir: pathlib.Path) -> dict:
+    """Phase 8 under ``--trace``: the ingest of an eighth of the sensors and
+    128 analytics queries on a fresh engine, each run twice: once under
+    torch.profiler (device busy share, top device ops, a Chrome trace in
+    ``out_dir``) and once under cProfile (the host functions with the most
+    cumulative time)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sub = range(0, v.shape[0], 8)
+    jobs = {
+        "ingest_eighth": lambda: stream_gateway(P, v, sub, cfg, tiers, dev),
+        "analytics_128": lambda: serve.analytics_traffic(
+            AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev)),
+            v, 128, GW_FRAME, tiers, seed=GW_QUERY_SEED),
+    }
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, job in jobs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall0 = time.perf_counter()
+            job()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall0
+        path = out_dir / f"streamed_{name}_trace.json"
+        prof.export_chrome_trace(str(path))
+        busy_ms, ops_ms = device_busy(path)
+        pr = cProfile.Profile()
+        pr.enable()
+        job()
+        torch.cuda.synchronize()
+        pr.disable()
+        top = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][3])[:20]
+        res[name] = {
+            "wall_s": wall, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
+            "top_device_ops": dict(sorted(ops_ms.items(), key=lambda kv: -kv[1]["device_ms"])[:8]),
+            "host_cumulative_s": {f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}": st[3]
+                                  for f, st in top},
+        }
+    (out_dir / "streamed_trace_summary.json").write_text(json.dumps(res, indent=1))
+    return res
+
+
+def streamed_path(P, SA, series: int, samples: int, range_queries: int,
+                  analytics_queries: int, seed: int, dev,
+                  trace_dir: pathlib.Path | None = None) -> tuple[dict, dict]:
+    """Phase 8: streamed gateway ingest, range serving and analytics;
+    returns the stats and the ``segment_agg`` row."""
+    from repro_torch.analytics import AnalyticsEngine
+    from repro_torch.core import serialize as Sz
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import RangeQueryBatcher
+
+    v = serve.sensor_values(series, samples, seed)
+    s, n = v.shape
+    vrng = float(v.max() - v.min())
+    cfg = P.ShrinkConfig(eps_b=0.02 * vrng, lam=1e-4)
+    tiers = [1e-2 * vrng, 1e-3 * vrng, 0.0]
+    ops.reset_launches()
+    (sc, blob), t_ingest = sync_time(lambda: stream_gateway(P, v, range(s), cfg, tiers, dev))
+    ingest_launches = dict(ops.launches)
+    check(ingest_launches["rans_encode"] > 0, "kernel rans_encode was not launched by the ingest")
+    st = sc.stats()
+    check(st["samples_sealed"] == s * n, f"sealed {st['samples_sealed']} of {s * n} samples")
+    stats = {
+        "series": s, "samples": s * n, "frames": st["frames"], "ingest_s": t_ingest,
+        "samples_per_s": s * n / t_ingest, "container_bytes": len(blob),
+        "compression_ratio": P.BYTES_PER_ROW * s * n / len(blob),
+        "kb_entries": st["kb"]["entries"], "kb_bytes": len(sc.kb.to_bytes()),
+        "backends": st["backends"], "ingest_launches": ingest_launches,
+    }
+    print("streamed gateway: " + json.dumps(stats), flush=True)
+    del sc
+
+    # the CPU route: the same container for 8 of the series
+    pick = list(range(0, s, max(s // GW_CPU_SERIES, 1)))[:GW_CPU_SERIES]
+    _, card8 = stream_gateway(P, v, pick, cfg, tiers, dev)
+    _, cpu8 = stream_gateway(P, v, pick, cfg, tiers, "cpu")
+    check(card8 == cpu8, "streamed container: CPU route bytes differ from the card's")
+    full = {(m.series_id, m.t_lo): Sz.frame_payload(blob, m)
+            for m in Sz.parse_framed_container(blob)[0]}
+    check(all(full[(m.series_id, m.t_lo)] == Sz.frame_payload(card8, m)
+              for m in Sz.parse_framed_container(card8)[0]),
+          "frame payloads of the 8-series container differ from the full container's")
+    stats["cpu_route_series"] = pick
+
+    # range serving
+    eps = 1e-3 * vrng
+    batcher = RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev)
+    ops.reset_launches()
+    rres = serve.range_traffic(batcher, v, range_queries, GW_FRAME, eps, seed=GW_QUERY_SEED)
+    range_launches = dict(ops.launches)
+    check(rres["failed"] == 0, f"range serving: {rres['failed']} queries failed or missed eps")
+    check(range_launches["rans_decode"] > 0, "kernel rans_decode was not launched by range serving")
+    rng_stats = {**rres, "q_per_s": rres["queries"] / rres["seconds"], "eps": eps,
+                 "frames_decoded": batcher.stats["frames_decoded"],
+                 "cache_hits": batcher.stats["frame_hits"],
+                 "layers_decoded": batcher.stats["layers_decoded"],
+                 "layer_hits": batcher.stats["layer_hits"], "launches": range_launches}
+    print("range serving: " + json.dumps(rng_stats), flush=True)
+    del batcher
+
+    # analytics, with segment_agg's largest input recorded
+    rec = LargestRecorder(ops, "segment_agg")
+    eng = AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev))
+    try:
+        ops.reset_launches()
+        ares = serve.analytics_traffic(eng, v, analytics_queries, GW_FRAME, tiers,
+                                       seed=GW_QUERY_SEED)
+        an_launches = dict(ops.launches)
+    finally:
+        rec.restore()
+    check(ares["failed"] == 0, f"analytics: {ares['failed']} answers missed the truth")
+    for name in ("segment_agg", "rans_decode"):
+        check(an_launches[name] > 0, f"kernel {name} was not launched by the analytics run")
+    # the first 64 queries again on fresh engines, each run timed: the card's
+    # and the CPU route's answers must be equal; a third run on the card
+    # counts its synchronizing calls
+    card_ans, cpu_ans = [], []
+    eng_c = AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev))
+    card64 = serve.analytics_traffic(eng_c, v, GW_CPU_QUERIES, GW_FRAME, tiers,
+                                     seed=GW_QUERY_SEED, answers=card_ans)
+    eng_h = AnalyticsEngine(blob, cache_frames=GW_CACHE, device="cpu")
+    cpu64 = serve.analytics_traffic(eng_h, v, GW_CPU_QUERIES, GW_FRAME, tiers,
+                                    seed=GW_QUERY_SEED, answers=cpu_ans)
+    check(card64["failed"] == 0 and cpu64["failed"] == 0,
+          "analytics: an answer of the 64-query runs missed the truth")
+    check([a.__dict__ for a in card_ans] == [a.__dict__ for a in cpu_ans]
+          and eng_c.stats == eng_h.stats, "analytics: the CPU route's answers differ from the card's")
+    eng_s = AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev))
+    _, syncs = count_syncs(lambda: serve.analytics_traffic(
+        eng_s, v, GW_CPU_QUERIES, GW_FRAME, tiers, seed=GW_QUERY_SEED))
+    an_stats = {**ares, "q_per_s": ares["queries"] / ares["seconds"], **eng.stats,
+                "serving_cache_hits": eng.batcher.stats["frame_hits"],
+                "segment_agg_launches": an_launches["segment_agg"],
+                "segment_agg_launches_per_query": an_launches["segment_agg"] / ares["queries"],
+                "launches": an_launches, "cpu_route_queries": GW_CPU_QUERIES,
+                "first_queries_card_q_per_s": card64["queries"] / card64["seconds"],
+                "first_queries_cpu_route_q_per_s": cpu64["queries"] / cpu64["seconds"],
+                "syncs_per_query": syncs / GW_CPU_QUERIES}
+    print("analytics: " + json.dumps(an_stats), flush=True)
+    (largest, _) = rec.args
+    row = check_segment_agg(P, SA, Sz, blob, largest, an_launches, dev)
+    out = {"ingest": stats, "range": rng_stats, "analytics": an_stats}
+    if trace_dir is not None:
+        out["trace"] = profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg,
+                                        tiers, blob, dev, trace_dir)
+        print("streamed trace: " + json.dumps(out["trace"]), flush=True)
+    return out, row
+
+
 def trace_main_path(P, values: np.ndarray, codec, dev, out_dir: pathlib.Path) -> dict:
     """Stage times of compress_batch and decompress_at (host clock after a
     synchronize, calling the codec's stages in its own order), then one
@@ -656,6 +937,10 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ragged-series", type=int, default=1024)
     ap.add_argument("--kv-batch", type=int, default=4)
+    ap.add_argument("--gw-series", type=int, default=256)
+    ap.add_argument("--gw-samples", type=int, default=131072)
+    ap.add_argument("--gw-range-queries", type=int, default=1024)
+    ap.add_argument("--gw-analytics-queries", type=int, default=768)
     ap.add_argument("--trace", type=pathlib.Path, default=None,
                     help="also time the main path by stage and profile it; write to this dir")
     args = ap.parse_args()
@@ -674,6 +959,7 @@ def main() -> None:
     from repro_torch.kernels import dequant as DQ
     from repro_torch.kernels import rans as rk
     from repro_torch.kernels import residual_quant as RQ
+    from repro_torch.kernels import segment_agg as SA
     from repro_torch.models import layers as P_layers
     from repro_torch.serving import kvcache as KV
 
@@ -735,6 +1021,12 @@ def main() -> None:
     kv, kv_rows = kv_path(T, KV, P_layers, ops, RQ, DQ, BF, args.kv_batch, args.seed, dev)
     rows += kv_rows
     print("kv store: " + json.dumps(kv), flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 8: the streamed gateway, range serving and analytics
+    _, sa_row = streamed_path(P, SA, args.gw_series, args.gw_samples, args.gw_range_queries,
+                              args.gw_analytics_queries, args.seed, dev, args.trace)
+    rows.append(sa_row)
     torch.cuda.empty_cache()
 
     if args.trace is not None:

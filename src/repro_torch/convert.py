@@ -7,6 +7,10 @@ never a ``repro`` object, so this module imports nothing of ``repro``:
   ``repro.core.ShrinkConfig``;
 * :func:`series_from_reference` takes the ``SHRK`` bytes of a reference
   ``CompressedSeries`` (``repro.core.cs_to_bytes``);
+* :func:`knowledge_base_from_reference` takes the ``SHKB`` bytes of a
+  reference ``KnowledgeBase`` (``KnowledgeBase.to_bytes()``); a streamed
+  container itself crosses as its ``SHRKS`` bytes, which both packages
+  read;
 * :func:`compressed_tensor_from_reference` takes the fields of a
   ``repro.core.jaxshrink.CompressedTensor`` as numpy arrays, and
   :func:`compressed_tensor_to_reference` gives them back;
@@ -26,6 +30,7 @@ import torch
 
 from .core.device import resolve_device
 from .core.shrink import cs_from_bytes
+from .core.streaming import KnowledgeBase
 from .core.tensorshrink import CompressedTensor
 from .core.types import CompressedSeries, ShrinkConfig
 from .models.layers import AttnCache
@@ -35,6 +40,7 @@ __all__ = [
     "compressed_tensor_from_reference",
     "compressed_tensor_to_reference",
     "config_from_reference",
+    "knowledge_base_from_reference",
     "series_from_reference",
 ]
 
@@ -52,6 +58,12 @@ def series_from_reference(blob: bytes) -> CompressedSeries:
     """The port's view of a reference ``SHRK`` blob (same base, pyramid and
     payload bytes)."""
     return cs_from_bytes(blob)
+
+
+def knowledge_base_from_reference(kb_bytes: bytes) -> KnowledgeBase:
+    """The port's copy of a reference knowledge base: the same entries, in
+    the same positions, with the same refcounts and config."""
+    return KnowledgeBase.from_bytes(kb_bytes)
 
 
 def _bf16(a, device) -> torch.Tensor:

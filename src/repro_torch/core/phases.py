@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .types import ShrinkConfig
@@ -26,6 +27,7 @@ __all__ = [
     "eps_hat_lut",
     "quantize_origin",
     "fluctuation_table",
+    "divide",
 ]
 
 
@@ -144,3 +146,29 @@ def fluctuation_table(
     beta = torch.where(dg > 0, delta_local / dg, torch.zeros_like(delta_local))
     levels = torch.round(beta.clamp(0.0, 1.0) * config.beta_levels).long()
     return levels, eps_hat_lut(config, values.device)[levels]
+
+
+def divide(
+    values: np.ndarray,
+    j: int,
+    L: int,
+    delta_global: float,
+    config: ShrinkConfig,
+) -> tuple[float, int, float]:
+    """Alg. 2 (DIVISION) for one cone at ``j`` on the host: (theta, level,
+    eps_hat).  The streaming codec's incremental scan calls it once per
+    cone on its numpy sample buffer.
+
+    values:       the series so far (float64 [n]).
+    L:            default interval length (pinned once per stream).
+    delta_global: global max - min of the series.
+    """
+    window = values[j : j + max(L, 2)]
+    if window.size >= 2:
+        delta_local = float(window.max() - window.min())
+    else:
+        delta_local = 0.0
+    level = beta_level(delta_local, delta_global, config)
+    eps_hat = eps_hat_for_level(level, config)
+    theta = quantize_origin(float(values[j]), eps_hat)
+    return theta, level, eps_hat

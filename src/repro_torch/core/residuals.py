@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.segment_agg import _div
 from . import entropy
 from .types import ResidualStream
 
@@ -37,11 +38,6 @@ def normalize_tiers(eps_targets: list[float], decimals: int | None) -> list[floa
     if tiers and tiers[-1] == 0.0 and decimals is None:
         raise ValueError("lossless stream requires `decimals`")
     return tiers
-
-
-def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """a / b as a true IEEE division on any device."""
-    return torch.div(a, torch.tensor(b, dtype=a.dtype, device=a.device))
 
 
 def _midpoint_rows_masked(

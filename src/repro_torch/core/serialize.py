@@ -1,12 +1,15 @@
 """Byte-level serialization of the knowledge base and the residual pyramid,
-counterpart of ``repro.core.serialize``: the ``SHRB`` base blob and the
-``SHRR`` v3 residual pyramid blob, byte for byte the reference's layouts
-(normative spec in ``docs/wire-format.md``).  Host code: these are a few
-varints per segment and a directory per series.  The ``SHRKS`` framed
-stream container is not ported yet.
+counterpart of ``repro.core.serialize``: the ``SHRB`` base blob, the
+``SHRR`` v3 residual pyramid blob and the ``SHRKS`` v2 framed stream
+container (append-only frames, a CRC'd footer with the frame directory,
+the knowledge base and an optional ``kb_snapshot_ref``, a 16-byte tail),
+byte for byte the reference's layouts (normative spec in
+``docs/wire-format.md``).  Host code: a few varints per segment, a
+directory per series, a CRC per frame.
 """
 from __future__ import annotations
 
+import dataclasses
 import struct
 import zlib
 
@@ -14,6 +17,8 @@ import numpy as np
 
 from .base import origin_index
 from .errors import (
+    BatcherFinalizedError,
+    ConfigError,
     CorruptFrameError,
     FormatError,
     LayerCorruptError,
@@ -23,6 +28,7 @@ from .errors import (
 from .phases import eps_hat_for_level
 from .types import (
     Base,
+    FrameMeta,
     PyramidLayer,
     ResidualPyramid,
     ResidualStream,
@@ -38,6 +44,12 @@ __all__ = [
     "pyramid_layers",
     "encode_pyramid",
     "decode_pyramid",
+    "FramedWriter",
+    "parse_framed_container",
+    "frame_payload",
+    "kb_snapshot_id",
+    "KBSnapshotRef",
+    "read_snapshot_ref",
 ]
 
 _BASE_MAGIC = b"SHRB"
@@ -47,6 +59,12 @@ _RES_VERSION = 3
 _MODE_CODE = {"midpoint": 0, "exact": 1, "identity": 2}
 _MODE_NAME = {v: k for k, v in _MODE_CODE.items()}
 _RAW_SLOPE = 255
+_STREAM_MAGIC = b"SHRKS"
+_STREAM_END_MAGIC = b"SHRE"
+# v2 appended the kb_snapshot_ref section (flag byte + optional ref) to the
+# footer, after the inline knowledge-base section.  v1 blobs are rejected.
+_STREAM_VERSION = 2
+_TAIL_LEN = 8 + 4 + 4  # u64 footer offset + u32 footer crc + end magic
 
 
 def write_varint(buf: bytearray, x: int) -> None:
@@ -345,3 +363,272 @@ def decode_pyramid(data: bytes, strict: bool = True) -> ResidualPyramid:
             )
         )
     return ResidualPyramid(layers=layers)
+
+
+# --------------------------------------------------------------------- #
+# SHRKS framed stream container (layout in docs/wire-format.md)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class KBSnapshotRef:
+    """Footer pointer from a container to a ``KBStore`` snapshot (the
+    reference's ``serving.kbstore``; the port parses and writes the field
+    but has no store yet): instead of (or in addition to) carrying the
+    whole knowledge base inline, the container records *which* store
+    snapshot holds its lines and how its container-local entry ids map
+    into that snapshot's id space.
+
+    ``remap[i]`` is the store entry id of container-local entry ``i``;
+    ``refs[i]`` is this container's reference count on that line — so a
+    resolver can rebuild the container's private KB view (positional ids,
+    exact refcounts) from the snapshot alone.  ``entries`` is the
+    snapshot's total id space and ``sem_id`` its order-invariant semantic
+    identity (``KnowledgeBase.snapshot_id`` over live lines) — both are
+    cross-checked at resolve time so a ref never silently binds to the
+    wrong snapshot."""
+
+    version: int
+    entries: int
+    sem_id: int
+    remap: tuple[int, ...] = ()
+    refs: tuple[int, ...] = ()
+
+
+class FramedWriter:
+    """Append-only writer for the ``SHRKS`` container.
+
+    Frames are appended in seal order (any interleaving of series);
+    ``finish`` emits the directory footer + knowledge-base section + tail.
+    """
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+        self._buf += _STREAM_MAGIC
+        self._buf.append(_STREAM_VERSION)
+        self._frames: list[FrameMeta] = []
+        self._finished = False
+
+    def add_frame(
+        self, series_id: int, t_lo: int, t_hi: int, kb_epoch: int, payload: bytes
+    ) -> FrameMeta:
+        if self._finished:
+            raise BatcherFinalizedError("container already finished")
+        if t_hi <= t_lo:
+            raise ConfigError(
+                f"empty frame range [{t_lo}, {t_hi})", series_id=int(series_id)
+            )
+        meta = FrameMeta(
+            series_id=int(series_id),
+            t_lo=int(t_lo),
+            t_hi=int(t_hi),
+            kb_epoch=int(kb_epoch),
+            offset=len(self._buf),
+            length=len(payload),
+            crc32=zlib.crc32(payload) & 0xFFFFFFFF,
+        )
+        self._buf += payload
+        self._frames.append(meta)
+        return meta
+
+    def finish(
+        self, kb_bytes: bytes = b"", snapshot_ref: KBSnapshotRef | None = None
+    ) -> bytes:
+        if self._finished:
+            raise BatcherFinalizedError("container already finished")
+        self._finished = True
+        footer = bytearray()
+        write_varint(footer, len(self._frames))
+        for m in self._frames:
+            write_varint(footer, m.series_id)
+            write_varint(footer, m.t_lo)
+            write_varint(footer, m.t_hi - m.t_lo)
+            write_varint(footer, m.kb_epoch)
+            write_varint(footer, m.offset)
+            write_varint(footer, m.length)
+            footer += struct.pack("<I", m.crc32)
+        write_varint(footer, len(kb_bytes))
+        footer += kb_bytes
+        if snapshot_ref is None:
+            footer.append(0)
+        else:
+            if len(snapshot_ref.remap) != len(snapshot_ref.refs):
+                raise ConfigError(
+                    "kb_snapshot_ref remap/refs length mismatch "
+                    f"({len(snapshot_ref.remap)} != {len(snapshot_ref.refs)})"
+                )
+            footer.append(1)
+            write_varint(footer, snapshot_ref.version)
+            write_varint(footer, snapshot_ref.entries)
+            footer += struct.pack("<I", snapshot_ref.sem_id & 0xFFFFFFFF)
+            write_varint(footer, len(snapshot_ref.remap))
+            prev = 0
+            for sid in snapshot_ref.remap:
+                _write_svarint(footer, sid - prev)
+                prev = sid
+            for r in snapshot_ref.refs:
+                write_varint(footer, r)
+        footer_offset = len(self._buf)
+        self._buf += footer
+        self._buf += struct.pack("<QI", footer_offset, zlib.crc32(bytes(footer)) & 0xFFFFFFFF)
+        self._buf += _STREAM_END_MAGIC
+        return bytes(self._buf)
+
+
+def _parse_footer(
+    blob: bytes,
+) -> tuple[list[FrameMeta], bytes, KBSnapshotRef | None]:
+    blob = bytes(blob)
+    if len(blob) < 6 or blob[:5] != _STREAM_MAGIC:
+        raise FormatError("bad container magic: not a SHRKS blob")
+    if blob[5] != _STREAM_VERSION:
+        raise FormatError(
+            f"unsupported SHRKS version {blob[5]} "
+            f"(this build reads v{_STREAM_VERSION} only)"
+        )
+    if len(blob) < 6 + _TAIL_LEN:
+        raise TruncatedArchiveError("truncated SHRKS container: missing tail")
+    if blob[-4:] != _STREAM_END_MAGIC:
+        raise TruncatedArchiveError(
+            "truncated SHRKS container: bad end magic", offset=len(blob) - 4
+        )
+    footer_offset, footer_crc = struct.unpack_from("<QI", blob, len(blob) - _TAIL_LEN)
+    if footer_offset < 6 or footer_offset > len(blob) - _TAIL_LEN:
+        raise CorruptFrameError(
+            "corrupt SHRKS container: footer offset out of range",
+            offset=footer_offset,
+        )
+    footer = blob[footer_offset : len(blob) - _TAIL_LEN]
+    if zlib.crc32(footer) & 0xFFFFFFFF != footer_crc:
+        raise CorruptFrameError(
+            "corrupt SHRKS container: footer CRC mismatch", offset=footer_offset
+        )
+    try:
+        pos = 0
+        n_frames, pos = read_varint(footer, pos)
+        metas: list[FrameMeta] = []
+        for i in range(n_frames):
+            sid, pos = read_varint(footer, pos)
+            t_lo, pos = read_varint(footer, pos)
+            n, pos = read_varint(footer, pos)
+            epoch, pos = read_varint(footer, pos)
+            off, pos = read_varint(footer, pos)
+            ln, pos = read_varint(footer, pos)
+            (crc,) = struct.unpack_from("<I", footer, pos)
+            pos += 4
+            if off + ln > footer_offset:
+                raise CorruptFrameError(
+                    "corrupt SHRKS container: frame extends into footer",
+                    series_id=sid, frame_index=i, offset=off,
+                )
+            metas.append(
+                FrameMeta(
+                    series_id=sid, t_lo=t_lo, t_hi=t_lo + n, kb_epoch=epoch,
+                    offset=off, length=ln, crc32=crc,
+                )
+            )
+        kb_len, pos = read_varint(footer, pos)
+        if pos + kb_len > len(footer):
+            raise CorruptFrameError(
+                "corrupt SHRKS container: knowledge-base section length mismatch"
+            )
+        kb_bytes = bytes(footer[pos : pos + kb_len])
+        pos += kb_len
+        if pos >= len(footer):
+            raise TruncatedArchiveError(
+                "truncated SHRKS container: missing kb_snapshot_ref flag"
+            )
+        flag = footer[pos]
+        pos += 1
+        ref: KBSnapshotRef | None = None
+        if flag == 1:
+            version, pos = read_varint(footer, pos)
+            entries, pos = read_varint(footer, pos)
+            (sem_id,) = struct.unpack_from("<I", footer, pos)
+            pos += 4
+            n_ref, pos = read_varint(footer, pos)
+            remap: list[int] = []
+            prev = 0
+            for _ in range(n_ref):
+                d, pos = _read_svarint(footer, pos)
+                prev += d
+                if not 0 <= prev < entries:
+                    raise CorruptFrameError(
+                        "corrupt SHRKS container: kb_snapshot_ref remap id "
+                        f"{prev} outside snapshot id space [0, {entries})"
+                    )
+                remap.append(prev)
+            refs: list[int] = []
+            for _ in range(n_ref):
+                r, pos = read_varint(footer, pos)
+                refs.append(r)
+            ref = KBSnapshotRef(
+                version=version,
+                entries=entries,
+                sem_id=sem_id,
+                remap=tuple(remap),
+                refs=tuple(refs),
+            )
+        elif flag != 0:
+            raise CorruptFrameError(
+                f"corrupt SHRKS container: bad kb_snapshot_ref flag {flag}"
+            )
+        if pos != len(footer):
+            raise CorruptFrameError(
+                "corrupt SHRKS container: trailing bytes after footer "
+                f"({len(footer) - pos} byte(s))"
+            )
+    except ShrinkError:
+        raise
+    except (IndexError, struct.error) as e:
+        raise CorruptFrameError(
+            f"corrupt SHRKS container: footer parse failed: {e}"
+        ) from e
+    return metas, kb_bytes, ref
+
+
+def parse_framed_container(blob: bytes) -> tuple[list[FrameMeta], bytes]:
+    """Validate head/tail/footer of a ``SHRKS`` container and return
+    (frame directory, kb_bytes).  Raises a :class:`ShrinkError` subclass
+    on foreign, truncated, or corrupt input (including a footer CRC
+    mismatch).  Frame *payload* CRCs are NOT checked here — see
+    ``frame_payload``.  The optional ``kb_snapshot_ref`` footer field is
+    validated structurally here too; read it with
+    :func:`read_snapshot_ref`."""
+    metas, kb_bytes, _ = _parse_footer(blob)
+    return metas, kb_bytes
+
+
+def read_snapshot_ref(blob: bytes) -> KBSnapshotRef | None:
+    """The container's ``kb_snapshot_ref`` footer field, or ``None`` for a
+    self-contained container.  Same validation/raising as
+    :func:`parse_framed_container`."""
+    _, _, ref = _parse_footer(blob)
+    return ref
+
+
+def kb_snapshot_id(kb_bytes: bytes) -> int:
+    """Routing identity of a container's serialized knowledge-base
+    snapshot: the CRC-32 of the footer's ``SHKB`` blob (0 for containers
+    written without one).  Two containers carrying byte-identical KB
+    snapshots — e.g. replicas of one shard — share an id; a snapshot that
+    gained entries gets a new one.  This identifies a concrete *serialized
+    snapshot*; for the insertion-order-invariant semantic identity use
+    ``KnowledgeBase.snapshot_id()`` (``core/streaming.py``)."""
+    return zlib.crc32(bytes(kb_bytes)) & 0xFFFFFFFF if kb_bytes else 0
+
+
+def frame_payload(blob: bytes, meta: FrameMeta, verify_crc: bool = True) -> bytes:
+    """Extract one frame's payload (a complete ``SHRK`` blob), checking its
+    directory CRC unless ``verify_crc=False``."""
+    payload = bytes(blob[meta.offset : meta.offset + meta.length])
+    if len(payload) != meta.length:
+        raise TruncatedArchiveError(
+            "truncated SHRKS container: frame payload cut short",
+            series_id=meta.series_id, offset=meta.offset,
+        )
+    if verify_crc and zlib.crc32(payload) & 0xFFFFFFFF != meta.crc32:
+        raise CorruptFrameError(
+            f"frame payload CRC mismatch (series {meta.series_id}, "
+            f"samples [{meta.t_lo}, {meta.t_hi}))",
+            series_id=meta.series_id, offset=meta.offset,
+        )
+    return payload

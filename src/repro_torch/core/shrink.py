@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.segment_agg import _div
 from . import entropy
 from .base import (
     base_predictions,
@@ -45,7 +46,6 @@ from .errors import (
     TruncatedArchiveError,
 )
 from .residuals import (
-    _div,
     encode_residuals_batch,
     normalize_tiers,
     quantize_pyramid_batch,
@@ -63,6 +63,7 @@ __all__ = [
     "decompress_at",
     "encode_frames_with_bases",
     "encode_with_base",
+    "original_size_bytes",
 ]
 
 _CONTAINER_MAGIC = b"SHRK"
@@ -71,6 +72,10 @@ _CONTAINER_VERSION = 2
 # original size is accounted as 16 bytes/row (timestamp + value, two
 # float64), the same accounting as the reference's benchmarks
 BYTES_PER_ROW = 16
+
+
+def original_size_bytes(n: int) -> int:
+    return BYTES_PER_ROW * n
 
 
 def _as_values(values, device: torch.device) -> torch.Tensor:
@@ -271,18 +276,44 @@ class ProgressiveDecoder:
         self._depth = -1
         self.layers_decoded = 0
 
+    @property
+    def depth(self) -> int:
+        """Deepest decoded layer index (-1 = base predictions only)."""
+        return self._depth
+
+    def intact_depth(self) -> int:
+        """Deepest layer index reachable without crossing a quarantined
+        (``corrupt``) layer (-1 = base only): layer k refines the error of
+        the prefix through k - 1, so nothing below a corrupt layer decodes."""
+        for k, layer in enumerate(self._layers):
+            if layer.corrupt:
+                return k - 1
+        return len(self._layers) - 1
+
     def guarantee(self, k: int | None = None) -> float:
+        """Error bound of the prefix through layer ``k`` (default: the
+        deepest decoded prefix)."""
         d = self._depth if k is None else k
         g = self.cs.eps_b_practical
         if d >= 0:
             g = min(g, self._layers[d].eps)
         return g
 
-    def prefix(self, k: int) -> torch.Tensor:
-        """Reconstruction through layer ``k`` (-1 = base only)."""
+    def available(self) -> tuple[torch.Tensor, float] | None:
+        """The deepest reconstruction already materialized and its
+        guarantee, with no entropy work; ``None`` before any decode."""
+        if self._recons[self._depth + 1] is None:
+            return None
+        return self._recons[self._depth + 1], self.guarantee()
+
+    def _ensure_base(self) -> None:
         if self._recons[0] is None:
             base = self.cs.base if self.cs.base is not None else decode_base(self.cs.base_bytes)
             self._recons[0] = base_predictions(base, self.device)
+
+    def prefix(self, k: int) -> torch.Tensor:
+        """Reconstruction through layer ``k`` (-1 = base only)."""
+        self._ensure_base()
         if k > self._depth:
             recon = self._recons[self._depth + 1]
             for d in range(self._depth + 1, k + 1):

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .entropy import backend_name
 from .errors import ConfigError
 
 # Multiplier grid for the adaptive threshold (Eq. 4): beta is quantized to
@@ -121,6 +122,16 @@ class PyramidLayer:
     payload: Optional[bytes]
     corrupt: bool = False
 
+    def nbytes(self) -> int:
+        return len(self.payload) if self.payload is not None else 0
+
+    def backend(self) -> Optional[str]:
+        """Entropy backend of this layer's payload (its leading tag byte),
+        or None for identity and quarantined layers."""
+        if self.payload is None or not len(self.payload):
+            return None
+        return backend_name(self.payload[0])
+
 
 @dataclasses.dataclass
 class ResidualPyramid:
@@ -147,6 +158,18 @@ class ResidualPyramid:
             f"{self.tiers()} (base-only above {eps_b_practical!r})"
         )
 
+    def backend_stats(self) -> dict[str, dict[str, int]]:
+        """Per-backend ``{"streams": count, "bytes": payload bytes}``."""
+        out: dict[str, dict[str, int]] = {}
+        for layer in self.layers:
+            b = layer.backend()
+            if b is None:
+                continue
+            d = out.setdefault(b, {"streams": 0, "bytes": 0})
+            d["streams"] += 1
+            d["bytes"] += layer.nbytes()
+        return out
+
 
 @dataclasses.dataclass
 class CompressedSeries:
@@ -160,3 +183,35 @@ class CompressedSeries:
 
     def tiers(self) -> list[float]:
         return self.pyramid.tiers()
+
+    def backend_stats(self) -> dict[str, dict[str, int]]:
+        """Per-backend stream/byte counts of this series' residual layers."""
+        return self.pyramid.backend_stats()
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameMeta:
+    """Directory entry of one frame of a ``SHRKS`` framed container: the
+    samples [t_lo, t_hi) of one series, whose ``SHRK`` payload lies at
+    [offset, offset + length) of the container; ``kb_epoch`` is the shared
+    knowledge base's entry count when the frame sealed."""
+
+    series_id: int
+    t_lo: int
+    t_hi: int
+    kb_epoch: int
+    offset: int
+    length: int
+    crc32: int
+
+
+def merge_backend_stats(
+    acc: dict[str, dict[str, int]], more: dict[str, dict[str, int]]
+) -> dict[str, dict[str, int]]:
+    """Accumulate one ``backend_stats()`` result into ``acc`` (in place and
+    returned)."""
+    for b, d in more.items():
+        a = acc.setdefault(b, {"streams": 0, "bytes": 0})
+        a["streams"] += d["streams"]
+        a["bytes"] += d["bytes"]
+    return acc

@@ -27,7 +27,7 @@ import threading
 
 __all__ = ["KERNELS", "build_all", "check", "function", "launches", "reset_launches"]
 
-KERNELS = ("cone_scan", "rans", "residual_quant", "dequant", "base_fit")
+KERNELS = ("cone_scan", "rans", "residual_quant", "dequant", "base_fit", "segment_agg")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = [
@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 
 launches: dict[str, int] = {
     "cone_scan": 0, "rans_encode": 0, "rans_decode": 0, "residual_quant": 0, "dequant": 0,
-    "base_fit": 0,
+    "base_fit": 0, "segment_agg": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,7 @@ from .rans import ID_SYM as RANS_ID_SYM
 from .rans import decode_rows as rans_decode_rows
 from .rans import encode_rows as rans_encode_rows
 from .residual_quant import residual_quant
+from .segment_agg import segment_agg
 
 __all__ = [
     "base_fit",
@@ -36,6 +37,7 @@ __all__ = [
     "rans_encode_rows",
     "reset_launches",
     "residual_quant",
+    "segment_agg",
 ]
 
 

@@ -5,7 +5,8 @@ exactly (the cone scan also in its masked mode); the device codec against
 the CPU codec (SHRK bytes) and against the reference codec
 (``repro.core``, which needs numpy and not JAX, so this file runs on a
 card machine without JAX), on rectangular and ragged batches; the tensor
-codec (its base fit too) and the KV store on the card against the CPU.  Without a card every test
+codec (its base fit too), the KV store, a streamed SHRKS container and the
+analytics engine on the card against the CPU.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -25,6 +26,7 @@ from repro_torch.kernels import dequant as DQ
 from repro_torch.kernels import ops
 from repro_torch.kernels import rans
 from repro_torch.kernels import residual_quant as RQ
+from repro_torch.kernels import segment_agg as SA
 from repro_torch.models.layers import AttnCache
 from repro_torch.serving import kvcache
 
@@ -212,3 +214,58 @@ def test_kv_store_on_card_equals_cpu(card):
     assert qg.memory_bits() == qc.memory_bits()
     assert caches["groups"]["pos0"]["self"].k.shape[2] == 64
     assert T.decompress_tensor(qg.k).device.type == "cuda"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segment_agg_kernel_equals_plain(card, dtype):
+    rng = np.random.default_rng(9)
+    m = 5000
+    a = rng.integers(0, 1 << 20, m).astype(np.float64)
+    b = a + rng.integers(-8, 1 << 18, m)  # empty windows and windows past 2^17
+    cols = [torch.as_tensor(x.reshape(m, 1), dtype=dtype, device=card) for x in (
+        np.round(rng.standard_normal(m) * 40, 3), rng.standard_normal(m) * 1e-3, a, b)]
+    cols[0][:4] = torch.tensor([[-0.0], [0.0], [-0.0], [0.0]], dtype=dtype)
+    cols[1][:4] = torch.tensor([[-0.0], [-0.0], [2.0], [0.0]], dtype=dtype)
+    before = ops.launches["segment_agg"]
+    got = SA.segment_agg(*cols)
+    assert ops.launches["segment_agg"] == before + 1
+    want = SA.segment_agg_plain(*cols)
+    for g, w in zip(got, want):
+        assert g.shape == (m, 1) and g.dtype == dtype
+        assert torch.equal(_fbits(g), _fbits(w))
+
+
+def _fbits(a: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int64 if a.dtype == torch.float64 else torch.int32)
+
+
+def test_streamed_container_and_analytics_on_card_equal_cpu(card):
+    from repro_torch.analytics import AnalyticsEngine
+    from repro_torch.launch import serve
+
+    v = serve.sensor_values(4, 6000, 2)
+    vrng = float(v.max() - v.min())
+    tiers = [1e-2 * vrng, 1e-3 * vrng, 0.0]
+    cfg = P.ShrinkConfig(eps_b=0.02 * vrng, lam=1e-4)
+    blobs, answers = [], []
+    for dev in (card, "cpu"):
+        sc = P.ShrinkStreamCodec(cfg, tiers, decimals=4, backend="rans",
+                                 value_range=(float(v.min()), float(v.max())),
+                                 frame_len=1024, device=dev)
+        for c0 in range(0, v.shape[1], 700):
+            for sid in range(v.shape[0]):
+                sc.ingest(v[sid, c0 : c0 + 700], series_id=sid)
+        blobs.append(sc.finalize())
+        eng = AnalyticsEngine(blobs[0], cache_frames=4, device=dev)
+        ops.reset_launches()
+        found: list = []
+        res = serve.analytics_traffic(eng, v, 60, 1024, tiers, answers=found)
+        assert res["failed"] == 0
+        answers.append(([a.__dict__ for a in found], eng.stats))
+        if dev == card:
+            assert ops.launches["segment_agg"] > 0 and ops.launches["rans_decode"] > 0
+    assert blobs[0] == blobs[1]
+    assert answers[0] == answers[1]
+    for sid in range(4):
+        got = P.decode_series(blobs[0], sid, 0.0, device=card).cpu().numpy()
+        assert np.array_equal(got, R.decode_series(blobs[0], sid, 0.0))

@@ -20,6 +20,8 @@ def test_fresh_import_leaves_jax_and_repro_out():
         "import repro_torch, repro_torch.core.shrink, repro_torch.kernels.ops, repro_torch.convert\n"
         "import repro_torch.core.tensorshrink, repro_torch.serving.kvcache\n"
         "import repro_torch.models.layers\n"
+        "import repro_torch.core.streaming, repro_torch.analytics, repro_torch.serving.batching\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
