@@ -5,6 +5,7 @@
                           [--ragged-series 1024] [--kv-batch 4]
                           [--gw-series 256] [--gw-samples 131072]
                           [--gw-range-queries 1024] [--gw-analytics-queries 768]
+                          [--lm-batch 4] [--lm-len 2048] [--lm-decode 16]
                           [--trace DIR]
 
 Phases, each of which must pass (any failure exits non-zero before the
@@ -59,12 +60,30 @@ result line):
    ``segment_agg`` against its plain version: float64 on the largest
    input the path gave it and on one launch over every segment of the
    container, float32 on the same rows.
+9. dense model at full width and depth: llama3-8b
+   (``src/repro/configs/llama3_8b.py``: 32 layers, d_model 4096, 32 heads,
+   8 KV heads, head_dim 128, d_ff 14336, vocab 128256; 8,030,261,248 bf16
+   params from a seeded generator on the card) prefills 4 x 2048 seeded
+   tokens through ``Model.prefill``: one ``flash_attention`` launch a
+   layer (32).  The kernel against its plain version on layer 0's q, k, v
+   (bf16 at 3e-2, float32 at 2e-5, a length of 2000 that is not a multiple
+   of the tile), timed beside its plain version, the bound, and PyTorch's
+   ``scaled_dot_product_attention`` (timed only, never on the path).  The
+   prefill caches grafted into decode buffers, 16 greedy decode steps,
+   each step's logits held to one forward pass over the extended prompt
+   at the reference's bound (atol 0.35, rtol 0.05, top-1 >= 0.99 off
+   near ties).  The CPU route: the embeddings, the head and the first 2
+   layers prefill 1 x 256 tokens on the CPU and on the card (logits at
+   atol 0.1, rtol 0.05).  Then ``repro_torch.launch.serve.main`` with
+   ``--mode model --arch llama3-8b`` at its defaults (16 requests, 8 slots,
+   8 new tokens, max_seq 128) must serve every request.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
 With ``--trace DIR`` phase 8 also profiles an eighth of its ingest and
 128 of its analytics queries (torch.profiler: device busy share and top
-device ops; cProfile: the host functions with the most time), and a last
+device ops; cProfile: the host functions with the most time), phase 9 a
+prefill and four decode steps (torch.profiler), and a last
 phase times the main path stage by stage
 (the codec's own functions, called in its order) and traces one
 compress_batch and the lossless decode of 64 series with torch.profiler:
@@ -78,8 +97,12 @@ The last two lines are the kernels line and the result line:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +133,13 @@ KV_CHUNK_ROWS = 1 << 20  # rows per pass of the plain versions' comparisons
 GW_FRAME, GW_CHUNK, GW_CACHE = 8192, 4096, 32
 GW_CPU_SERIES, GW_CPU_QUERIES = 8, 64
 GW_QUERY_SEED = 1  # the reference launcher's query seed
+# phase 9: llama3-8b at full width and depth (src/repro/configs/llama3_8b.py)
+LM_ARCH = "llama3-8b"
+LM_CPU_LAYERS, LM_CPU_LEN = 2, 256  # the CPU route's layers and prompt
+CPU_ROUTE_TOL = (0.1, 0.05)  # tests/test_torch_models.py's logit bound
+FLASH_BF16_TOL, FLASH_F32_TOL = 3e-2, 2e-5  # tests/test_kernels.py's bounds
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+SERVE_REQUESTS = 16  # the serve launcher's default
 
 
 def fail(msg: str) -> None:
@@ -905,6 +935,230 @@ def device_busy(trace_path: pathlib.Path) -> tuple[float, dict]:
     return busy_us / 1e3, by_name
 
 
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _first(tree, n: int):
+    """The first n layers of a stacked params tree."""
+    if isinstance(tree, dict):
+        return {k: _first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def logits_agree(want, got, what: str, tol=(0.35, 0.05)) -> dict:
+    """Hold logits [..., V] within (atol, rtol) = ``tol`` (by default the
+    reference's prefill-vs-decode bound, ``tests/test_models_smoke.py``)
+    and at top-1 agreement >= 0.99; a row whose top-1 differs counts
+    against the 0.99 unless its reference margin is within twice that row's
+    largest difference (a near tie)."""
+    want, got = want.float(), got.float()
+    atol, rtol = tol
+    check(bool(torch.allclose(got, want, atol=atol, rtol=rtol)),
+          f"{what}: logits outside atol {atol}, rtol {rtol} "
+          f"(max |diff| {float((got - want).abs().max())})")
+    same = want.argmax(-1) == got.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * (got - want).abs().amax(-1)
+    agree = float(same.float().mean())
+    check(agree >= 0.99 or bool((same | tie).all()),
+          f"{what}: top-1 agreement {agree} below 0.99 off near ties")
+    return {"max_abs_diff": float((got - want).abs().max()), "top1_agreement": agree,
+            "rows": int(same.numel())}
+
+
+def check_flash(FA, q, k, v, launches: dict) -> dict:
+    """The flash kernel against its plain version on layer 0's q, k, v of
+    the prefill (bf16), the same in float32, and a length that is not a
+    multiple of the 64-row tile; then its time, its plain version's, the
+    PyTorch SDPA call's (timed only) and the bound."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    errs = {}
+    cases = [("bf16", (q, k, v), FLASH_BF16_TOL), ("f32", (q.float(), k.float(), v.float()),
+             FLASH_F32_TOL), ("bf16_len_2000", (q[:, :2000], k[:, :2000], v[:, :2000]),
+             FLASH_BF16_TOL)]
+    for name, args, tol in cases:
+        got = FA.flash_attention_cuda(*args, causal=True)
+        want = FA.flash_attention_plain(*args, causal=True)
+        errs[name] = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+              f"flash_attention {name} differs from its plain version (max err {errs[name]})")
+        del got, want
+    ms = event_ms(lambda: FA.flash_attention_cuda(q, k, v, causal=True), 10)
+    plain_ms = event_ms(lambda: FA.flash_attention_plain(q, k, v, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    pairs = sq * (sq + 1) // 2  # causal (q, k) pairs of a prefill, Sk == Sq
+    nops = 4 * b * h * d * pairs  # q k^T and p v, a multiply and an add each
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    row = kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:31", launches, errs["bf16"], ms,
+                     plain_ms, nbytes, nops, BF16_OPS_PER_S, list(q.shape) + [kvh])
+    row.update(library_ms=library_ms, library="torch.nn.functional.scaled_dot_product_attention"
+               "(is_causal=True, enable_gqa=True)", dtype="bfloat16",
+               f32_max_abs_err=errs["f32"], len_2000_max_abs_err=errs["bf16_len_2000"],
+               tolerance={"bf16": FLASH_BF16_TOL, "f32": FLASH_F32_TOL})
+    return row
+
+
+def profile_model(m, params, toks, dev, out_dir: pathlib.Path) -> dict:
+    """Phase 9 under ``--trace``: one prefill and four decode steps (fresh
+    caches of the path's length) under torch.profiler: device busy share,
+    top device ops, device events (kernels and copies), a Chrome trace in
+    ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s = toks.shape
+    dec = m.make_decode_caches(b, s + 4, device=dev)
+    jobs = {
+        "prefill": lambda: m.prefill(params, {"tokens": toks}),
+        "decode_4_steps": lambda: [m.decode_step(params, toks[:, :1], dec, s + i)
+                                   for i in range(4)],
+    }
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, job in jobs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall0 = time.perf_counter()
+            job()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall0
+        path = out_dir / f"model_{name}_trace.json"
+        prof.export_chrome_trace(str(path))
+        busy_ms, ops_ms = device_busy(path)
+        res[name] = {
+            "wall_s": wall, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
+            "device_events": sum(r["calls"] for r in ops_ms.values()),
+            "top_device_ops": dict(sorted(ops_ms.items(), key=lambda kv: -kv[1]["device_ms"])[:8]),
+        }
+    (out_dir / "model_trace_summary.json").write_text(json.dumps(res, indent=1))
+    return res
+
+
+def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev,
+               trace: pathlib.Path | None = None):
+    """Phase 9: a dense model (llama3-8b's full width and depth) on the
+    card: prefill, the kernel against its plain version on the path's own
+    inputs, prefill -> decode, the CPU route.  Returns (stats, flash row)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+
+    m = build_model(cfg)
+    params, init_s = sync_time(lambda: m.init(seed=seed, device=dev))
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, length), generator=g, device=dev)
+    with torch.inference_mode():
+        m.prefill(params, {"tokens": toks[:1, :128]})  # warm-up: cuBLAS and the kernel library
+        rec = Recorder(ops, "flash_attention")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        try:
+            (logits, caches), prefill_s = sync_time(lambda: m.prefill(params, {"tokens": toks}))
+            launches = dict(ops.launches)
+        finally:
+            rec.restore()
+        peak = torch.cuda.max_memory_allocated()
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"prefill launched flash_attention {launches['flash_attention']} times, "
+              f"not once a layer ({cfg.n_layers})")
+        check(tuple(logits.shape) == (batch, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits.float()).all()), "prefill logits")
+        pc = caches["groups"]["pos0"]["self"]
+        check(tuple(pc.k.shape) == (cfg.n_layers, batch, length, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim), f"prefill caches {tuple(pc.k.shape)}")
+        (q, k, v), _ = rec.args
+        row = check_flash(FA, q, k, v, launches)
+        del q, k, v, rec
+
+        # prefill -> decode: graft the caches, decode greedily, and hold each
+        # step's logits to one forward pass over the extended prompt
+        dec = m.make_decode_caches(batch, length + steps, device=dev)
+        dc = dec["groups"]["pos0"]["self"]
+        dc.k[:, :, :length], dc.v[:, :, :length], dc.kpos[:, :, :length] = pc.k, pc.v, pc.kpos
+        del caches, pc
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        fed, dec_logits, step_s = [], [], []
+        for i in range(steps):
+            fed.append(tok)
+            (out, dec), dt = sync_time(lambda: m.decode_step(params, tok, dec, length + i))
+            step_s.append(dt)
+            dec_logits.append(out[:, 0])
+            tok = out[:, -1].argmax(-1, keepdim=True)
+        del dec
+        profiled = profile_model(m, params, toks, dev, trace) if trace is not None else None
+        ext = torch.cat([toks] + fed, dim=1)
+        pos = torch.arange(length + steps, device=dev, dtype=torch.int32)[None].expand(batch, -1)
+        x, _ = T.apply_stack(params, T.embed_tokens(params, ext, cfg), cfg, mode="train",
+                             positions=pos)
+        full = T.logits_from(params, x[:, length:], cfg)
+        del x
+        decode = logits_agree(full, torch.stack(dec_logits, dim=1), "decode after prefill")
+
+        # the CPU route: the embeddings, the head and the first layers, on
+        # the CPU (plain versions) and on the card (the kernel)
+        sm = build_model(dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS))
+        sub = dict(params, groups={"pos0": _first(params["groups"]["pos0"], LM_CPU_LAYERS)})
+        short = toks[:1, :LM_CPU_LEN]
+        ops.reset_launches()
+        card_logits, card_c = sm.prefill(sub, {"tokens": short})
+        check(ops.launches["flash_attention"] == LM_CPU_LAYERS, "CPU-route check: launches")
+        sub_cpu = _tree_to(sub, "cpu")
+        (cpu_logits, cpu_c), cpu_s = sync_time(
+            lambda: sm.prefill(sub_cpu, {"tokens": short.cpu()}))
+        cpu_route = logits_agree(cpu_logits, card_logits.cpu(), "CPU route", CPU_ROUTE_TOL)
+        cpu_route["cache_k_max_abs_diff"] = float(
+            (card_c["groups"]["pos0"]["self"].k.cpu().float()
+             - cpu_c["groups"]["pos0"]["self"].k.float()).abs().max())
+        cpu_route.update(layers=LM_CPU_LAYERS, tokens=LM_CPU_LEN, cpu_prefill_s=cpu_s)
+        del sub_cpu, sub, params
+    stats = {
+        "arch": cfg.name, "params": n_params, "param_bytes": 2 * n_params,
+        "init_s": init_s, "batch": batch, "prompt_len": length, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": batch * length / prefill_s,
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "decode_steps": steps, "decode_s": sum(step_s), "decode_first_step_s": step_s[0],
+        "decode_step_median_s": float(np.median(step_s[1:] or step_s)),
+        "decode_vs_forward": decode,
+        "cpu_route": cpu_route,
+    }
+    if profiled is not None:
+        stats["trace"] = profiled
+    return stats, row
+
+
+def serve_model_path(serve, arch: str) -> dict:
+    """``serve --mode model --arch <arch>`` at the launcher's defaults,
+    through its ``main``; its report line is parsed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--mode", "model", "--arch", arch])
+    out = buf.getvalue().strip()
+    print(out, flush=True)
+    got = re.search(r"served (\d+) requests, (\d+) tokens, ([\d.]+)s \(([\d.]+) tok/s\), "
+                    r"failed=(\d+)", out)
+    check(rc == 0 and got is not None and int(got.group(5)) == 0, f"serve --mode model: {out}")
+    check(int(got.group(1)) == SERVE_REQUESTS, f"serve --mode model served {got.group(1)}")
+    return {"requests": int(got.group(1)), "tokens": int(got.group(2)),
+            "seconds": float(got.group(3)), "tokens_per_s": float(got.group(4))}
+
+
 def golden_series() -> np.ndarray:
     t = np.arange(GOLDEN_N, dtype=np.float64)
     v = np.sin(t * 0.02) * 2.5 + 0.3 * np.sign(np.sin(t * 0.15)) + 1e-3 * t
@@ -941,6 +1195,9 @@ def main() -> None:
     ap.add_argument("--gw-samples", type=int, default=131072)
     ap.add_argument("--gw-range-queries", type=int, default=1024)
     ap.add_argument("--gw-analytics-queries", type=int, default=768)
+    ap.add_argument("--lm-batch", type=int, default=4)
+    ap.add_argument("--lm-len", type=int, default=2048)
+    ap.add_argument("--lm-decode", type=int, default=16)
     ap.add_argument("--trace", type=pathlib.Path, default=None,
                     help="also time the main path by stage and profile it; write to this dir")
     args = ap.parse_args()
@@ -951,15 +1208,18 @@ def main() -> None:
         fail(f"the port's package is missing: {SRC / 'repro_torch'}")
     sys.path.insert(0, str(SRC))
     import repro_torch.core as P
+    from repro_torch.configs import get_config
     from repro_torch.core import entropy as E
     from repro_torch.core import tensorshrink as T
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import base_fit as BF
     from repro_torch.kernels import cone_scan as cs_mod
     from repro_torch.kernels import dequant as DQ
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rans as rk
     from repro_torch.kernels import residual_quant as RQ
     from repro_torch.kernels import segment_agg as SA
+    from repro_torch.launch import serve
     from repro_torch.models import layers as P_layers
     from repro_torch.serving import kvcache as KV
 
@@ -1027,6 +1287,16 @@ def main() -> None:
     _, sa_row = streamed_path(P, SA, args.gw_series, args.gw_samples, args.gw_range_queries,
                               args.gw_analytics_queries, args.seed, dev, args.trace)
     rows.append(sa_row)
+    torch.cuda.empty_cache()
+
+    # phase 9: llama3-8b at full width and depth: prefill through the flash
+    # kernel, decode after prefill, the CPU route, then serve --mode model
+    lm, flash_row = model_path(ops, FA, get_config(LM_ARCH), args.lm_batch, args.lm_len,
+                               args.lm_decode, args.seed, dev, args.trace)
+    rows.append(flash_row)
+    print("model: " + json.dumps(lm), flush=True)
+    torch.cuda.empty_cache()
+    print("serve model: " + json.dumps(serve_model_path(serve, LM_ARCH)), flush=True)
     torch.cuda.empty_cache()
 
     if args.trace is not None:

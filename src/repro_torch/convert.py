@@ -15,7 +15,10 @@ never a ``repro`` object, so this module imports nothing of ``repro``:
   ``repro.core.jaxshrink.CompressedTensor`` as numpy arrays, and
   :func:`compressed_tensor_to_reference` gives them back;
 * :func:`attn_cache_from_reference` takes the k, v and kpos of a
-  ``repro.models.layers.AttnCache`` as numpy arrays.
+  ``repro.models.layers.AttnCache`` as numpy arrays, and
+  :func:`decode_caches_from_reference` a whole cache tree of them;
+* :func:`model_params_from_reference` takes a reference params pytree as
+  nested dicts and lists of numpy arrays.
 
 bf16 arrays come as numpy's ``bfloat16`` extension type (what
 ``np.asarray`` makes of a bf16 JAX array) or as float32 arrays holding
@@ -40,7 +43,9 @@ __all__ = [
     "compressed_tensor_from_reference",
     "compressed_tensor_to_reference",
     "config_from_reference",
+    "decode_caches_from_reference",
     "knowledge_base_from_reference",
+    "model_params_from_reference",
     "series_from_reference",
 ]
 
@@ -120,3 +125,30 @@ def attn_cache_from_reference(k, v, kpos, device=None) -> AttnCache:
         v=_bf16(v, device),
         kpos=torch.from_numpy(np.array(kpos, dtype=np.int32)).to(device),
     )
+
+
+def model_params_from_reference(tree, device=None):
+    """The port's params of a reference ``Model.init`` pytree given as
+    nested dicts and lists of numpy arrays: the same keys, shapes and
+    values; bf16 arrays become bf16 tensors, float32 ones float32."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: model_params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [model_params_from_reference(v, device) for v in tree]
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        return _bf16(a, device)
+    return torch.from_numpy(a).to(device)
+
+
+def decode_caches_from_reference(tree, device=None):
+    """The port's decode caches of a reference cache tree given as nested
+    dicts and lists, each ``AttnCache`` as a dict of numpy k, v and kpos
+    (``dataclasses.asdict``)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict) and set(tree) == {"k", "v", "kpos"}:
+        return attn_cache_from_reference(tree["k"], tree["v"], tree["kpos"], device)
+    if isinstance(tree, dict):
+        return {k: decode_caches_from_reference(v, device) for k, v in tree.items()}
+    return [decode_caches_from_reference(v, device) for v in tree]

@@ -2,12 +2,18 @@
 residual encoding, streamed containers and the segment algebra.  Public
 API re-exports."""
 from .errors import (  # noqa: F401
+    BackpressureError,
+    BatcherFinalizedError,
+    CircuitOpenError,
     ConfigError,
     CorruptFrameError,
+    DeadlineExceededError,
     FormatError,
     LayerCorruptError,
+    QuotaExceededError,
     RangeCoverageError,
     ShrinkError,
+    TransientError,
     TruncatedArchiveError,
     UnknownSeriesError,
 )
@@ -27,7 +33,11 @@ from .phases import (  # noqa: F401
     eps_hat_for_level,
     fluctuation_table,
 )
-from .semantics import extract_semantics, extract_semantics_batch  # noqa: F401
+from .semantics import (  # noqa: F401
+    extract_semantics,
+    extract_semantics_batch,
+    extract_semantics_py,
+)
 from .base import base_predictions, construct_base, practical_eps_b  # noqa: F401
 from .segment_algebra import (  # noqa: F401
     BaseStats,
@@ -37,7 +47,18 @@ from .segment_algebra import (  # noqa: F401
     segment_table,
 )
 from .slope import optimized_slope, shortest_decimal_in_interval  # noqa: F401
-from .residuals import normalize_tiers, quantize_pyramid, quantize_pyramid_batch  # noqa: F401
+from .residuals import (  # noqa: F401
+    compute_residuals,
+    dequantize_exact,
+    dequantize_residuals,
+    normalize_tiers,
+    quantize_exact,
+    quantize_exact_batch,
+    quantize_pyramid,
+    quantize_pyramid_batch,
+    quantize_residuals,
+    quantize_residuals_batch,
+)
 from .shrink import (  # noqa: F401
     BYTES_PER_ROW,
     ProgressiveDecoder,

@@ -19,14 +19,32 @@ import torch
 
 from ..kernels.segment_agg import _div
 from . import entropy
-from .types import ResidualStream
+from .base import base_predictions
+from .types import Base, ResidualStream
 
 __all__ = [
+    "compute_residuals",
+    "dequantize_exact",
+    "dequantize_residuals",
     "encode_residuals_batch",
     "normalize_tiers",
+    "quantize_exact",
+    "quantize_exact_batch",
     "quantize_pyramid",
     "quantize_pyramid_batch",
+    "quantize_residuals",
+    "quantize_residuals_batch",
 ]
+
+
+def _f64(values) -> torch.Tensor:
+    return torch.as_tensor(values).to(torch.float64)
+
+
+def compute_residuals(values, base: Base) -> torch.Tensor:
+    """values - the base's predictions (float64, on values' device)."""
+    values = _f64(values)
+    return values - base_predictions(base, values.device)
 
 
 def normalize_tiers(eps_targets: list[float], decimals: int | None) -> list[float]:
@@ -76,6 +94,67 @@ def _midpoint_rows_masked(
     q = q + ((e - deq) > step / 2).long() - ((deq - e) > step / 2).long()
     deq = rl + (q.double() + 0.5) * step
     return q, r_lo, deq
+
+
+def quantize_residuals(r, eps_r: float) -> ResidualStream:
+    """Lossy path: |dequant - r| <= eps_r."""
+    return quantize_residuals_batch(_f64(r)[None], eps_r)[0]
+
+
+def quantize_residuals_batch(r, eps_r: float, lengths=None) -> list[ResidualStream]:
+    """Batched lossy path over rows r[S, T]; stream i equals
+    ``quantize_residuals(r[i], eps_r)``, or with ``lengths`` (ragged rows
+    padded to T) ``quantize_residuals(r[i, :lengths[i]], eps_r)``."""
+    if eps_r <= 0:
+        raise ValueError("eps_r must be positive for the lossy path")
+    r = _f64(r)
+    s, t = r.shape
+    ends, ns = [t] * s, None
+    if lengths is not None:
+        ends = torch.as_tensor(lengths, dtype=torch.int64).reshape(-1).tolist()
+        ns = torch.tensor(ends, dtype=torch.int64, device=r.device)
+        r = r.masked_fill(torch.arange(t, device=r.device)[None, :] >= ns[:, None], 0.0)
+    q, r_lo, _ = _midpoint_rows_masked(r, eps_r, ns)
+    return [
+        ResidualStream(eps_r=eps_r, step=2.0 * eps_r, r_lo=lo, mode="midpoint", q=q[i, : ends[i]])
+        for i, lo in enumerate(r_lo.tolist())
+    ]
+
+
+def dequantize_residuals(stream: ResidualStream) -> torch.Tensor:
+    if stream.mode == "midpoint":
+        return stream.r_lo + (stream.q.double() + 0.5) * stream.step
+    raise ValueError(f"not a lossy stream: {stream.mode}")
+
+
+def quantize_exact(values, base: Base, decimals: int, pred=None) -> ResidualStream:
+    """Lossless path for fixed-decimal data: q = round(v * 10^d) -
+    round(pred * 10^d), exact int64; ``pred`` defaults to the base's
+    predictions."""
+    values = _f64(values)
+    if pred is None:
+        pred = base_predictions(base, values.device)
+    return quantize_exact_batch(values[None], _f64(pred)[None], decimals)[0]
+
+
+def quantize_exact_batch(values, preds, decimals: int, lengths=None) -> list[ResidualStream]:
+    """Batched lossless path over rows values/preds[S, T]; with ``lengths``
+    each q stream is cut at its row's length."""
+    scale = 10.0**decimals
+    q = torch.round(_f64(values) * scale).long() - torch.round(_f64(preds) * scale).long()
+    ends = [q.shape[1]] * q.shape[0]
+    if lengths is not None:
+        ends = torch.as_tensor(lengths, dtype=torch.int64).reshape(-1).tolist()
+    return [
+        ResidualStream(eps_r=0.0, step=1.0 / scale, r_lo=0.0, mode="exact", q=q[i, : ends[i]])
+        for i in range(q.shape[0])
+    ]
+
+
+def dequantize_exact(stream: ResidualStream, base: Base, decimals: int) -> torch.Tensor:
+    scale = 10.0**decimals
+    p_int = torch.round(base_predictions(base, stream.q.device) * scale).long()
+    return _div((p_int + stream.q).double(), scale)
 
 
 def quantize_pyramid_batch(

@@ -23,10 +23,16 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .phases import fluctuation_table
+from .phases import default_interval_length, divide, fluctuation_table
 from .types import Segment, ShrinkConfig
 
-__all__ = ["extract_semantics", "extract_semantics_batch", "global_range", "row_ranges"]
+__all__ = [
+    "extract_semantics",
+    "extract_semantics_batch",
+    "extract_semantics_py",
+    "global_range",
+    "row_ranges",
+]
 
 
 def global_range(values: torch.Tensor) -> tuple[float, float]:
@@ -40,6 +46,45 @@ def global_range(values: torch.Tensor) -> tuple[float, float]:
         host = values.cpu().numpy()
         vmin, vmax = float(host.min()), float(host.max())
     return vmin, vmax
+
+
+def extract_semantics_py(
+    values,
+    config: ShrinkConfig,
+    value_range: tuple[float, float] | None = None,
+    n_hint: int | None = None,
+) -> list[Segment]:
+    """The literal per-point loop of Alg. 3 on the host, the test oracle
+    of the batched scan.  ``value_range`` and ``n_hint`` pin delta_global
+    and the interval length L as in :func:`extract_semantics_batch`."""
+    values = torch.as_tensor(values, dtype=torch.float64).cpu().numpy()
+    n = int(values.shape[0])
+    if n == 0:
+        return []
+    vmin, vmax = (float(values.min()), float(values.max())) if value_range is None else value_range
+    delta_global = vmax - vmin
+    L = default_interval_length(n if n_hint is None else int(n_hint), config)
+    segments: list[Segment] = []
+    i = 0
+    while i < n:
+        theta, level, eps_hat = divide(values, i, L, delta_global, config)
+        psi_lo, psi_hi = -math.inf, math.inf
+        j = i + 1
+        while j < n:
+            dt = float(j - i)
+            hi = (float(values[j]) + eps_hat - theta) / dt
+            lo = (float(values[j]) - eps_hat - theta) / dt
+            new_hi = min(psi_hi, hi)
+            new_lo = max(psi_lo, lo)
+            if new_lo > new_hi:
+                break  # cone empty: close at j - 1, the next cone starts at j
+            psi_lo, psi_hi = new_lo, new_hi
+            j += 1
+        segments.append(
+            Segment(theta=theta, level=level, psi_lo=psi_lo, psi_hi=psi_hi, t0=i, length=j - i)
+        )
+        i = j
+    return segments
 
 
 def row_ranges(values: torch.Tensor, valid: torch.Tensor | None = None):

@@ -1,0 +1,87 @@
+"""Softmax attention with an online softmax (the prefill and forward
+attention of the dense models): CUDA kernel, plain version, wrapper.
+
+Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
+``_flash_kernel`` / ``flash_attention_pallas``, oracle
+``repro.kernels.ref.flash_attention_ref``).  Both versions here take the
+models' layout, q [B, Sq, H, D] and k, v [B, Sk, KV, D] with H a multiple
+of KV (query head h reads KV head h // (H // KV)), in float32 or bf16, and
+return softmax(q k^T * D**-0.5) v in q's dtype [B, Sq, H, D]; ``causal``
+masks the keys with kpos > qpos (both counted from 0).  Any Sq and Sk.
+
+The kernel is ``csrc/flash_attention.cu``; ``flash_attention_plain`` is the
+oracle's arithmetic (float32 scores, -1e30 masking, a float32 softmax and
+float32 ``p @ v``), so the two agree to float32 rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_plain"]
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_HEAD_DIM = 256
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * d**-0.5
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                        ctypes.c_void_p]
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True):
+    """Launch ``csrc/flash_attention.cu``; same contract as
+    :func:`flash_attention_plain`."""
+    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bf16 q, k, v; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention takes q [B, Sq, H, D] and k, v [B, Sk, KV, D]")
+    b, sq, h, d = q.shape
+    kb, sk, kvh, kd = k.shape
+    if kb != b or kd != d or kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "do not match (H must be a multiple of KV)")
+    if d > MAX_HEAD_DIM or d % 2:
+        raise ValueError(f"flash_attention takes an even head dim up to {MAX_HEAD_DIM}, got {d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGS)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh, d,
+            d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "flash_attention")
+    _build.launches["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """The wrapper: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor.  Returns [B, Sq, H, D] in q's dtype."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    return flash_attention_plain(q, k, v, causal)

@@ -20,6 +20,7 @@ from ._build import launches, reset_launches
 from .base_fit import base_fit
 from .cone_scan import cone_scan
 from .dequant import dequant
+from .flash_attention import flash_attention
 from .rans import ID_SYM as RANS_ID_SYM
 from .rans import decode_rows as rans_decode_rows
 from .rans import encode_rows as rans_encode_rows
@@ -30,7 +31,10 @@ __all__ = [
     "base_fit",
     "compact_segments",
     "cone_scan",
+    "cone_scan_segments",
     "dequant",
+    "dequant_reconstruct",
+    "flash_attention",
     "launches",
     "RANS_ID_SYM",
     "rans_decode_rows",
@@ -72,3 +76,15 @@ def compact_segments(brk, theta, psi_lo, psi_hi, fin_lo, fin_hi):
     lo[counts - 1, lanes] = fin_lo.reshape(s)
     hi[counts - 1, lanes] = fin_hi.reshape(s)
     return counts, t0s[:t_len], thetas[:t_len], lo[:t_len], hi[:t_len]
+
+
+def cone_scan_segments(x, eps_hat, lengths=None):
+    """The cone scan followed by :func:`compact_segments`: x[T, S],
+    eps_hat[T, S] -> (counts[S], t0s, thetas, psi_lo, psi_hi [T, S]).
+    Unbounded spans stay +-inf (the Pallas route used +-3.4e38)."""
+    return compact_segments(*cone_scan(x, eps_hat, lengths))
+
+
+def dequant_reconstruct(q, theta, slope, step):
+    """The reference's name for :func:`dequant`."""
+    return dequant(q, theta, slope, step)

@@ -1,18 +1,23 @@
 """Serving launcher of the port, counterpart of ``repro.launch.serve`` in
-its range and analytics modes (the others wait for their slices):
+its model, range and analytics modes (the others wait for their slices):
+
+    # LM decode loop (continuous batching) over a dense model at random init
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \
+        --requests 16 --slots 8 --max-new 8
 
     # time-series range queries against a freshly streamed SHRKS container
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode range \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode range \
         --series 8 --points 65536 --frame-len 8192 --queries 256
 
     # compressed-domain analytics: aggregates / threshold counts / top-k
     # straight off the container, differentially checked against numpy
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode analytics \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode analytics \
         --series 8 --points 65536 --frame-len 8192 --queries 256
 
-Both run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions) with the reference's seeded traffic, check every answer
-against the raw values, and exit non-zero when a check fails.
+All run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions) with the reference's seeded traffic and exit non-zero when
+a check fails: every request served to its token budget, every range and
+analytics answer within its bound of the raw values.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ import numpy as np
 import torch
 
 from ..analytics import AnalyticsEngine
+from ..configs import get_config, reduced_config
 from ..core import BYTES_PER_ROW, ShrinkConfig, ShrinkStreamCodec
 from ..core.device import resolve_device
-from ..serving import RangeQuery, RangeQueryBatcher
+from ..models import build_model
+from ..serving import ContinuousBatcher, RangeQuery, RangeQueryBatcher, Request
 
 __all__ = ["analytics_traffic", "main", "range_traffic", "sensor_values"]
 
@@ -116,6 +123,40 @@ def analytics_traffic(eng: AnalyticsEngine, v: np.ndarray, queries: int, frame_l
     return {"queries": queries, "seconds": dt, "failed": failed}
 
 
+def _serve_model(args, dev: torch.device) -> int:
+    """Continuous batching over a dense model at random init (seed 0): the
+    reference's seeded prompts of 4-15 tokens, greedy decode, no EOS."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    batcher = ContinuousBatcher(
+        decode_fn=lambda t, c, i: model.decode_step(params, t, c, i),
+        make_caches=lambda: model.make_decode_caches(args.slots, args.max_seq, device=dev),
+        n_slots=args.slots,
+        eos_token=-1,
+        device=dev,
+    )
+    for rid in range(args.requests):
+        batcher.submit(Request(
+            rid=rid,
+            prompt=rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 16))).astype(np.int32),
+            max_new_tokens=args.max_new,
+        ))
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = batcher.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.prompt) + len(r.generated) for r in done)
+    failed = args.requests - sum(len(r.generated) == args.max_new for r in done)
+    print(f"served {len(done)} requests, {toks} tokens, {dt:.4f}s ({toks/dt:.2f} tok/s), "
+          f"failed={failed}")
+    return 0 if failed == 0 else 1
+
+
 def _serve_range(args, dev: torch.device) -> int:
     """Stream the sensors chunk-interleaved into a SHRKS container, then
     serve seeded range queries through the frame-cached batcher."""
@@ -192,8 +233,16 @@ def _serve_analytics(args, dev: torch.device) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=["range", "analytics"], default="range")
+    ap.add_argument("--mode", choices=["model", "range", "analytics"], default="model")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # model mode
+    ap.add_argument("--arch")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=128)
+    # range and analytics modes
     ap.add_argument("--series", type=int, default=8)
     ap.add_argument("--points", type=int, default=65536)
     ap.add_argument("--frame-len", type=int, default=8192)
@@ -202,10 +251,14 @@ def main(argv=None) -> int:
     ap.add_argument("--eps", type=float, default=1e-3, help="fraction of value range")
     ap.add_argument("--cache-frames", type=int, default=32)
     args = ap.parse_args(argv)
+    if args.mode == "model" and not args.arch:
+        ap.error("--arch is required in --mode model")
     dev = resolve_device(args.device)
     if args.mode == "analytics":
         return _serve_analytics(args, dev)
-    return _serve_range(args, dev)
+    if args.mode == "range":
+        return _serve_range(args, dev)
+    return _serve_model(args, dev)
 
 
 if __name__ == "__main__":

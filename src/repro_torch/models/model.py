@@ -1,0 +1,91 @@
+"""Top-level model facade in PyTorch, counterpart of ``repro.models.model``:
+config -> init / loss / prefill / decode for the dense family.
+
+Batch conventions as in the reference: ``loss`` takes tokens[B, S] and
+labels[B, S]; ``prefill`` takes tokens[B, S] and returns the last
+position's logits and the caches; ``decode_step`` takes tokens[B, 1], the
+caches and a cache index.  ``loss`` is the forward pass only (training is
+ROADMAP queue 1 item 4); the shape-only tools ``init_shapes`` and
+``input_specs`` wait for queue 1 item 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.device import resolve_device
+from . import transformer as T
+
+__all__ = ["Model", "build_model"]
+
+Params = dict
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device=None) -> Params:
+        """Random params from a generator seeded with ``seed`` on ``device``
+        (the card unless ``device="cpu"``)."""
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        return T.init_params(gen, self.cfg)
+
+    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Causal LM loss (mean cross-entropy over tokens) plus the z-loss;
+        the MoE term is 0 for the dense family."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        b, s = tokens.shape
+        x = T.embed_tokens(params, tokens, cfg)
+        x, _ = T.apply_stack(params, x, cfg, mode="train",
+                             positions=_positions(b, s, tokens.device))
+        logits = T.logits_from(params, x, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        xent = (logz - tgt).mean()
+        z_loss = 1e-4 * torch.mean(logz**2)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return xent + z_loss, {"xent": xent, "z_loss": z_loss, "moe_aux": aux}
+
+    def prefill(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Full-sequence forward emitting the caches and the last position's
+        logits [B, 1, V]."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = T.embed_tokens(params, tokens, cfg)
+        x, caches = T.apply_stack(params, x, cfg, mode="prefill",
+                                  positions=_positions(b, s, tokens.device))
+        return T.logits_from(params, x[:, -1:, :], cfg), caches
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, caches: dict,
+                    cache_index: int) -> tuple[torch.Tensor, dict]:
+        """One token (tokens [B, 1]) against the caches at position
+        ``cache_index``; the caches are written in place and returned."""
+        cfg = self.cfg
+        b = tokens.shape[0]
+        x = T.embed_tokens(params, tokens, cfg)
+        positions = torch.full((b, 1), int(cache_index), dtype=torch.int32, device=tokens.device)
+        x, caches = T.apply_stack(params, x, cfg, mode="decode", positions=positions,
+                                  caches=caches, cache_index=cache_index)
+        return T.logits_from(params, x, cfg), caches
+
+    def make_decode_caches(self, batch: int, max_seq: int, device=None) -> dict:
+        return T.make_decode_caches(self.cfg, batch, max_seq, resolve_device(device))
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    """The model of ``cfg``; families other than ``dense`` come with models
+    slice B (ROADMAP queue 1 item 3)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} comes with models slice B (ROADMAP queue 1 "
+            "item 3); the port builds dense models")
+    return Model(cfg)

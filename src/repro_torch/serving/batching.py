@@ -1,19 +1,26 @@
-"""Range-query serving over a ``SHRKS`` framed container, counterpart of
-``repro.serving.batching`` (``RangeQuery``, ``RangeQueryBatcher``).
+"""Continuous-batching request schedulers, counterpart of
+``repro.serving.batching``: the LM decode loop (``Request``,
+``ContinuousBatcher``) and range-query serving over a ``SHRKS`` framed
+container (``RangeQuery``, ``RangeQueryBatcher``).
 
-Queries are queued, resolved to the frames they touch, and served through
-an LRU of per-frame :class:`ProgressiveDecoder`s on the batcher's device
-(default the card): N queries on one hot frame cost one frame parse, and a
-finer query on a cached frame decodes only the layers below its cached
-prefix.  The LM decode batcher (``ContinuousBatcher``) waits for the
-models slice.
+``ContinuousBatcher`` runs a fixed-slot batch: requests occupy slots,
+finished slots take queued requests, and all slots share one decode step
+at a single shared cache index; per-slot validity lives in the caches'
+kpos masks.  Prompts are fed token by token.
+
+Range queries are queued, resolved to the frames they touch, and served
+through an LRU of per-frame :class:`ProgressiveDecoder`s on the batcher's
+device (default the card): N queries on one hot frame cost one frame
+parse, and a finer query on a cached frame decodes only the layers below
+its cached prefix.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict, deque
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -26,7 +33,95 @@ from ..core.errors import (
 from ..core.serialize import frame_payload, parse_framed_container, read_snapshot_ref
 from ..core.shrink import ProgressiveDecoder, cs_from_bytes
 
-__all__ = ["RangeQuery", "RangeQueryBatcher"]
+__all__ = ["ContinuousBatcher", "RangeQuery", "RangeQueryBatcher", "Request"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # [S] int32
+    max_new_tokens: int
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ContinuousBatcher:
+    """decode_fn(tokens [B, 1] int64 tensor on ``device``, caches, index int)
+    -> (logits [B, 1, V], caches).
+
+    All slots advance with one shared cache index (the number of steps so
+    far); per-slot validity comes from the kpos masks.  ``device`` is where
+    the token batch is built (the card unless ``device="cpu"``); the next
+    tokens come back to the host once a step, as the reference's do.
+    """
+
+    def __init__(
+        self,
+        decode_fn: Callable,
+        make_caches: Callable[[], object],
+        n_slots: int,
+        eos_token: int = 2,
+        greedy: bool = True,
+        device: torch.device | str | None = None,
+    ):
+        self.decode_fn = decode_fn
+        self.device = resolve_device(device)
+        self.caches = make_caches()
+        self.n_slots = n_slots
+        self.eos = eos_token
+        self.greedy = greedy
+        self.queue: deque[Request] = deque()
+        self.slots: list[Optional[Request]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, dtype=np.int64)  # next prompt index
+        self.global_index = 0
+        self.completed: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for i in range(self.n_slots):
+            if self.slots[i] is None and self.queue:
+                self.slots[i] = self.queue.popleft()
+                self.slot_pos[i] = 0
+
+    def step(self) -> bool:
+        """One decode step for all active slots; True while work remains."""
+        self._admit()
+        if all(s is None for s in self.slots) and not self.queue:
+            return False
+        tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            p = int(self.slot_pos[i])
+            if p < len(req.prompt):
+                tokens[i, 0] = req.prompt[p]
+            elif req.generated:
+                tokens[i, 0] = req.generated[-1]
+        logits, self.caches = self.decode_fn(
+            torch.from_numpy(tokens).to(self.device), self.caches, self.global_index
+        )
+        nxt = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.slot_pos[i] += 1
+            if self.slot_pos[i] >= len(req.prompt):
+                tok = int(nxt[i])
+                req.generated.append(tok)
+                if tok == self.eos or len(req.generated) >= req.max_new_tokens:
+                    req.done = True
+                    self.completed.append(req)
+                    self.slots[i] = None
+        self.global_index += 1
+        return True
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        steps = 0
+        while self.step() and steps < max_steps:
+            steps += 1
+        return self.completed
 
 
 @dataclasses.dataclass

@@ -6,7 +6,9 @@ the CPU codec (SHRK bytes) and against the reference codec
 (``repro.core``, which needs numpy and not JAX, so this file runs on a
 card machine without JAX), on rectangular and ragged batches; the tensor
 codec (its base fit too), the KV store, a streamed SHRKS container and the
-analytics engine on the card against the CPU.  Without a card every test
+analytics engine on the card against the CPU; the flash-attention kernel
+against its plain version, and the reduced dense model and its serve
+launcher on the card against the CPU route.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -23,6 +25,7 @@ from repro_torch.core.phases import fluctuation_table
 from repro_torch.kernels import base_fit as BF
 from repro_torch.kernels import cone_scan as cs_mod
 from repro_torch.kernels import dequant as DQ
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import rans
 from repro_torch.kernels import residual_quant as RQ
@@ -269,3 +272,76 @@ def test_streamed_container_and_analytics_on_card_equal_cpu(card):
     for sid in range(4):
         got = P.decode_series(blobs[0], sid, 0.0, device=card).cpu().numpy()
         assert np.array_equal(got, R.decode_series(blobs[0], sid, 0.0))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 256, 256, 2, 2, 128, True),
+    (2, 256, 256, 2, 2, 128, False),
+    (2, 512, 512, 4, 2, 64, True),
+    (2, 128, 128, 2, 1, 256, True),
+    (1, 128, 384, 2, 2, 64, False),
+    (2, 77, 77, 4, 2, 160, True),
+    (1, 200, 200, 4, 2, 16, True),
+    (1, 1, 1, 8, 8, 128, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_equals_plain(card, b, sq, sk, h, kv, d, causal, dtype):
+    """float32 within 2e-5 and bf16 within 3e-2 (the reference's bounds for
+    its kernel against its oracle), grouped queries and any length."""
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), device=card, generator=g).to(dtype)
+    k, v = (torch.randn((b, sk, kv, d), device=card, generator=g).to(dtype) for _ in range(2))
+    before = ops.launches["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal)
+    assert ops.launches["flash_attention"] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_dense_model_on_card_equals_cpu(card):
+    """Reduced llama3-8b with the same params on both routes: prefill
+    through the flash kernel (one launch a layer) and decode through the
+    ported _sdpa hold the CPU route's logits and caches at the bounds of
+    tests/test_torch_models.py (cuBLAS and the CPU sum bf16 products in
+    other orders)."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(ARCHS["llama3-8b"])
+    m = build_model(cfg)
+    params = m.init(seed=0, device="cpu")
+    on_card = _to(params, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    out = []
+    for dev, p in (("cpu", params), (card, on_card)):
+        ops.reset_launches()
+        logits, caches = m.prefill(p, {"tokens": toks.to(dev)})
+        dec = m.make_decode_caches(2, 48, device=dev)
+        steps = [m.decode_step(p, toks[:, i : i + 1].to(dev), dec, i)[0] for i in range(8)]
+        out.append((logits, caches["groups"]["pos0"]["self"], steps, dict(ops.launches)))
+    (l0, c0, s0, _), (l1, c1, s1, launches) = out
+    assert launches["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(l1.float().cpu(), l0.float(), atol=0.1, rtol=0.05)
+    for f in ("k", "v"):
+        torch.testing.assert_close(getattr(c1, f).float().cpu(), getattr(c0, f).float(),
+                                   atol=0.05, rtol=0.02)
+    assert torch.equal(c1.kpos.cpu(), c0.kpos)
+    for a, b in zip(s1, s0):
+        torch.testing.assert_close(a.float().cpu(), b.float(), atol=0.1, rtol=0.05)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_serve_model_on_card(card, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--mode", "model", "--arch", "qwen3-0.6b", "--reduced"]) == 0
+    assert "served 16 requests" in capsys.readouterr().out

@@ -22,6 +22,8 @@ def test_fresh_import_leaves_jax_and_repro_out():
         "import repro_torch.models.layers\n"
         "import repro_torch.core.streaming, repro_torch.analytics, repro_torch.serving.batching\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.models.model, repro_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"
