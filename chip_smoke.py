@@ -8,6 +8,8 @@
                           [--lm-batch 4] [--lm-len 2048] [--lm-decode 16]
                           [--trace DIR]
 
+Phase 10 takes ``--kv-batch``, ``--gw-series`` and ``--gw-samples``.
+
 Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
@@ -77,6 +79,20 @@ result line):
    atol 0.1, rtol 0.05).  Then ``repro_torch.launch.serve.main`` with
    ``--mode model --arch llama3-8b`` at its defaults (16 requests, 8 slots,
    8 new tokens, max_seq 128) must serve every request.
+10. the kernel surface ``repro_torch.kernels.ops`` (the reference reaches
+   these three kernels only through ``repro.kernels.ops``) on the port's
+   own data: llama3-8b's K of phase 7 before promotion, cut into the
+   tensor codec's blocks of 256 ([1,048,576, 256] float32, its line from
+   ``ops.base_fit``), through ``pyramid_quant`` once (steps s, s/16,
+   s/256 with s = max |x - pred| / 127, so no layer clips) and
+   ``pyramid_reconstruct`` at each layer prefix k: within steps[k] / 2
+   of x plus float32 rounding, the error never growing, the full stack
+   leaving err; and ``interval_stats`` over windows of 1024 of phase 8's
+   series ([131,072, 256]) in float64, float32 and bfloat16.  Each
+   output equals its plain version bit for bit (over row passes for the
+   ladder); times beside the bounds and, for ``interval_stats``,
+   ``torch.aminmax`` over the same windows (timed only, never on the
+   path).
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -140,6 +156,13 @@ CPU_ROUTE_TOL = (0.1, 0.05)  # tests/test_torch_models.py's logit bound
 FLASH_BF16_TOL, FLASH_F32_TOL = 3e-2, 2e-5  # tests/test_kernels.py's bounds
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
 SERVE_REQUESTS = 16  # the serve launcher's default
+# phase 10: interval_stats' window over the gateway's series; rows per pass
+# of the ladder's plain comparisons; the ladder's qmax and its three steps
+# as fractions of the coarsest
+SURF_WINDOW = 1024
+SURF_CHUNK_ROWS = 1 << 17
+SURF_QMAX = 127
+SURF_STEP_FRACTIONS = (1.0, 1 / 16, 1 / 256)
 
 
 def fail(msg: str) -> None:
@@ -452,15 +475,16 @@ def kv_caches(P_layers, batch: int, seed: int, dev):
             "tail": []}
 
 
-def chunked_equal(kernel_out, plain_fn, rows: int) -> tuple[bool, float, float]:
+def chunked_equal(kernel_out, plain_fn, rows: int,
+                  chunk: int = KV_CHUNK_ROWS) -> tuple[bool, float, float]:
     """Compare kernel outputs [M, ...] with the plain version, run over row
     chunks (the same work as one call, in bounded memory); returns (equal,
     max |kernel - plain|, seconds of the plain passes)."""
     ok, worst, plain_s = True, 0.0, 0.0
-    for a in range(0, rows, KV_CHUNK_ROWS):
-        want, dt = sync_time(lambda: plain_fn(a, a + KV_CHUNK_ROWS))
+    for a in range(0, rows, chunk):
+        want, dt = sync_time(lambda: plain_fn(a, a + chunk))
         plain_s += dt
-        got = [t[a:a + KV_CHUNK_ROWS] for t in kernel_out]
+        got = [t[a:a + chunk] for t in kernel_out]
         ok = ok and all(torch.equal(x, y) for x, y in zip(got, want))
         worst = max(worst, max_abs_err(got, want))
         del want, got
@@ -580,6 +604,158 @@ def kv_path(T, KV, P_layers, ops, RQ, DQ, BF, batch: int, seed: int, dev) -> tup
     return stats, rows_out
 
 
+def ladder_bounds(xb, recons, err, steps32) -> dict:
+    """The ladder's reconstructions against their input, over row passes:
+    prefix k within steps[k] / 2 of x plus float32 rounding, its worst
+    error no larger than prefix k - 1's, and the full stack's x - recon
+    equal to err up to the same rounding.  The rounding: the line, the
+    sums of the reconstruction and the quantizer's running error round
+    at most ~16 times by half an ulp of a value no larger than |x| +
+    |x - pred| + qmax * steps[0] (2**-20 of 2|x| + 2 qmax steps[0])."""
+    m = xb.shape[0]
+    top = 2 * SURF_QMAX * float(steps32[0])
+    worst = [0.0] * len(recons)
+    half_steps = [0.0] * len(recons)
+    stack = 0.0
+    for a in range(0, m, SURF_CHUNK_ROWS):
+        b = a + SURF_CHUNK_ROWS
+        x = xb[a:b]
+        slack = 2.0**-20 * (2 * x.abs() + top)
+        for k, recon in enumerate(recons):
+            d = (x - recon[a:b]).abs()
+            worst[k] = max(worst[k], float(d.max()))
+            half_steps[k] = max(half_steps[k], float(d.max()) / (0.5 * float(steps32[k])))
+            check(bool((d <= 0.5 * steps32[k] + slack).all()),
+                  f"ladder prefix {k}: |x - recon| above steps[{k}] / 2 plus rounding")
+        gap = (x - recons[-1][a:b] - err[a:b]).abs()
+        stack = max(stack, float(gap.max()))
+        check(bool((gap <= slack).all()), "ladder: x - recon of the full stack is not err")
+    for k in range(1, len(worst)):
+        check(worst[k] <= worst[k - 1], f"ladder prefix {k}: error {worst[k]} grew from "
+                                        f"{worst[k - 1]}")
+    return {"max_abs_err": worst, "max_err_over_half_step": half_steps,
+            "max_abs_x_minus_recon_minus_err": stack}
+
+
+def surface_path(ops, T, RQ, DQ, IS, P_layers, serve, batch: int, series: int, samples: int,
+                 seed: int, dev) -> tuple[dict, list]:
+    """Phase 10: the kernel surface ``ops.{pyramid_quant, pyramid_reconstruct,
+    interval_stats}`` (the reference's ``repro.kernels.ops`` is their only
+    entry point) on data of the port's own paths: the KV store's K of phase
+    7 before promotion, cut into the tensor codec's blocks, and the
+    streamed gateway's series of phase 8.  Returns the stats and the three
+    kernels' rows."""
+    k = kv_caches(P_layers, batch, seed, dev)["groups"]["pos0"]["self"].k
+    xb, _ = T._blockify(k, T.TensorCodecConfig().block)  # [M, 256] float32
+    del k
+    xs = torch.as_tensor(serve.sensor_values(series, samples, seed), device=dev).T.contiguous()
+    xs_by = {torch.float64: xs, torch.float32: xs.float(), torch.bfloat16: xs.to(torch.bfloat16)}
+    m, n = xb.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    theta, slope = (p[:, None] for p in ops.base_fit(xb))
+    t = torch.arange(n, dtype=xb.dtype, device=dev)[None, :]
+    peak = max(float((xb[a:a + SURF_CHUNK_ROWS] - (theta[a:a + SURF_CHUNK_ROWS]
+                      + slope[a:a + SURF_CHUNK_ROWS] * t)).abs().max())
+               for a in range(0, m, SURF_CHUNK_ROWS))
+    s = peak / SURF_QMAX  # no layer clips
+    steps = torch.tensor([s * f for f in SURF_STEP_FRACTIONS], dtype=torch.float64, device=dev)
+    (qs, err), pq_s = sync_time(lambda: ops.pyramid_quant(xb, theta, slope, steps, SURF_QMAX))
+    recons = [ops.pyramid_reconstruct(qs[: j + 1], theta, slope, steps[: j + 1])
+              for j in range(len(SURF_STEP_FRACTIONS))]
+    stats_out = {dt: ops.interval_stats(x, SURF_WINDOW) for dt, x in xs_by.items()}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    for name in ("pyramid_quant", "pyramid_reconstruct", "interval_stats"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the kernel-surface path")
+    steps32 = steps.float()
+    bounds = ladder_bounds(xb, recons, err, steps32)
+
+    # each kernel against its plain version, bit for bit, over row passes
+    ok, err_pr, plain_pr = True, 0.0, 0.0
+    for j, recon in enumerate(recons):
+        same, e, dt = chunked_equal(
+            [recon.view(torch.int32)],
+            lambda a, b: [DQ.pyramid_reconstruct_plain(qs[: j + 1, a:b], theta[a:b], slope[a:b],
+                                                        steps[: j + 1]).view(torch.int32)],
+            m, SURF_CHUNK_ROWS)
+        ok, err_pr = ok and same, max(err_pr, e)
+        plain_pr = dt  # the last pass is the full stack, the one timed below
+    check(ok, f"pyramid_reconstruct kernel differs from its plain version (max bit diff {err_pr})")
+    del recons
+
+    def pq_plain_rows(a, b):
+        q, e = RQ.pyramid_quant_plain(xb[a:b], theta[a:b], slope[a:b], steps, SURF_QMAX)
+        return [*q, e.view(torch.int32)]
+
+    ok, err_pq, plain_pq = chunked_equal([*qs, err.view(torch.int32)], pq_plain_rows, m,
+                                         SURF_CHUNK_ROWS)
+    check(ok, f"pyramid_quant kernel differs from its plain version (max diff {err_pq})")
+    del qs, err
+    ms_pq = event_ms(lambda: RQ.pyramid_quant_cuda(xb, theta, slope, steps, SURF_QMAX), 5)
+    qs, _ = RQ.pyramid_quant_cuda(xb, theta, slope, steps, SURF_QMAX)
+    ms_pr = event_ms(lambda: DQ.pyramid_reconstruct_cuda(qs, theta, slope, steps), 5)
+    del qs
+    # interval_stats in each dtype: bits equal to the plain version's (NaNs
+    # and the signs of zeros count); its time, the plain version's and
+    # torch.aminmax's over the same windows (timed only, never on the path)
+    ts, ss = xs.shape
+    nw = ts // SURF_WINDOW
+    by_dtype = {}
+    for dt, x in xs_by.items():
+        want, plain_s = sync_time(lambda: IS.interval_stats_plain(x, SURF_WINDOW))
+        got = stats_out[dt]
+        err_is = max_abs_err(got, want)
+        check(same_bits(got, want), f"interval_stats {dt} differs from its plain version "
+                                    f"(max err {err_is})")
+        lib = torch.aminmax(x.view(nw, SURF_WINDOW, ss), dim=1)
+        check(torch.equal(lib.min, got[0]) and torch.equal(lib.max, got[1]),
+              f"interval_stats {dt} differs from torch.aminmax")
+        by_dtype[dt] = {
+            "max_abs_err": err_is,
+            "ms": event_ms(lambda: IS.interval_stats_cuda(x, SURF_WINDOW), 20),
+            "plain_ms": plain_s * 1e3,
+            "library_ms": event_ms(lambda: torch.aminmax(x.view(nw, SURF_WINDOW, ss), dim=1), 20),
+        }
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    n_el, layers = xb.numel(), len(SURF_STEP_FRACTIONS)
+    # pyramid_quant: x read, theta/slope/steps read, L int32 planes and err
+    # written; a division, a rounding, two clips, a multiply and a subtract
+    # a layer after the line's three operations
+    pq_bytes = n_el * (4 + 4 * layers + 4) + m * 8 + layers * 4
+    pq_ops = n_el * (3 + 6 * layers)
+    # pyramid_reconstruct of the full stack: L int32 planes read, x_hat written
+    pr_bytes = n_el * (4 * layers + 4) + m * 8 + layers * 4
+    pr_ops = n_el * (2 + 2 * layers)
+    is64 = by_dtype[torch.float64]
+    is_bytes = xs.numel() * 8 + 2 * nw * ss * 8  # x read once; mins and maxs written
+    is_ops = 2 * xs.numel()  # a comparison for the min and one for the max
+    rows = [
+        kernel_row("pyramid_quant", "src/repro_torch/kernels/csrc/pyramid_quant.cu",
+                   "src/repro/kernels/residual_quant.py:56", launches, err_pq, ms_pq,
+                   plain_pq * 1e3, pq_bytes, pq_ops, F32_OPS_PER_S, [m, n]),
+        kernel_row("pyramid_reconstruct", "src/repro_torch/kernels/csrc/pyramid_reconstruct.cu",
+                   "src/repro/kernels/dequant.py:30", launches, err_pr, ms_pr,
+                   plain_pr * 1e3, pr_bytes, pr_ops, F32_OPS_PER_S, [layers, m, n]),
+        kernel_row("interval_stats", "src/repro_torch/kernels/csrc/interval_stats.cu",
+                   "src/repro/kernels/interval_stats.py:20", launches, is64["max_abs_err"],
+                   is64["ms"], is64["plain_ms"], is_bytes, is_ops, FP64_OPS_PER_S, [ts, ss]),
+    ]
+    rows[0].update(dtype="float32", layers=layers, qmax=SURF_QMAX)
+    rows[1].update(dtype="float32", note="time and bound of the full stack (L = 3)")
+    rows[2].update(dtype="float64", window=SURF_WINDOW, library_ms=is64["library_ms"],
+                   library="torch.aminmax(x.view(T // W, W, S), dim=1)",
+                   by_dtype={str(dt).replace("torch.", ""): r for dt, r in by_dtype.items()})
+    stats = {
+        "kv_blocks": [m, n], "gateway_series": [ts, ss], "window": SURF_WINDOW,
+        "steps": steps32.tolist(), "pyramid_quant_s": pq_s, **bounds,
+        "max_memory_allocated_bytes": peak_mem, "launches": launches,
+    }
+    return stats, rows
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, nops, peak, shape):
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / peak
     return {
@@ -620,9 +796,12 @@ def count_syncs(fn):
     return out, sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
 def same_bits(got, want) -> bool:
     def bits(t):
-        return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+        return t.view(BITS.get(t.dtype, t.dtype))
 
     return all(a.shape == b.shape and torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
 
@@ -1216,6 +1395,7 @@ def main() -> None:
     from repro_torch.kernels import cone_scan as cs_mod
     from repro_torch.kernels import dequant as DQ
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import interval_stats as IS
     from repro_torch.kernels import rans as rk
     from repro_torch.kernels import residual_quant as RQ
     from repro_torch.kernels import segment_agg as SA
@@ -1297,6 +1477,16 @@ def main() -> None:
     print("model: " + json.dumps(lm), flush=True)
     torch.cuda.empty_cache()
     print("serve model: " + json.dumps(serve_model_path(serve, LM_ARCH)), flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 10: the kernel surface (pyramid_quant, pyramid_reconstruct,
+    # interval_stats) at the KV store's and the gateway's shapes
+    (surf, surf_rows), phase_s = sync_time(lambda: surface_path(
+        ops, T, RQ, DQ, IS, P_layers, serve, args.kv_batch, args.gw_series, args.gw_samples,
+        args.seed, dev))
+    surf["phase_s"] = phase_s
+    rows += surf_rows
+    print("kernel surface: " + json.dumps(surf), flush=True)
     torch.cuda.empty_cache()
 
     if args.trace is not None:

@@ -4,7 +4,11 @@
 Every wrapper here launches its hand-written CUDA kernel when given CUDA
 tensors and runs the kernel's plain torch version when given CPU tensors;
 nothing else chooses between them.  ``launches`` counts kernel launches
-by name and ``reset_launches`` zeroes the counts.
+by name and ``reset_launches`` zeroes the counts.  The names and argument
+orders are the reference's, without its ``force_ref`` switch (the
+tensor's device picks the route): ``interval_stats(x, window)``,
+``pyramid_quant(x, theta, slope, steps, qmax=127, lengths=None)``,
+``pyramid_reconstruct(qs, theta, slope, steps)`` and the rest.
 
 The cone scan needs no block padding: the kernel loops over all T steps
 inside each thread, where the TPU kernel needed T to be a multiple of its
@@ -19,12 +23,13 @@ import torch
 from ._build import launches, reset_launches
 from .base_fit import base_fit
 from .cone_scan import cone_scan
-from .dequant import dequant
+from .dequant import dequant, pyramid_reconstruct
 from .flash_attention import flash_attention
+from .interval_stats import interval_stats
 from .rans import ID_SYM as RANS_ID_SYM
 from .rans import decode_rows as rans_decode_rows
 from .rans import encode_rows as rans_encode_rows
-from .residual_quant import residual_quant
+from .residual_quant import pyramid_quant, residual_quant
 from .segment_agg import segment_agg
 
 __all__ = [
@@ -35,7 +40,10 @@ __all__ = [
     "dequant",
     "dequant_reconstruct",
     "flash_attention",
+    "interval_stats",
     "launches",
+    "pyramid_quant",
+    "pyramid_reconstruct",
     "RANS_ID_SYM",
     "rans_decode_rows",
     "rans_encode_rows",

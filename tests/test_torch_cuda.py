@@ -6,8 +6,9 @@ the CPU codec (SHRK bytes) and against the reference codec
 (``repro.core``, which needs numpy and not JAX, so this file runs on a
 card machine without JAX), on rectangular and ragged batches; the tensor
 codec (its base fit too), the KV store, a streamed SHRKS container and the
-analytics engine on the card against the CPU; the flash-attention kernel
-against its plain version, and the reduced dense model and its serve
+analytics engine on the card against the CPU; the flash-attention,
+interval-stats and ladder (pyramid quant and reconstruct) kernels against
+their plain versions, and the reduced dense model and its serve
 launcher on the card against the CPU route.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -26,6 +27,7 @@ from repro_torch.kernels import base_fit as BF
 from repro_torch.kernels import cone_scan as cs_mod
 from repro_torch.kernels import dequant as DQ
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import interval_stats as IS
 from repro_torch.kernels import ops
 from repro_torch.kernels import rans
 from repro_torch.kernels import residual_quant as RQ
@@ -217,6 +219,74 @@ def test_kv_store_on_card_equals_cpu(card):
     assert qg.memory_bits() == qc.memory_bits()
     assert caches["groups"]["pos0"]["self"].k.shape[2] == 64
     assert T.decompress_tensor(qg.k).device.type == "cuda"
+
+
+_INT = {torch.float32: torch.int32, torch.float64: torch.int64, torch.bfloat16: torch.int16}
+
+
+def _with_specials(x: torch.Tensor) -> torch.Tensor:
+    """x with NaNs (payloads and signs too), both zeros and infinities
+    scattered over some windows."""
+    x = x.clone()
+    t, s = x.shape
+    bits = x.view(_INT[x.dtype])
+    words = {torch.float32: [0x7FC00123, -0x400000, 0x7F800001],
+             torch.float64: [0x7FF8000000000123, -0x8000000000000, 0x7FF0000000000001],
+             torch.bfloat16: [0x7FC1, -0x40, 0x7F81]}[x.dtype]
+    for i, w in enumerate(words):
+        bits[(5 + 11 * i) % t, (3 * i) % s] = w
+    x[:, (1 % s)] = 0.0
+    x[::3, (1 % s)] = -0.0
+    x[1::2, (2 % s)] = -0.0
+    x[(7 % t), (4 % s)] = float("inf")
+    x[(9 % t), (4 % s)] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("t,s,w", [(8192, 256, 1024), (96, 37, 1), (96, 37, 96), (1000, 70, 5)])
+def test_interval_stats_kernel_equals_plain(card, dtype, t, s, w):
+    g = torch.Generator(device="cuda").manual_seed(t + s + w)
+    x = _with_specials(torch.randn((t, s), device=card, generator=g).to(dtype))
+    for xi in (x, x.T.contiguous().T):  # contiguous, then a strided view
+        before = ops.launches["interval_stats"]
+        got = ops.interval_stats(xi, w)
+        assert ops.launches["interval_stats"] == before + 1
+        want = IS.interval_stats_plain(xi, w)
+        want_cpu = IS.interval_stats_plain(xi.cpu(), w)
+        for a, b, c in zip(got, want, want_cpu):
+            assert a.shape == (t // w, s) and a.dtype == dtype
+            assert torch.equal(a.view(_INT[dtype]), b.view(_INT[dtype]))
+            assert torch.equal(a.cpu().view(_INT[dtype]), c.view(_INT[dtype]))
+    with pytest.raises(ValueError, match="multiple"):
+        ops.interval_stats(x[: t - 1], t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [256, 130, 7])
+def test_pyramid_kernels_equal_plain(card, dtype, n):
+    g = torch.Generator(device="cuda").manual_seed(n)
+    m = 3001
+    x = (torch.randn((m, n), device=card, generator=g) * 3).to(dtype)
+    theta = torch.randn((m, 1), device=card, generator=g).to(dtype)
+    slope = (torch.randn((m, 1), device=card, generator=g) * 0.01).to(dtype)
+    steps = torch.tensor([0.5, 0.05, 0.005], dtype=torch.float64, device=card)
+    lengths = torch.randint(0, n + 1, (m,), device=card, generator=g)
+    for ln in (None, lengths):
+        before = dict(ops.launches)
+        qs, err = ops.pyramid_quant(x, theta, slope, steps, 16, ln)
+        assert ops.launches["pyramid_quant"] == before["pyramid_quant"] + 1
+        want = RQ.pyramid_quant_plain(x, theta, slope, steps, 16, ln)
+        want_cpu = RQ.pyramid_quant_plain(x.cpu(), theta.cpu(), slope.cpu(), steps.cpu(), 16,
+                                          None if ln is None else ln.cpu())
+        assert qs.shape == (3, m, n) and bool((qs[0].abs() == 16).any())
+        for a, b, c in zip((qs, err), want, want_cpu):
+            assert torch.equal(_fbits(a), _fbits(b)) and torch.equal(_fbits(a.cpu()), _fbits(c))
+        for k in range(3):
+            out = ops.pyramid_reconstruct(qs[: k + 1], theta, slope, steps[: k + 1])
+            assert ops.launches["pyramid_reconstruct"] == before["pyramid_reconstruct"] + k + 1
+            plain = DQ.pyramid_reconstruct_plain(qs[: k + 1], theta, slope, steps[: k + 1])
+            assert out.dtype == dtype and torch.equal(_fbits(out), _fbits(plain))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -24,6 +24,8 @@ def test_fresh_import_leaves_jax_and_repro_out():
         "import repro_torch.launch.serve\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.models.transformer\n"
         "import repro_torch.models.model, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.interval_stats, repro_torch.kernels.residual_quant\n"
+        "import repro_torch.kernels.dequant\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

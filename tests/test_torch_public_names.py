@@ -25,7 +25,7 @@ PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops"]
 WAIVERS = {
     "core": {
         # the TPU cone scan's Pallas entry; the port's batch scan is the kernel route
-        "extract_semantics_batch_pallas": "Pallas only (ROADMAP queue 2: ported as cone_scan.cu)",
+        "extract_semantics_batch_pallas": "Pallas only (the cone scan is csrc/cone_scan.cu)",
     },
     "serving": {
         name: "ROADMAP queue 1 item 2 (serving, the rest of reference item 8)"
@@ -35,9 +35,6 @@ WAIVERS = {
     },
     "kernels.ops": {
         "use_interpret": "Pallas interpret mode has no CUDA counterpart",
-        "interval_stats": "ROADMAP queue 2 item 3 (interval_stats kernel)",
-        "pyramid_quant": "ROADMAP queue 2 item 1 (pyramid_quant kernel)",
-        "pyramid_reconstruct": "ROADMAP queue 2 item 2 (pyramid_reconstruct kernel)",
     },
 }
 
