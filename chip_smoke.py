@@ -70,7 +70,10 @@ result line):
    layer (32).  The kernel against its plain version on layer 0's q, k, v
    (bf16 at 3e-2, float32 at 2e-5, a length of 2000 that is not a multiple
    of the tile), timed beside its plain version, the bound, and PyTorch's
-   ``scaled_dot_product_attention`` (timed only, never on the path).  The
+   ``scaled_dot_product_attention`` (timed only, never on the path): its
+   row adds the fraction of the bound and the ratio to SDPA, and a line
+   before the kernels line prints its time beside its previous one
+   (``PERF.md``, section 6).  The
    prefill caches grafted into decode buffers, 16 greedy decode steps,
    each step's logits held to one forward pass over the extended prompt
    at the reference's bound (atol 0.35, rtol 0.05, top-1 >= 0.99 off
@@ -92,7 +95,10 @@ result line):
    output equals its plain version bit for bit (over row passes for the
    ladder); times beside the bounds and, for ``interval_stats``,
    ``torch.aminmax`` over the same windows (timed only, never on the
-   path).
+   path) and each dtype's own byte bound, with its previous times
+   (``PERF.md``, section 6) printed beside the new ones; both
+   ``interval_stats`` and ``aminmax`` are also timed as one CUDA graph of
+   20 calls (``graph_ms``), which keeps the host's launch overhead out.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -155,6 +161,9 @@ LM_CPU_LAYERS, LM_CPU_LEN = 2, 256  # the CPU route's layers and prompt
 CPU_ROUTE_TOL = (0.1, 0.05)  # tests/test_torch_models.py's logit bound
 FLASH_BF16_TOL, FLASH_F32_TOL = 3e-2, 2e-5  # tests/test_kernels.py's bounds
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+# the flash kernel's previous time at the path's shape (PERF.md section 6,
+# row 10: the scalar kernel before the tensor-core one, run C)
+FLASH_PREV_MS = {"scalar kernel, run C": 13.22}
 SERVE_REQUESTS = 16  # the serve launcher's default
 # phase 10: interval_stats' window over the gateway's series; rows per pass
 # of the ladder's plain comparisons; the ladder's qmax and its three steps
@@ -163,6 +172,13 @@ SURF_WINDOW = 1024
 SURF_CHUNK_ROWS = 1 << 17
 SURF_QMAX = 127
 SURF_STEP_FRACTIONS = (1.0, 1 / 16, 1 / 256)
+# interval_stats' previous times at [131072, 256], W 1024 (PERF.md section
+# 6, row 4: the one-element-a-thread kernel, runs A and B)
+INTERVAL_PREV_MS = {
+    "float64": {"one element a thread, run A": 0.09576, "run B": 0.09532},
+    "float32": {"one element a thread, run A": 0.05397, "run B": 0.05360},
+    "bfloat16": {"one element a thread, run A": 0.07621, "run B": 0.08508},
+}
 
 
 def fail(msg: str) -> None:
@@ -193,6 +209,30 @@ def event_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call, from CUDA events around one replay of
+    a CUDA graph that holds ``reps`` calls: the host's launch overhead,
+    which can exceed a short kernel's own time, stays out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -712,12 +752,25 @@ def surface_path(ops, T, RQ, DQ, IS, P_layers, serve, batch: int, series: int, s
         lib = torch.aminmax(x.view(nw, SURF_WINDOW, ss), dim=1)
         check(torch.equal(lib.min, got[0]) and torch.equal(lib.max, got[1]),
               f"interval_stats {dt} differs from torch.aminmax")
+        nbytes = (x.numel() + 2 * nw * ss) * x.element_size()  # x read; mins, maxs written
         by_dtype[dt] = {
             "max_abs_err": err_is,
             "ms": event_ms(lambda: IS.interval_stats_cuda(x, SURF_WINDOW), 20),
             "plain_ms": plain_s * 1e3,
             "library_ms": event_ms(lambda: torch.aminmax(x.view(nw, SURF_WINDOW, ss), dim=1), 20),
+            # device time alone: a call's host overhead is near the kernel's time
+            "graph_ms": graph_ms(lambda: IS.interval_stats_cuda(x, SURF_WINDOW), 20),
+            "library_graph_ms": graph_ms(
+                lambda: torch.aminmax(x.view(nw, SURF_WINDOW, ss), dim=1), 20),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes",
         }
+    print("interval_stats: " + json.dumps({
+        name: {"ms": r["ms"], "previous_ms": INTERVAL_PREV_MS[name],
+               "library_ms": r["library_ms"], "graph_ms": r["graph_ms"],
+               "library_graph_ms": r["library_graph_ms"], "bound_ms": r["bound_ms"]}
+        for name, r in ((str(dt).replace("torch.", ""), r) for dt, r in by_dtype.items())}),
+        flush=True)
     peak_mem = torch.cuda.max_memory_allocated()
 
     n_el, layers = xb.numel(), len(SURF_STEP_FRACTIONS)
@@ -1190,7 +1243,11 @@ def check_flash(FA, q, k, v, launches: dict) -> dict:
     row.update(library_ms=library_ms, library="torch.nn.functional.scaled_dot_product_attention"
                "(is_causal=True, enable_gqa=True)", dtype="bfloat16",
                f32_max_abs_err=errs["f32"], len_2000_max_abs_err=errs["bf16_len_2000"],
-               tolerance={"bf16": FLASH_BF16_TOL, "f32": FLASH_F32_TOL})
+               tolerance={"bf16": FLASH_BF16_TOL, "f32": FLASH_F32_TOL},
+               fraction_of_bound=row["bound_ms"] / ms, vs_library=ms / library_ms)
+    print("flash_attention: " + json.dumps({"ms": ms, "previous_ms": FLASH_PREV_MS,
+                                            "library_ms": library_ms,
+                                            "bound_ms": row["bound_ms"]}), flush=True)
     return row
 
 

@@ -3,31 +3,74 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 //   flash_attention  <- _flash_kernel / flash_attention_pallas
-// For q [B, Sq, H, D] and k, v [B, Sk, KV, D] (float32 or bf16, the
+// For q [B, Sq, H, D] and k, v [B, Sk, KV, D] (bf16 or float32, the
 // models' own layout; query head h reads KV head h / (H / KV), so grouped
 // queries need no repeat of K and V in memory):
 //   out = softmax(q k^T * scale, causal: kpos <= qpos) v      (in q's type)
 // with the semantics of the Pallas kernel: the running max m, the running
-// sum l and the accumulator in float32; masked scores are -1e30; KV tiles
-// wholly past the diagonal are skipped; the output is acc / max(l, 1e-30).
-// Sq and Sk need not be multiples of a tile: the kernel masks the tails.
+// sum l and the accumulator in float32; masked scores are -1e30, keys past
+// Sk -inf; KV tiles wholly past the diagonal are skipped; the output is
+// acc / max(l, 1e-30).  Sq and Sk need not be multiples of a tile: the
+// kernel masks the tails and the host pads nothing.
 //
-// Design (simple and right first): one block of 256 threads per
-// (q tile of 64 rows, head, batch).  The Q tile and each K and V tile of 64
-// keys sit in shared memory as float32 (Q and K rows padded to an odd
-// stride, so the column walks hit distinct banks); each thread owns a 4 x 4
-// block of the score tile (rows ty + 16i, keys tx + 16j) and the matching
-// 4 rows x NJ columns (tx + 16j) of the accumulator in registers.  Row
-// maxima and sums reduce over the 16 lanes of a row with shuffles.  Scalar
-// float32 arithmetic on the CUDA cores, products and sums kept apart
-// (--fmad=false): the bound is the tensor cores' bf16 rate on the
-// causal FLOPs, which this kernel does not approach; wgmma and TMA are
-// later work.
+// What bounds it: 4 x B x H x D x (causal pairs) operations against
+// Q + K + V + O bytes once, some 800 operations a byte at the models'
+// shapes, so the tensor cores' bf16 rate bounds it.
+//
+// bf16 (the models' route): tensor cores, fed by the Tensor Memory
+// Accelerator.  A block owns 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows each and one producer warp (a third
+// warpgroup, whose other warps leave at once; setmaxnreg moves registers
+// from it to the consumers).  The head dim is padded to DP, a multiple of
+// 64 (64, 128, 192 or 256), with zeros that TMA fills past D.
+// * Shared memory: Q [128 x DP] once, and a ring of 2 stages of K and of V
+//   [BK x DP] (BK = 128 keys for DP <= 128, 64 above), each tile as DP / 64
+//   boxes of 64 columns (128 bytes a row, the 128-byte swizzle).  The
+//   producer loads them with cp.async.bulk.tensor through 4-D tensor maps
+//   over [B, S, heads, D]; each stage has a "full" mbarrier (TMA bytes
+//   arrive) and an "empty" one (every consumer warp has read it), K and V
+//   apart so that Q k^T starts before V lands.
+// * S = Q K^T: wgmma m64nBKk16, Q and K both from shared memory (K-major),
+//   float32 accumulators in registers; the bf16 products are exact in
+//   float32.
+// * The online softmax in registers on the accumulator fragment (a thread
+//   holds two rows; a row's max and sum reduce over its quad of lanes), in
+//   the base-2 domain (scores times scale x log2 e, ex2).  Only the tiles
+//   that cross the diagonal or the end of the keys are masked.
+// * O += P V: wgmma m64n64k16 with P from registers (the accumulator
+//   fragment is the A fragment's layout) and V from shared memory
+//   (MN-major: the descriptor transposes it), one per 64 columns of DP.
+//   P's precision: the reference multiplies V by float32 probabilities.  P
+//   goes in as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), in two
+//   wgmmas into the same float32 accumulator: about 16 bits of p, at 1.5x
+//   the tensor work of one bf16 P (a TF32 P V would need V transposed in
+//   shared memory and runs at half the bf16 rate).
+// * The epilogue divides by max(l, 1e-30), writes bf16 into the
+//   warpgroup's own rows of the Q tile (swizzled, no bank conflicts), and
+//   stores 16-byte chunks.
+// * Grid: one block per (q tile, head, batch), the last q tiles first, so
+//   that the longest causal rows start first and the short ones fill the
+//   tail.
+// A tensor map needs 16-byte-aligned bases and strides, so bf16 with D %
+// 8 != 0, a base pointer off 16 bytes, or Sk = 0 takes the scalar kernel
+// below (decided here from the shapes and pointers; nothing falls back
+// after a failure).
+//
+// float32 (no model path; held to 2e-5, finer than bf16 tensor cores
+// give): the scalar kernel.  One block of 256 threads per (q tile of 64
+// rows, head, batch); Q and each K and V tile of 64 keys sit in shared
+// memory as float32 (Q and K rows padded to an odd stride); each thread
+// owns a 4 x 4 block of the score tile and 4 rows x NJ columns of the
+// accumulator; row maxima and sums reduce over 16 lanes with shuffles;
+// scalar float32 arithmetic on the CUDA cores, products and sums kept apart
+// (--fmad=false).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+namespace scalar {
+
 
 constexpr int BQ = 64;  // q rows a block (must equal BK: see the mask note)
 constexpr int BK = 64;  // keys a tile
@@ -204,17 +247,463 @@ int launch(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int 
   return run<T, 16>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 
-}  // namespace
+}  // namespace scalar
+
+namespace tc {
+
+constexpr int BQ = 128;             // q rows a block: two consumer warpgroups of 64
+constexpr int STAGES = 2;           // K and V tiles in flight
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // and the producer's warpgroup
+constexpr float NEG = -1e30f;
+
+template <int DP>
+struct Tile {
+  static constexpr int BK = DP <= 128 ? 128 : 64;  // keys a tile
+  static constexpr int BOXES = DP / 64;            // 64-column boxes of a row
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;
+  // Q, the K stages, the V stages, then 9 mbarriers; 1 KB to align to 1024
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 128 + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase after `parity` to complete.  A wait that outlasts
+// ~20 s of clock ticks traps instead of spinning forever: a TMA whose bytes
+// never arrive would otherwise hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  if (done) return;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  } while (!done);
+}
+
+// One box [rows x 64] of a 4-D tensor map at (d, head, position, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile in shared memory: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulators across the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// S += A B^T over one k-step of 16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+// S += A B^T over one k-step of 16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int sq,
+                    int sk, int h, int kvh, int d, float scale_log2, int causal) {
+  using T = Tile<DP>;
+  constexpr int BK = T::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;  // the swizzle repeats every 1024 bytes
+  const uint32_t ks = qs + T::Q_BYTES;        // K stage s at ks + s * KV_BYTES
+  const uint32_t vs = ks + STAGES * T::KV_BYTES;
+  const uint32_t bars = vs + STAGES * T::KV_BYTES;
+  const uint32_t full_q = bars;               // then full_k[s], full_v[s], empty_k[s], empty_v[s]
+#define FULL_K(s) (bars + 8 * (1 + (s)))
+#define FULL_V(s) (bars + 8 * (1 + STAGES + (s)))
+#define EMPTY_K(s) (bars + 8 * (1 + 2 * STAGES + (s)))
+#define EMPTY_V(s) (bars + 8 * (1 + 3 * STAGES + (s)))
+
+  // the last q tiles first: blockIdx.x walks (head, batch) fastest
+  const int ntq = (sq + BQ - 1) / BQ;
+  const int hb = gridDim.x / ntq;
+  const int q0 = (ntq - 1 - (int)(blockIdx.x / hb)) * BQ;
+  const int head = (int)(blockIdx.x % hb) % h;
+  const int b = (int)(blockIdx.x % hb) / h;
+  const int kv_end = causal ? min(sk, q0 + BQ) : sk;  // skip tiles past the diagonal
+  const int ntiles = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(FULL_K(s), 1);
+      mbar_init(FULL_V(s), 1);
+      mbar_init(EMPTY_K(s), CONSUMER_WARPS);
+      mbar_init(EMPTY_V(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= CONSUMER_WARPS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      const int kvhead = head / (h / kvh);
+      mbar_expect_tx(full_q, T::Q_BYTES);
+#pragma unroll
+      for (int x = 0; x < T::BOXES; ++x)
+        tma_load(qs + x * BQ * 128, &tq, full_q, 64 * x, head, q0, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;  // the first round finds the stage empty
+        mbar_wait(EMPTY_K(s), parity);
+        mbar_expect_tx(FULL_K(s), T::KV_BYTES);
+#pragma unroll
+        for (int x = 0; x < T::BOXES; ++x)
+          tma_load(ks + s * T::KV_BYTES + x * BK * 128, &tk, FULL_K(s), 64 * x, kvhead, i * BK, b);
+        mbar_wait(EMPTY_V(s), parity);
+        mbar_expect_tx(FULL_V(s), T::KV_BYTES);
+#pragma unroll
+        for (int x = 0; x < T::BOXES; ++x)
+          tma_load(vs + s * T::KV_BYTES + x * BK * 128, &tv, FULL_V(s), 64 * x, kvhead, i * BK, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup w owns rows q0 + 64 w .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = warp / 4;
+    const int qb = q0 + 64 * w;
+    const int r_lo = 16 * (warp % 4) + lane / 4;  // a thread's rows: r_lo and r_lo + 8
+    const int cq = 2 * (lane % 4);                // its columns in each 8-column chunk
+    float oacc[DP / 64][32];
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[p][e] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    mbar_wait(full_q, 0);
+    // Every row a warpgroup computes has an unmasked key in tile 0, which
+    // holds key 0 (kpos 0 <= any qpos, and 0 < Sk): so m is a real score
+    // after the first tile, and no row ends with l = 0.  A tile wholly past
+    // the warpgroup's last row (BK < BQ) is consumed without computing.
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % STAGES;
+      const uint32_t parity = (i / STAGES) & 1;
+      const int k0 = i * BK;
+      mbar_wait(FULL_K(s), parity);
+      if (causal && k0 > qb + 63) {
+        if (lane == 0) mbar_arrive(EMPTY_K(s));
+        mbar_wait(FULL_V(s), parity);
+        if (lane == 0) mbar_arrive(EMPTY_V(s));
+        continue;
+      }
+      float sacc[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into box kk / 4
+        const uint64_t da = desc(qs + (kk / 4) * BQ * 128 + w * 64 * 128 + off, 16, 1024);
+        const uint64_t db = desc(ks + s * T::KV_BYTES + (kk / 4) * BK * 128 + off, 16, 1024);
+        if constexpr (BK == 128)
+          wgmma_ss_n128(sacc, da, db, kk > 0);
+        else
+          wgmma_ss_n64(sacc, da, db, kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      pin(sacc);
+      if (lane == 0) mbar_arrive(EMPTY_K(s));
+
+      // scores in the base-2 domain, masked where the tile needs it
+      const bool edge = (causal && k0 + BK - 1 > qb) || k0 + BK > sk;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        float t = sacc[e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * (e / 4) + cq + (e & 1);
+          const int row = qb + r_lo + 8 * ((e >> 1) & 1);
+          if (causal && key > row) t = NEG;
+          if (key >= sk) t = -INFINITY;  // past the keys: no weight at all
+        }
+        sacc[e] = t;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], t);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        alpha[hh] = ex2(m[hh] - m_new);
+        m[hh] = m_new;
+        l[hh] = l[hh] * alpha[hh];
+      }
+#pragma unroll
+      for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) oacc[p][e] = oacc[p][e] * alpha[(e >> 1) & 1];
+      // P as A fragments: for keys 16 kk.., register r holds the pair at
+      // row half (r & 1) of 8-column chunk 2 kk + r / 2: accumulator
+      // entries 8 kk + 2 r and 8 kk + 2 r + 1
+      uint32_t phi[BK / 16][4], plo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = 8 * kk + 2 * r;
+          const float p0 = ex2(sacc[e] - m[r & 1]);
+          const float p1 = ex2(sacc[e + 1] - m[r & 1]);
+          l[r & 1] = l[r & 1] + p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          phi[kk][r] = bits(hi);
+          plo[kk][r] = bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+        }
+
+      mbar_wait(FULL_V(s), parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < DP / 64; ++p) {
+          // 16 keys = 2048 bytes down a box; box p holds columns 64 p..
+          const uint64_t db = desc(vs + s * T::KV_BYTES + p * BK * 128 + kk * 2048, BK * 128, 1024);
+          wgmma_rs_n64(oacc[p], phi[kk], db);
+          wgmma_rs_n64(oacc[p], plo[kk], db);
+        }
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < DP / 64; ++p) pin(oacc[p]);
+      if (lane == 0) mbar_arrive(EMPTY_V(s));
+    }
+
+    // epilogue: O / max(l, 1e-30) in bf16 through this warpgroup's rows of
+    // the Q tile (its last reader was this warpgroup's last Q K^T)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      l[hh] = fmaxf(l[hh], 1e-30f);
+    }
+    bar_sync(1 + w, 128);
+    uint8_t* qgen = smem_raw + (qs - raw);
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r_lo + 8 * hh;
+          const __nv_bfloat162 y = __floats2bfloat162_rn(oacc[p][4 * j + 2 * hh] / l[hh],
+                                                         oacc[p][4 * j + 2 * hh + 1] / l[hh]);
+          *reinterpret_cast<uint32_t*>(qgen + p * BQ * 128 + (64 * w + r) * 128 +
+                                       ((j ^ (r & 7)) * 16) + cq * 2) = bits(y);
+        }
+    bar_sync(1 + w, 128);
+    const size_t orow = (size_t)h * d;  // elements between positions of o
+    for (int idx = threadIdx.x % 128; idx < 64 * (DP / 8); idx += 128) {
+      const int r = idx / (DP / 8), c8 = idx % (DP / 8);
+      const int qpos = qb + r;
+      if (qpos < sq && c8 * 8 < d) {
+        const uint4 y = *reinterpret_cast<const uint4*>(
+            qgen + (c8 / 8) * BQ * 128 + (64 * w + r) * 128 + (((c8 % 8) ^ (r & 7)) * 16));
+        *reinterpret_cast<uint4*>(o + ((size_t)b * sq + qpos) * orow + (size_t)head * d + c8 * 8) = y;
+      }
+    }
+  }
+#undef FULL_K
+#undef FULL_V
+#undef EMPTY_K
+#undef EMPTY_V
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// [B, S, heads, D] bf16 as a 4-D tensor map (innermost first), boxes of
+// [rows x 64] at one (head, batch), 128-byte swizzle, zeros outside
+bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* o,
+        int b, int sq, int sk, int h, int kvh, int d, float scale, int causal,
+        cudaStream_t stream) {
+  using T = Tile<DP>;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, b, sq, h, d, BQ) || !tensor_map(&mk, k, b, sk, kvh, d, T::BK) ||
+      !tensor_map(&mv, v, b, sk, kvh, d, T::BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((sq + BQ - 1) / BQ) * (unsigned)h * (unsigned)b;
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  flash_tc_kernel<DP><<<blocks, THREADS, T::SMEM, stream>>>(mq, mk, mv, o, sq, sk, h, kvh, d,
+                                                             scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+}  // namespace tc
 
 extern "C" {
 int flash_attention_f32(const float* q, const float* k, const float* v, float* o, int b, int sq,
                         int sk, int h, int kvh, int d, float scale, int causal,
                         cudaStream_t stream) {
-  return launch<float>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  return scalar::launch<float>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* o, int b, int sq, int sk, int h, int kvh, int d,
                          float scale, int causal, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 0 || d > 256 || d % 2 || kvh <= 0 || h % kvh) return (int)cudaErrorInvalidValue;
+  if (d % 8 || sk == 0 || !tc::aligned16(q) || !tc::aligned16(k) || !tc::aligned16(v) ||
+      !tc::aligned16(o))
+    return scalar::launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 64) return tc::run<64>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 128) return tc::run<128>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 192) return tc::run<192>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  return tc::run<256>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 }

@@ -9,9 +9,19 @@ of KV (query head h reads KV head h // (H // KV)), in float32 or bf16, and
 return softmax(q k^T * D**-0.5) v in q's dtype [B, Sq, H, D]; ``causal``
 masks the keys with kpos > qpos (both counted from 0).  Any Sq and Sk.
 
-The kernel is ``csrc/flash_attention.cu``; ``flash_attention_plain`` is the
-oracle's arithmetic (float32 scores, -1e30 masking, a float32 softmax and
-float32 ``p @ v``), so the two agree to float32 rounding.
+The kernels are in ``csrc/flash_attention.cu``, one per dtype.  bf16 (the
+models' route) runs on the tensor cores: TMA loads of K and V tiles into a
+ring in shared memory, ``wgmma`` for q k^T and for p v, the online softmax
+in registers, and p carried as two bf16 terms (hi = bf16(p), lo =
+bf16(p - hi)), about 16 bits of the float32 probabilities the reference
+multiplies by; it agrees with the plain version to bf16 output rounding
+(3e-2 held).  A bf16 head dim that is not a multiple of 8, an unaligned
+base pointer or Sk = 0 (what a TMA tensor map cannot describe) takes the
+scalar kernel instead, chosen in the C entry point from the shapes and
+pointers.
+float32 takes the scalar kernel (CUDA cores, float32 products), within
+2e-5.  ``flash_attention_plain`` is the oracle's arithmetic (float32
+scores, -1e30 masking, a float32 softmax and float32 ``p @ v``).
 """
 from __future__ import annotations
 

@@ -10,11 +10,13 @@ an explicit ``torch.Generator`` on the target device (not its numbers:
 tests convert the reference's params instead).
 
 Causal self-attention in the ``"train"`` and ``"prefill"`` modes goes
-through the flash-attention wrapper (``kernels.ops.flash_attention``:
-float32 probabilities); every other case (decode, the local mask,
-``"none"``, cross-attention, ``attn_softmax_bf16``) through the ported
-``_sdpa`` (probabilities rounded to bf16 before ``p @ v``, as the reference
-does everywhere).  The two differ by that rounding.
+through the flash-attention wrapper (``kernels.ops.flash_attention``), whose
+probabilities are float32 (the plain version, on the CPU) or float32 carried
+as two bf16 terms, hi and lo, about 16 bits (the bf16 kernel on the card);
+every other case (decode, the local mask, ``"none"``, cross-attention,
+``attn_softmax_bf16``) goes through the ported ``_sdpa``, which rounds the
+probabilities once to bf16 before ``p @ v``, as the reference does
+everywhere.  The two routes differ by that rounding.
 """
 from __future__ import annotations
 

@@ -262,6 +262,25 @@ def test_interval_stats_kernel_equals_plain(card, dtype, t, s, w):
         ops.interval_stats(x[: t - 1], t)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interval_stats_kernel_unaligned_base_equals_plain(card, dtype):
+    """S a multiple of the kernel's 16-byte vector, but the base pointer one
+    element off: the one-element instantiation, against the plain version,
+    and the aligned copy through the vector one."""
+    t, s, w = 2048, 256, 256
+    g = torch.Generator(device="cuda").manual_seed(t + s + w + 1)
+    x = _with_specials(torch.randn((t, s), device=card, generator=g).to(dtype))
+    buf = torch.empty(t * s + 1, dtype=dtype, device=card)
+    buf[1:] = x.reshape(-1)
+    xi = buf[1:].view(t, s)  # contiguous, its base 2 or 4 bytes past an allocation
+    assert xi.is_contiguous() and xi.data_ptr() % 16 != 0
+    for xx in (xi, x):
+        got = ops.interval_stats(xx, w)
+        want = IS.interval_stats_plain(xx, w)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(_INT[dtype]), b.view(_INT[dtype]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [256, 130, 7])
 def test_pyramid_kernels_equal_plain(card, dtype, n):
@@ -353,6 +372,9 @@ def test_streamed_container_and_analytics_on_card_equal_cpu(card):
     (2, 77, 77, 4, 2, 160, True),
     (1, 200, 200, 4, 2, 16, True),
     (1, 1, 1, 8, 8, 128, True),
+    (2, 128, 384, 4, 2, 128, True),
+    (2, 300, 300, 8, 2, 128, True),
+    (1, 1024, 1024, 32, 8, 128, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_equals_plain(card, b, sq, sk, h, kv, d, causal, dtype):
