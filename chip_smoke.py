@@ -20,10 +20,15 @@ result line):
    4 decimals, eps_b = 5% of the range, rANS), then ``decompress_at`` of
    every series at 0.0 (bit-identical to the input) and a progressive
    decode of every tier (|v_hat - v| <= eps).  Kernel launch counts are
-   zeroed just before and read just after; each kernel must have run.
+   zeroed just before and read just after; each kernel must have run.  The
+   timed decode's own ``rans_decode`` launches are counted apart from the
+   tier checks': at most one a series (a prefix's layers share a launch).
 3. kernels: each kernel against its plain torch version on the card, on
    the inputs the main path gave it, exactly (torch.equal); the cone scan
-   also once in float32.  Times from CUDA events.
+   also once in float32.  Times from CUDA events; ``rans_decode`` at the
+   path's first call (one series' rows) and at that call's first row (the
+   shape PR 18 launched), each also as a CUDA graph of 20 calls
+   (``graph_ms``, device time without the host's launch overhead).
 4. device route vs CPU route: 8 series through ``device="cpu"`` give the
    same SHRK bytes, and so do 8 non-negative ones with zeros of both signs
    (a zero extreme takes numpy's sign in some rows of the batch).
@@ -35,7 +40,8 @@ result line):
    tier within its eps; the cone scan's masked mode against its plain
    version (torch.equal) on the first and the last bucket's inputs; 8
    series through ``device="cpu"`` give the same bytes; the backend count
-   per stream and whether ``zstandard`` imports.
+   per stream and whether ``zstandard`` imports; the timed decode's
+   ``rans_decode`` launches.
 7. KV store at llama3-8b width (32 layers, 8 KV heads, head_dim 128, bf16;
    ``src/repro/configs/llama3_8b.py``): prefill caches of 2048 positions
    for a batch of 4, ``promote_caches`` to 8192, ``quantize_cache``,
@@ -61,7 +67,8 @@ result line):
    on the card counts its synchronizing CUDA calls.
    ``segment_agg`` against its plain version: float64 on the largest
    input the path gave it and on one launch over every segment of the
-   container, float32 on the same rows.
+   container, float32 on the same rows; a wrapper call's device time from
+   a CUDA graph beside its event time and the profiler's kernel time.
 9. dense model at full width and depth: llama3-8b
    (``src/repro/configs/llama3_8b.py``: 32 layers, d_model 4096, 32 heads,
    8 KV heads, head_dim 128, d_ff 14336, vocab 128256; 8,030,261,248 bf16
@@ -111,7 +118,8 @@ phase times the main path stage by stage
 compress_batch and the lossless decode of 64 series with torch.profiler:
 device time by kernel and copy, the device busy share (the union of the
 trace's device events over the profiled window), and a Chrome trace in
-DIR.
+DIR; the decode of those 64 series also under cProfile (the host
+functions with the most cumulative time).
 
 The last two lines are the kernels line and the result line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -172,6 +180,10 @@ SURF_WINDOW = 1024
 SURF_CHUNK_ROWS = 1 << 17
 SURF_QMAX = 127
 SURF_STEP_FRACTIONS = (1.0, 1 / 16, 1 / 256)
+# rans_decode's previous time at the path's first call, 1 row x 256 steps x
+# 64 lanes (PERF.md section 6, row 3: the block-a-row kernel, PR 18 runs A-D,
+# events over 20 calls)
+RANS_DECODE_PREV_MS = {"block a row, PR 18 runs A-D": [0.08738, 0.09069]}
 # interval_stats' previous times at [131072, 256], W 1024 (PERF.md section
 # 6, row 4: the one-element-a-thread kernel, runs A and B)
 INTERVAL_PREV_MS = {
@@ -292,17 +304,22 @@ def tier_bound(eps: float, v: torch.Tensor) -> float:
     return eps * (1 + 1e-9) + 4 * float(np.finfo(np.float64).eps) * max(1.0, float(v.abs().max()))
 
 
-def main_path(P, values: np.ndarray, dev: torch.device) -> dict:
+def main_path(P, values: np.ndarray, dev: torch.device, launches: dict) -> dict:
     codec = P.ShrinkCodec.from_fraction(values, frac=0.05, backend="rans", device=dev)
     v = torch.as_tensor(values, device=dev)
     torch.cuda.reset_peak_memory_stats()
     css, t_compress = sync_time(lambda: codec.compress_batch(v, TIERS, decimals=DECIMALS))
     blobs = [P.cs_to_bytes(cs) for cs in css]
     parsed = [P.cs_from_bytes(b) for b in blobs]
+    before = launches["rans_decode"]
     outs, t_decode = sync_time(lambda: [codec.decompress_at(cs, 0.0) for cs in parsed])
+    decode_launches = launches["rans_decode"] - before
     for i, out in enumerate(outs):
         check(torch.equal(out, v[i]), f"series {i}: lossless decode differs from the input")
     del outs
+    # one decode launch a series and lane count (every series here has 64 lanes)
+    check(0 < decode_launches <= len(parsed),
+          f"the timed decode made {decode_launches} rans_decode launches for {len(parsed)} series")
     worst = [0.0] * len(TIERS)
     for i, cs in enumerate(parsed):
         dec = P.ProgressiveDecoder(cs, dev)
@@ -320,6 +337,8 @@ def main_path(P, values: np.ndarray, dev: torch.device) -> dict:
         "compression_ratio": P.BYTES_PER_ROW * values.size / archive,
         "compress_s": t_compress,
         "decompress_at_lossless_s": t_decode,
+        "decode_rans_launches": decode_launches,
+        "tier_check_rans_launches": launches["rans_decode"] - before - decode_launches,
         "max_tier_error": dict(zip(map(str, TIERS), worst)),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "segments": sum(cs.base.segment_count() for cs in css),
@@ -387,30 +406,55 @@ def check_rans(rk, enc_args, dec_args, launches: dict) -> list[dict]:
         "library_ms": None, "rows": r, "steps": steps, "lanes": k, "cells": n_cells,
     }]
     states, freqs_d, words, word_off, word_cnt, ns, kd = dec_args[0]
-    rd = states.shape[0]
-    cols = int((-(-ns // kd)).max()) * kd
-    got = rk.decode_rows_cuda(states, freqs_d, words, word_off, word_cnt, ns, kd, cols)
-    want, plain_s = sync_time(
-        lambda: rk.decode_rows_plain(states, freqs_d, words, word_off, word_cnt, ns, kd, cols)
-    )
-    err = max_abs_err(got, want)
-    check(all(torch.equal(a, b) for a, b in zip(got, want)),
-          f"rans_decode kernel differs from its plain version (max err {err})")
-    ms = event_ms(lambda: rk.decode_rows_cuda(states, freqs_d, words, word_off, word_cnt, ns, kd,
-                                              cols), 20)
-    d_cells = rd * cols
-    dec_bytes = words.numel() * 2 + rd * (kd * 8 + 256 * 8 + 3 * 8) + d_cells + rd * 8
-    dec_ops = 10 * d_cells
+    shapes = {
+        "batched": (states, freqs_d, words, word_off, word_cnt, ns),
+        # PR 18 launched one layer's rows a call: this is its first call's row
+        "one_row": (states[:1], freqs_d[:1], words, word_off[:1], word_cnt[:1], ns[:1]),
+    }
+    dec = {}
+    for name, args in shapes.items():
+        rd = args[0].shape[0]
+        cols = int((-(-args[5] // kd)).max()) * kd
+        got = rk.decode_rows_cuda(*args, kd, cols)
+        want, plain_s = sync_time(lambda: rk.decode_rows_plain(*args, kd, cols))
+        err = max_abs_err(got, want)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"rans_decode kernel differs from its plain version at the {name} shape "
+              f"(max err {err})")
+        def call():
+            return rk.decode_rows_cuda(*args, kd, cols)
+        d_cells = rd * cols
+        # the rows' own words, their states and tables and counts read once;
+        # symbols and word counts written once; ~10 integer operations a cell
+        dec_bytes = (int(args[4].sum()) * 2 + rd * (kd * 8 + 256 * 8 + 3 * 8) + d_cells
+                     + rd * 8)
+        dec_ops = 10 * d_cells
+        dev_ms = graph_ms(call, 20)
+        dec[name] = {
+            "err": err, "ms": dev_ms, "event_ms": event_ms(call, 20),
+            "plain_ms": plain_s * 1e3,
+            "bound_ms": 1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S),
+            "bound_by": "bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S
+            else "operations",
+            "rows": rd, "steps": cols // kd, "lanes": kd, "cells": d_cells,
+            "words": int(args[4].sum()), "per_step_ns": dev_ms * 1e6 / (cols // kd),
+        }
+    one, batch = dec["one_row"], dec["batched"]
+    print(f"rans_decode at 1 row x {one['steps']} steps x {kd} lanes: {one['ms']:.5f} ms "
+          f"device (graph), {one['event_ms']:.5f} ms a call (events); PR 18: "
+          f"{RANS_DECODE_PREV_MS}; {batch['rows']} rows (the path's call): {batch['ms']:.5f} ms "
+          f"device, {batch['event_ms']:.5f} ms a call", flush=True)
     rows.append({
         "name": "rans_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rans.cu",
         "replaces": "src/repro/kernels/rans.py:148",
-        "launches": launches["rans_decode"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_s * 1e3,
-        "bound_ms": 1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S),
-        "bound_by": "bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S
-        else "operations",
-        "library_ms": None, "rows": rd, "steps": cols // kd, "lanes": kd, "cells": d_cells,
+        "launches": launches["rans_decode"], "max_abs_err": max(one["err"], batch["err"]),
+        "ms": batch["ms"], "plain_ms": batch["plain_ms"], "bound_ms": batch["bound_ms"],
+        "bound_by": batch["bound_by"], "library_ms": None,
+        **{k: batch[k] for k in ("event_ms", "rows", "steps", "lanes", "cells", "words",
+                                 "per_step_ns")},
+        "one_row": {k: v for k, v in one.items() if k != "err"},
+        "prev_ms": RANS_DECODE_PREV_MS,
     })
     return rows
 
@@ -442,7 +486,9 @@ def ragged_path(P, E, ops, cs_mod, arrs: list[np.ndarray], dev) -> dict:
         css, t_compress = sync_time(lambda: codec.compress_batch(arrs, TIERS, decimals=DECIMALS))
         blobs = [P.cs_to_bytes(cs) for cs in css]
         parsed = [P.cs_from_bytes(b) for b in blobs]
+        before = ops.launches["rans_decode"]
         outs, t_decode = sync_time(lambda: [codec.decompress_at(cs, 0.0) for cs in parsed])
+        decode_launches = ops.launches["rans_decode"] - before
         for i, cs in enumerate(parsed):
             v = torch.as_tensor(arrs[i], device=dev)
             check(torch.equal(outs[i], v), f"ragged series {i}: lossless decode differs")
@@ -492,6 +538,7 @@ def ragged_path(P, E, ops, cs_mod, arrs: list[np.ndarray], dev) -> dict:
         "max_len": int(ns.max()), "archive_bytes": archive,
         "compression_ratio": P.BYTES_PER_ROW * int(ns.sum()) / archive,
         "compress_s": t_compress, "decompress_at_lossless_s": t_decode,
+        "decode_rans_launches": decode_launches,
         "launches": launches, "buckets": len(scans), "backend_streams": backends,
         "zstandard_importable": "zstd" in E.available_backends(),
         "cpu_route_series": pick, "masked_scan": masked,
@@ -900,15 +947,34 @@ def check_segment_agg(P, SA, Sz, blob: bytes, largest, launches: dict, dev) -> d
         torch.cuda.synchronize()
     kernel_us = sum(e.device_time_total for e in prof.key_averages()
                     if "segment_agg" in e.key) / 20
+    # a wrapper call's device time (the row packing and the kernel) from a
+    # CUDA graph of 20 calls, with the host's launch overhead left out
+    call_graph_ms = graph_ms(lambda: SA.segment_agg_cuda(*rows), 20)
     # a row: four float64 scalars read, four written; ~40 float64 operations
     row = kernel_row("segment_agg", "src/repro_torch/kernels/csrc/segment_agg.cu",
                      "src/repro/kernels/segment_agg.py:37", launches, err, ms, plain_ms,
                      64 * m, 40 * m, FP64_OPS_PER_S, [m, 1])
     row.update({"dtype": "float64", "kernel_device_ms": kernel_us / 1e3 or None,
+                "graph_ms": call_graph_ms,
                 "largest_path_input_rows": int(largest[0].shape[0]),
                 "f32_max_abs_err": res[torch.float32][0], "f32_ms": res[torch.float32][1],
                 "f32_plain_ms": res[torch.float32][2]})
     return row
+
+
+def cprofile_top(job, top: int = 20) -> dict:
+    """Run ``job`` under cProfile; the ``top`` host functions by cumulative
+    seconds, as "file:line:function"."""
+    import cProfile
+    import pstats
+
+    pr = cProfile.Profile()
+    pr.enable()
+    job()
+    torch.cuda.synchronize()
+    pr.disable()
+    stats = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][3])[:top]
+    return {f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}": st[3] for f, st in stats}
 
 
 def profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg, tiers, blob,
@@ -918,9 +984,6 @@ def profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg, tiers
     torch.profiler (device busy share, top device ops, a Chrome trace in
     ``out_dir``) and once under cProfile (the host functions with the most
     cumulative time)."""
-    import cProfile
-    import pstats
-
     from torch.profiler import ProfilerActivity, profile
 
     sub = range(0, v.shape[0], 8)
@@ -942,17 +1005,10 @@ def profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg, tiers
         path = out_dir / f"streamed_{name}_trace.json"
         prof.export_chrome_trace(str(path))
         busy_ms, ops_ms = device_busy(path)
-        pr = cProfile.Profile()
-        pr.enable()
-        job()
-        torch.cuda.synchronize()
-        pr.disable()
-        top = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][3])[:20]
         res[name] = {
             "wall_s": wall, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
             "top_device_ops": dict(sorted(ops_ms.items(), key=lambda kv: -kv[1]["device_ms"])[:8]),
-            "host_cumulative_s": {f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}": st[3]
-                                  for f, st in top},
+            "host_cumulative_s": cprofile_top(job),
         }
     (out_dir / "streamed_trace_summary.json").write_text(json.dumps(res, indent=1))
     return res
@@ -1108,6 +1164,7 @@ def trace_main_path(P, values: np.ndarray, codec, dev, out_dir: pathlib.Path) ->
     parsed, t["cs_from_bytes_64"] = sync_time(lambda: [P.cs_from_bytes(b) for b in blobs])
     _, t["decompress_at_lossless_64"] = sync_time(
         lambda: [codec.decompress_at(cs, 0.0) for cs in parsed])
+    host = cprofile_top(lambda: [codec.decompress_at(cs, 0.0) for cs in parsed])
     del preds, streams, todo, css
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1135,6 +1192,7 @@ def trace_main_path(P, values: np.ndarray, codec, dev, out_dir: pathlib.Path) ->
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall_all,
         "top_device_ops": top,
+        "decompress_at_64_host_cumulative_s": host,
     }
     (out_dir / "main_path_trace_summary.json").write_text(json.dumps(trace, indent=1))
     return trace
@@ -1473,7 +1531,7 @@ def main() -> None:
     values = gateway_batch(args.series, args.samples, args.seed)
     recs = [Recorder(ops, name) for name in ("cone_scan", "rans_encode_rows", "rans_decode_rows")]
     ops.reset_launches()
-    stats = main_path(P, values, dev)
+    stats = main_path(P, values, dev, ops.launches)
     launches = dict(ops.launches)
     for rec in recs:
         rec.restore()

@@ -25,7 +25,10 @@ device, all streams at once (:class:`_Streams`): min, max and median
 planes and their histograms in passes of bounded size.  The
 rANS coder runs in ``kernels.rans``, one launch per group of rows that
 share a lane count and a power-of-two step count, so a ragged batch pads
-no row to more than twice its length.  The host frames the bytes, runs the
+no row to more than twice its length.  A batch of rANS streams decodes
+with one launch per lane count, one host-to-device copy and one read-back
+(:func:`decode_ints_until_error`, which stops where a loop over the
+streams would).  The host frames the bytes, runs the
 packers, the range coder and zstd, and sums the cost model's <= 256-entry
 float64 terms in numpy in the reference's own expression and order, so the
 same stream always gets the same pick.  Integers stay int64 (torch has
@@ -57,6 +60,7 @@ __all__ = [
     "choose_backend",
     "decode_ints",
     "decode_ints_batch",
+    "decode_ints_until_error",
     "encode_ints",
     "encode_ints_batch",
     "predict_backend_sizes",
@@ -883,39 +887,96 @@ def _parse_rans(body: bytes):
     return med, count, k, planes
 
 
-def _rans_decode_many(bodies: list[bytes], device) -> list[torch.Tensor]:
-    """Decode rANS stream bodies; streams with the same lane count share
-    one decoder launch (their planes are its rows)."""
-    parsed = [_parse_rans(b) for b in bodies]
-    out: list[torch.Tensor | None] = [None] * len(bodies)
+def _rans_decode_many(parsed: list, device) -> tuple[list[torch.Tensor], int | None]:
+    """Decode parsed rANS streams (:func:`_parse_rans` results).  Streams
+    with the same lane count share one decoder launch (their planes are its
+    rows, every launch as wide as the widest).  Every row's states, table,
+    word offset and count and symbol count, the rebuild terms and all words
+    reach the device in one copy; one read-back checks every row's word
+    count; the int64 values of all streams are rebuilt in a fixed number of
+    torch ops: each decoded symbol is scattered to byte ``p`` of its value
+    (plane p holds bits 8p..8p+7), the bytes are read as little-endian
+    int64, unzigzagged and offset by the stream's median.  Returns the
+    streams' tensors and the index of the first stream that ran out of
+    renormalization words (None if none)."""
+    if not parsed:
+        return [], None
+    counts = [c for _m, c, _k, _p in parsed]
+    starts = np.cumsum([0] + counts[:-1])
     by_k: dict[int, list[int]] = {}
     for i, (_m, _c, k, _p) in enumerate(parsed):
         by_k.setdefault(k, []).append(i)
+    cols = max(-(-counts[i] // k) * k for k, idxs in by_k.items() for i in idxs)
+    # the launches' rows in order: per row its plane, its stream and the
+    # byte its first symbol goes to
+    groups, planes, row_of, row_dst = [], [], [], []
     for k, idxs in by_k.items():
-        planes = [pl for i in idxs for pl in parsed[i][3]]
-        ns = [parsed[i][1] for i in idxs for _ in parsed[i][3]]
-        wlen = [pl[2].size for pl in planes]
-        words = torch.from_numpy(np.concatenate([pl[2] for pl in planes]))
-        syms, used = ops.rans_decode_rows(
-            torch.from_numpy(np.stack([pl[1] for pl in planes])).to(device),
-            torch.from_numpy(np.stack([pl[0] for pl in planes])).to(device),
-            words.to(device),
-            torch.tensor(np.cumsum([0] + wlen[:-1]), dtype=torch.int64, device=device),
-            torch.tensor(wlen, dtype=torch.int64, device=device),
-            torch.tensor(ns, dtype=torch.int64, device=device),
-            k,
-        )
-        if bool((used > torch.tensor(wlen, device=device)).any()):
-            raise CorruptFrameError("rANS stream ran out of renormalization words")
-        row = 0
+        first = len(planes)
         for i in idxs:
-            med, count, _k, pls = parsed[i]
-            zz = torch.zeros(count, dtype=torch.int64, device=device)
-            for p in range(len(pls)):
-                zz |= syms[row + p, :count].long() << (8 * p)
-            row += len(pls)
-            out[i] = _unzigzag(zz) + med
-    return out
+            for p, pl in enumerate(parsed[i][3]):
+                planes.append((pl, counts[i]))
+                row_of.append(i)
+                row_dst.append(8 * starts[i] + p)
+        groups.append((k, len(planes) - first))
+    n_rows = len(planes)
+    row_ns = np.array([c for _, c in planes], dtype=np.int64)
+    wlen = np.array([pl[2].size for pl, _ in planes], dtype=np.int64)
+    n_words = int(wlen.sum())
+    # one int64 host buffer: per launch [states, freqs, word_off, word_cnt,
+    # ns], then the rows' first bytes, the medians and the counts, then the
+    # words as int16
+    n_meta = sum(r * (k + 259) for k, r in groups) + n_rows + 2 * len(parsed)
+    # pinned for the card, so the copy is asynchronous and not a second
+    # synchronization (PyTorch's host allocator keeps the block until it is done)
+    card = torch.device(device).type == "cuda"
+    staged = torch.empty(n_meta + -(-n_words // 4), dtype=torch.int64, pin_memory=card)
+    host = staged.numpy()
+    at = row = 0
+    for k, r in groups:
+        part = planes[row : row + r]
+        host[at : at + r * k] = np.concatenate([pl[1] for pl, _ in part])
+        host[at + r * k : at + r * (k + 256)] = np.concatenate([pl[0] for pl, _ in part])
+        at += r * (k + 256)
+        host[at : at + r] = np.cumsum(wlen)[row : row + r] - wlen[row : row + r]
+        host[at + r : at + 2 * r] = wlen[row : row + r]
+        host[at + 2 * r : at + 3 * r] = row_ns[row : row + r]
+        at += 3 * r
+        row += r
+    tail = [row_dst, [p[0] for p in parsed], counts]
+    host[at:n_meta] = np.concatenate([np.asarray(t, dtype=np.int64) for t in tail])
+    host.view(np.int16)[4 * n_meta : 4 * n_meta + n_words] = np.concatenate(
+        [pl[2] for pl, _ in planes]
+    )
+    buf = staged.to(device, non_blocking=True)
+    words = buf[n_meta:].view(torch.int16)[:n_words]
+    syms, short, ns_all = [], [], []
+    at = 0
+    for k, r in groups:
+        states = buf[at : at + r * k].view(r, k)
+        freqs = buf[at + r * k : at + r * (k + 256)].view(r, 256)
+        at += r * (k + 256)
+        off, cnt, ns = (buf[at + j * r : at + (j + 1) * r] for j in range(3))
+        at += 3 * r
+        sy, used = ops.rans_decode_rows(states, freqs, words, off, cnt, ns, k, cols=cols)
+        syms.append(sy)
+        short.append(used > cnt)
+        ns_all.append(ns)
+    dst0 = buf[at : at + n_rows]
+    meds, lens = buf[at + n_rows : n_meta].view(2, -1)
+    flags = short[0] if len(short) == 1 else torch.cat(short)
+    short_rows = np.flatnonzero(flags.cpu().numpy())  # the call's one synchronization
+    first_bad = min(row_of[j] for j in short_rows) if short_rows.size else None
+    grid = syms[0] if len(syms) == 1 else torch.cat(syms)  # [rows, cols]
+    row_n = ns_all[0] if len(ns_all) == 1 else torch.cat(ns_all)
+    total = sum(counts)
+    j = torch.arange(cols, device=device)
+    # cells past a row's symbols go to a spare byte after the values
+    dst = torch.where(j < row_n[:, None], dst0[:, None] + 8 * j, 8 * total)
+    value_bytes = torch.zeros(8 * total + 1, dtype=torch.uint8, device=device)
+    value_bytes[dst] = grid
+    med = torch.repeat_interleave(meds, lens, output_size=total)
+    q = _unzigzag(value_bytes[: 8 * total].view(torch.int64)) + med
+    return list(torch.split(q, counts)), first_bad
 
 
 _HOST_DECODERS = {"rc": _rc_decode, "raw": _raw_decode, "bitpack": _bitpack_decode}
@@ -930,27 +991,62 @@ def _split_tag(data: bytes) -> tuple[str, bytes]:
     return name, bytes(data[1:])
 
 
+def decode_ints_until_error(
+    blobs: list[bytes], device=None, n: int | None = None
+) -> tuple[list[torch.Tensor], Exception | None]:
+    """Decode tagged streams in order as a loop of :func:`decode_ints`
+    would, stopping at the first stream that fails: returns the int64
+    tensors (on ``device``, default the card) of the streams before it and
+    the payload error it raised (None if every stream decoded).  With
+    ``n``, the first stream whose length is not n ends the batch after
+    itself, so nothing past a wrong-length stream is decoded.  rANS
+    streams with the same lane count share one decoder launch; the other
+    tags decode on the host, zstd with one shared context.  An error
+    outside :data:`PAYLOAD_ERRORS` (a failed kernel build or launch)
+    propagates at once."""
+    dev = resolve_device(device)
+    out: list[torch.Tensor | None] = [None] * len(blobs)
+    rans_idx, parsed = [], []
+    stop, exc = len(blobs), None
+    zctx = None
+    for i, data in enumerate(blobs):
+        try:
+            name, body = _split_tag(data)
+            if name == "rans":
+                parsed.append(_parse_rans(body))
+                rans_idx.append(i)
+                length = parsed[-1][1]
+            else:
+                if name == "zstd":
+                    if zctx is None and _zstd is not None:
+                        zctx = _zstd.ZstdDecompressor()
+                    q = _zstd_decode(body, decompressor=zctx)
+                else:
+                    q = _HOST_DECODERS[name](body)
+                out[i] = torch.from_numpy(np.ascontiguousarray(q, dtype=np.int64)).to(dev)
+                length = out[i].numel()
+        except PAYLOAD_ERRORS as e:
+            stop, exc = i, e
+            break
+        if n is not None and length != n:
+            stop = i + 1
+            break
+    qs, bad = _rans_decode_many(parsed, dev)
+    for i, q in zip(rans_idx, qs):
+        out[i] = q
+    if bad is not None and rans_idx[bad] < stop:
+        stop, exc = rans_idx[bad], CorruptFrameError("rANS stream ran out of renormalization words")
+    return out[:stop], exc
+
+
 def decode_ints_batch(blobs: list[bytes], device=None) -> list[torch.Tensor]:
     """Decode tagged streams into int64 tensors on ``device`` (default the
-    card).  rANS streams with the same lane count share one decoder launch;
-    the other tags decode on the host, zstd with one shared context."""
-    dev = resolve_device(device)
-    split = [_split_tag(d) for d in blobs]
-    out: list[torch.Tensor | None] = [None] * len(blobs)
-    rans_idx = [i for i, (name, _) in enumerate(split) if name == "rans"]
-    for i, q in zip(rans_idx, _rans_decode_many([split[i][1] for i in rans_idx], dev)):
-        out[i] = q
-    zctx = None
-    for i, (name, body) in enumerate(split):
-        if name == "rans":
-            continue
-        if name == "zstd":
-            if zctx is None and _zstd is not None:
-                zctx = _zstd.ZstdDecompressor()
-            q = _zstd_decode(body, decompressor=zctx)
-        else:
-            q = _HOST_DECODERS[name](body)
-        out[i] = torch.from_numpy(np.ascontiguousarray(q, dtype=np.int64)).to(dev)
+    card), raising the first failing stream's error as a loop would.  rANS
+    streams with the same lane count share one decoder launch; the other
+    tags decode on the host, zstd with one shared context."""
+    out, exc = decode_ints_until_error(blobs, device)
+    if exc is not None:
+        raise exc
     return out
 
 

@@ -312,11 +312,30 @@ class ProgressiveDecoder:
             self._recons[0] = base_predictions(base, self.device)
 
     def prefix(self, k: int) -> torch.Tensor:
-        """Reconstruction through layer ``k`` (-1 = base only)."""
+        """Reconstruction through layer ``k`` (-1 = base only).  The missing
+        layers decode in one batch (one rANS launch per lane count); a
+        failure at layer d keeps the layers before d, leaves the depth where
+        it was and raises as the reference's layer-by-layer loop does: a
+        quarantined layer, a payload that fails to decode (see
+        :func:`_raise_payload_error`) or one of the wrong length as
+        :class:`LayerCorruptError`, while an error of the kernel layer (a
+        failed build or launch) propagates unchanged."""
         self._ensure_base()
         if k > self._depth:
-            recon = self._recons[self._depth + 1]
-            for d in range(self._depth + 1, k + 1):
+            first = self._depth + 1
+            todo = []
+            for d in range(first, k + 1):
+                if self._layers[d].corrupt:
+                    break
+                if self._layers[d].mode != "identity":
+                    todo.append(d)
+            recon = self._recons[first]
+            n = recon.numel()
+            qs, exc = entropy.decode_ints_until_error(
+                [self._layers[d].payload for d in todo], self.device, n=n
+            )
+            qs = iter(qs)
+            for d in range(first, k + 1):
                 layer = self._layers[d]
                 if layer.corrupt:
                     raise LayerCorruptError(
@@ -327,43 +346,44 @@ class ProgressiveDecoder:
                     )
                 if layer.mode == "identity":
                     out = recon
-                elif layer.mode == "midpoint":
-                    q = self._decode_payload(layer, d, recon.numel())
-                    out = recon + (layer.r_lo + (q.double() + 0.5) * layer.step)
-                    recon = out
-                elif layer.mode == "exact":
-                    q = self._decode_payload(layer, d, recon.numel())
-                    scale = 10.0 ** int(round(-math.log10(layer.step)))
-                    rec_int = torch.round(recon * scale).long()
-                    out = _div((rec_int + q).double(), scale)
-                else:  # pragma: no cover - decode_pyramid enforces modes
-                    raise ValueError(f"unknown layer mode {layer.mode!r}")
+                else:
+                    q = next(qs, None)
+                    if q is None:
+                        _raise_payload_error(exc, layer.payload, d)
+                    if q.numel() != n:
+                        raise LayerCorruptError(
+                            f"pyramid layer decoded to {q.numel()} residuals for {n} samples",
+                            layer=d,
+                        )
+                    self.layers_decoded += 1
+                    if layer.mode == "midpoint":
+                        out = recon + (layer.r_lo + (q.double() + 0.5) * layer.step)
+                        recon = out
+                    elif layer.mode == "exact":
+                        scale = 10.0 ** int(round(-math.log10(layer.step)))
+                        rec_int = torch.round(recon * scale).long()
+                        out = _div((rec_int + q).double(), scale)
+                    else:  # pragma: no cover - decode_pyramid enforces modes
+                        raise ValueError(f"unknown layer mode {layer.mode!r}")
                 self._recons[d + 1] = out
             self._depth = k
         return self._recons[k + 1]
 
-    def _decode_payload(self, layer, d: int, n: int) -> torch.Tensor:
-        """Entropy-decode one layer.  A payload that fails to parse or has
-        the wrong length raises :class:`LayerCorruptError` (or the typed
-        :class:`ShrinkError` the parser raised); an error of the kernel
-        layer (a failed build or launch) propagates unchanged."""
-        try:
-            q = entropy.decode_ints(layer.payload, self.device)
-        except ShrinkError:
-            raise
-        except entropy.PAYLOAD_ERRORS as e:
-            raise LayerCorruptError(
-                f"pyramid layer payload failed entropy decode: {e}", layer=d
-            ) from e
-        if q.numel() != n:
-            raise LayerCorruptError(
-                f"pyramid layer decoded to {q.numel()} residuals for {n} samples", layer=d
-            )
-        self.layers_decoded += 1
-        return q
-
     def at(self, eps: float) -> torch.Tensor:
         return self.prefix(self.cs.pyramid.resolve(eps, self.cs.eps_b_practical))
+
+
+def _raise_payload_error(exc: Exception, payload: bytes, d: int) -> None:
+    """Raise what the reference raises for layer d's failed payload: a
+    typed error of its decoders (an empty or unknown tag, a bad bitpack
+    stream) unchanged, anything else as :class:`LayerCorruptError`.  The
+    port's rANS parser and word check raise typed errors where the
+    reference's rANS decoder raises untyped ones, so theirs are wrapped."""
+    if isinstance(exc, ShrinkError) and not (
+        payload and entropy.backend_name(payload[0]) == "rans"
+    ):
+        raise exc
+    raise LayerCorruptError(f"pyramid layer payload failed entropy decode: {exc}", layer=d) from exc
 
 
 def decompress_at(

@@ -12,10 +12,12 @@ and records per cell whether the lane renormalised (``need``) and the low
 lanes ascending).  The decoder walks steps forward; renormalising lanes
 read the row's words in ascending lane order.
 
-The kernels are ``csrc/rans.cu`` (one block per row, one thread per lane,
-tables in shared memory).  The plain versions hold the states in int64 and
-keep them below 2^32, because torch's CPU kernels lack unsigned 32-bit
-shifts, divisions and comparisons.  Symbols are int16 in [0, 256] (256 is
+The kernels are ``csrc/rans.cu``: the encoder one block a row and one
+thread a lane, the decoder one warp a row (a thread owns lanes ``wl`` and
+``wl + 32``), each with the row's tables in shared memory.  The plain
+versions hold the states in int64 and keep them below 2^32, because
+torch's CPU kernels lack unsigned 32-bit shifts, divisions and
+comparisons.  Symbols are int16 in [0, 256] (256 is
 the identity pad: freq = M, cum = 0, a no-op); words are the u16 wire
 words held as int16.
 """
@@ -188,7 +190,7 @@ def decode_rows_plain(states, freqs, words, word_off, word_cnt, ns, k: int, cols
 _DEC_ARGS = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 5
-    + [ctypes.c_int]
+    + [ctypes.c_int64]
     + [ctypes.c_void_p] * 3
 )
 
@@ -209,8 +211,9 @@ def decode_rows_cuda(states, freqs, words, word_off, word_cnt, ns, k: int, cols:
         raise ValueError("rans decode: states must be [R, k <= 64], freqs [R, 256]")
     states, freqs, words = states.contiguous(), freqs.contiguous(), words.contiguous()
     word_off, word_cnt, ns = word_off.contiguous(), word_cnt.contiguous(), ns.contiguous()
-    syms = torch.zeros((r, cols), dtype=torch.uint8, device=dev)
-    used = torch.zeros(r, dtype=torch.int64, device=dev)
+    # the kernel writes every cell (0 past a row's symbols) and every count
+    syms = torch.empty((r, cols), dtype=torch.uint8, device=dev)
+    used = torch.empty(r, dtype=torch.int64, device=dev)
     if r == 0:
         return syms, used
     fn = _build.function("rans", "rans_decode", _DEC_ARGS)
@@ -225,14 +228,18 @@ def decode_rows_cuda(states, freqs, words, word_off, word_cnt, ns, k: int, cols:
     return syms, used
 
 
-def decode_rows(states, freqs, words, word_off, word_cnt, ns, k: int):
+def decode_rows(states, freqs, words, word_off, word_cnt, ns, k: int, cols: int | None = None):
     """The decode wrapper: the kernel for a CUDA tensor, the plain version
-    for a CPU tensor.  Returns syms[R, max steps * k] uint8 (row i valid in
-    its first ns[i] entries) and used[R], the words each row consumed."""
+    for a CPU tensor.  Returns syms[R, cols] uint8 (row i valid in its first
+    ns[i] entries, 0 after them) and used[R], the words each row consumed.
+    ``cols`` defaults to max steps * k, which reads ``ns`` back; a caller
+    that knows the lengths on the host passes it (at least max steps * k)
+    and saves that synchronization."""
     r = states.shape[0]
-    steps = int((-(-ns // k)).max()) if r else 0
+    if cols is None:
+        cols = int((-(-ns // k)).max()) * k if r else 0
     if states.is_cuda:
-        return decode_rows_cuda(states, freqs, words, word_off, word_cnt, ns, k, steps * k)
+        return decode_rows_cuda(states, freqs, words, word_off, word_cnt, ns, k, cols)
     if states.device.type != "cpu":
         raise ValueError(f"rans decode runs on cuda or cpu, got {states.device}")
-    return decode_rows_plain(states, freqs, words, word_off, word_cnt, ns, k, steps * k)
+    return decode_rows_plain(states, freqs, words, word_off, word_cnt, ns, k, cols)

@@ -97,6 +97,78 @@ def test_rans_kernels_equal_plain(card, k):
         assert torch.equal(d_got[0][i, :n].cpu().long(), torch.as_tensor(sym[i, :n]).long())
 
 
+def _encoded_rows(card, rows, k):
+    """Encode symbol rows (a list of int arrays) with their normalized
+    tables on the card; returns the decoder's arguments."""
+    cols = max([1] + [r.size for r in rows])
+    sym = np.full((len(rows), cols), 256, dtype=np.int16)
+    freqs = np.zeros((len(rows), 256), dtype=np.int64)
+    for i, row in enumerate(rows):
+        sym[i, : row.size] = row
+        if row.size:
+            freqs[i] = entropy._rans_normalize_freqs(
+                torch.as_tensor(np.bincount(row, minlength=256)))
+    f_d = torch.as_tensor(freqs, device=card)
+    states, words, counts = rans.encode_rows(torch.as_tensor(sym, device=card), f_d, k)
+    off = torch.cat([counts.new_zeros(1), counts.cumsum(0)[:-1]])
+    ns = torch.tensor([r.size for r in rows], dtype=torch.int64, device=card)
+    return states, f_d, words, off, counts, ns
+
+
+def _decode_equals_plain(args, k, rows=None):
+    """The kernel (its output allocated over freed memory full of 0xAB, so a
+    cell it left unwritten shows) against the plain version; with ``rows``
+    also the symbols themselves."""
+    states, f_d, words, off, cnt, ns = args
+    cols = int((-(-ns // k)).max()) * k
+    junk = torch.full((states.shape[0], cols + 64), 0xAB, dtype=torch.uint8, device=f_d.device)
+    del junk
+    before = ops.launches["rans_decode"]
+    got = rans.decode_rows(states, f_d, words, off, cnt, ns, k, cols=cols)
+    assert ops.launches["rans_decode"] == before + 1
+    want = rans.decode_rows_plain(*(t.cpu() for t in args), k, cols)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    for i, row in enumerate(rows or []):
+        assert np.array_equal(got[0][i, : row.size].cpu().numpy(), row)
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 17, 33, 64])
+def test_rans_decode_kernel_mixed_rows_equal_plain(card, k):
+    """44 rows of mixed lengths (4 empty, some shorter than k) and tables."""
+    rng = np.random.default_rng(100 + k)
+    lens = [0, 0, 0, 0, 1, k - 1 if k > 1 else 2, k, k + 1] + list(rng.integers(1, 60 * k, 36))
+    rows = [rng.integers(0, int(rng.integers(1, 257)), n) for n in lens]
+    _decode_equals_plain(_encoded_rows(card, rows, k), k, rows)
+
+
+def test_rans_decode_kernel_long_row_and_skewed_tables(card):
+    """A row of 64 lanes x 5000 steps (its words pass the shared ring many
+    times), a table with one symbol at 4095 of 4096 slots and one with a
+    single symbol at 4096 (the identity transform), beside a uniform one."""
+    rng = np.random.default_rng(7)
+    skew = np.full(9000, 7)
+    skew[4321] = 200
+    rows = [rng.integers(0, 256, 64 * 5000), skew, np.full(3000, 42), rng.integers(0, 256, 640)]
+    args = _encoded_rows(card, rows, 64)
+    assert args[1][1].max() == 4095 and args[1][2].max() == 4096
+    assert int(args[4][0]) > 2 * 512  # more words than the ring holds
+    _decode_equals_plain(args, 64, rows)
+
+
+@pytest.mark.parametrize("k", [64, 33])
+def test_rans_decode_kernel_short_words_equal_plain(card, k):
+    """Word streams cut short: words past word_cnt read as 0 in both
+    versions, and used exceeds word_cnt."""
+    rng = np.random.default_rng(k)
+    rows = [rng.integers(0, 256, 40 * k), rng.integers(0, 16, 10 * k), rng.integers(0, 256, 3)]
+    states, f_d, words, off, cnt, ns = _encoded_rows(card, rows, k)
+    short = (cnt - torch.tensor([7, 1, 0], device=card)).clamp(min=0)
+    _, used = _decode_equals_plain((states, f_d, words, off, short, ns), k)
+    assert bool((used[:2] > short[:2]).all())
+
+
 def test_device_codec_bytes_equal_cpu_and_reference(card):
     v = _walk(1, 12, 4096)
     tiers = [1e-1, 1e-2, 1e-3, 0.0]

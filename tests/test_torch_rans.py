@@ -5,7 +5,9 @@
   streams and symbols identical;
 * ``encode_ints_batch(..., "rans")`` / ``decode_ints`` against
   ``repro.core.entropy``: blobs byte-identical, including empty,
-  length-1, fewer-than-64-symbol and 8-plane streams.
+  length-1, fewer-than-64-symbol and 8-plane streams;
+* ``decode_ints_batch`` over mixed lane and plane counts, one launch a lane
+  count, and ``decode_ints_until_error`` stopping where a loop would.
 """
 import struct
 
@@ -183,3 +185,60 @@ def test_wrappers_take_plain_versions_on_cpu():
     before = dict(ops.launches)
     ops.rans_encode_rows(torch.as_tensor(sym).to(torch.int16), torch.as_tensor(freqs), 64)
     assert dict(ops.launches) == before
+
+
+MIXED = {
+    "empty": np.zeros(0, dtype=np.int64),
+    "k1": np.array([5], dtype=np.int64),
+    "k17": _RNG.integers(-9, 9, 17),
+    "k33_two_planes": _RNG.integers(-3000, 3000, 33),
+    "k64_one_plane": _RNG.integers(-50, 50, 900),
+    "k64_eight_planes": np.concatenate(
+        [np.array([2**62, -(2**62)]), _RNG.integers(-(2**45), 2**45, 300)]),
+    "k17_again": _RNG.integers(-200, 200, 17),
+    "raw": np.arange(10, dtype=np.int64),
+}
+
+
+def _mixed_blobs() -> list[bytes]:
+    return [ref_entropy.encode_ints(q, backend="raw" if name == "raw" else "rans")
+            for name, q in MIXED.items()]
+
+
+def test_decode_ints_batch_mixed_lanes_planes_and_empty(monkeypatch):
+    """Streams of 0, 1, 17, 33 and 64 lanes, 1 to 8 planes and a host
+    backend in one batch: each equals the reference's ``decode_ints`` of its
+    blob, with one decoder launch per lane count (the empty stream has
+    k = 1)."""
+    blobs = _mixed_blobs()
+    lanes, orig = [], ops.rans_decode_rows
+
+    def counting(*args, **kwargs):
+        lanes.append(args[6])
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "rans_decode_rows", counting)
+    got = entropy.decode_ints_batch(blobs, device="cpu")
+    assert sorted(lanes) == sorted({b[18] for b in blobs if b[0] == 3})
+    assert len(got) == len(blobs)
+    for g, blob in zip(got, blobs):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), ref_entropy.decode_ints(blob))
+
+
+def test_decode_ints_until_error_stops_where_a_loop_would():
+    blobs = _mixed_blobs()
+    good = blobs[4]  # 900 symbols, 64 lanes
+    npres = int(np.unpackbits(np.frombuffer(good[19:51], np.uint8)).sum())
+    at = 1 + 18 + 32 + 2 * npres + 4 * 64
+    (nwords,) = struct.unpack_from("<I", good, at)
+    short = good[:at] + struct.pack("<I", nwords - 5) + good[at + 4 : -10]
+    out, exc = entropy.decode_ints_until_error(blobs[:3] + [short, good[:9], good], "cpu")
+    assert len(out) == 3 and isinstance(exc, CorruptFrameError) and "ran out" in str(exc)
+    out, exc = entropy.decode_ints_until_error([good, good[:9], short], "cpu")
+    assert len(out) == 1 and type(exc).__name__ == "TruncatedArchiveError"
+    # a stream of the wrong length ends the batch after itself
+    out, exc = entropy.decode_ints_until_error([good, blobs[3], short], "cpu", n=900)
+    assert exc is None and [q.numel() for q in out] == [900, 33]
+    with pytest.raises(CorruptFrameError, match="ran out"):
+        entropy.decode_ints_batch([good, short], device="cpu")

@@ -5,11 +5,15 @@
 * ``compress`` and ``compress_batch`` (``[S, T]``, ``backend="rans"``):
   SHRK bytes identical to the reference's;
 * ``decompress_at`` at every tier and in between: bit-identical arrays;
+* ``ProgressiveDecoder.prefix`` from every depth: one rANS launch a call,
+  the reference's bits, and its state and errors when a layer fails;
+* ``RangeQueryBatcher`` on a golden container: results and ``stats``;
 * the golden ``.shrk`` fixtures: parsed, decoded and rebuilt byte for byte;
 * ``convert``: the same state in both packages.
 """
 import dataclasses
 import pathlib
+import struct
 
 import jax  # noqa: F401
 import numpy as np
@@ -18,10 +22,14 @@ import torch
 
 import repro.core as R
 from repro.core import base as ref_base
+from repro.core import entropy as R_entropy
 from repro.core import residuals as ref_res
+from repro.serving.batching import RangeQuery as RefQuery
+from repro.serving.batching import RangeQueryBatcher as RefBatcher
 
 import repro_torch.core as P
 from repro_torch import convert
+from repro_torch import serving as P_serving
 from repro_torch.core import base as port_base
 from repro_torch.core import residuals as port_res
 from repro_torch.core.errors import ConfigError
@@ -253,3 +261,132 @@ def test_decoder_types_corrupt_payloads_and_passes_kernel_errors(monkeypatch):
     with pytest.raises(RuntimeError, match="failed to launch") as info:
         P.ProgressiveDecoder(cs, "cpu").prefix(len(TIERS) - 1)
     assert not isinstance(info.value, P.ShrinkError)
+
+
+# a pyramid with an identity layer first (its tier lies above eps_b), three
+# midpoint layers and the exact one, all rANS with 64 lanes
+PYRAMID_TIERS = [1.0, 1e-1, 1e-2, 1e-3, 0.0]
+
+
+def _pyramid_blob() -> bytes:
+    v = _walk(9, 1, 700)[0]
+    ref = R.ShrinkCodec.from_fraction(v, frac=0.05, lam=1e-5, backend="rans")
+    return R.cs_to_bytes(ref.compress(v, PYRAMID_TIERS, decimals=4))
+
+
+def _count_decode_launches(monkeypatch) -> list[int]:
+    """Wrap ``ops.rans_decode_rows``; returns the list of lane counts of its
+    calls."""
+    lanes, orig = [], ops.rans_decode_rows
+
+    def counting(*args, **kwargs):
+        lanes.append(args[6])
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "rans_decode_rows", counting)
+    return lanes
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float64).view(np.int64)
+
+
+def test_prefix_from_every_depth_is_one_launch_and_matches_reference(monkeypatch):
+    blob = _pyramid_blob()
+    modes = [ly.mode for ly in R.cs_from_bytes(blob).pyramid.layers]
+    assert modes == ["identity", "midpoint", "midpoint", "midpoint", "exact"]
+    rd = R.ProgressiveDecoder(R.cs_from_bytes(blob))
+    want = [rd.prefix(k) for k in range(-1, len(modes))]
+    lanes = _count_decode_launches(monkeypatch)
+    for j in range(-1, len(modes)):
+        for k in range(j, len(modes)):
+            pd = P.ProgressiveDecoder(P.cs_from_bytes(blob), "cpu")
+            pd.prefix(j)
+            paid = pd.layers_decoded
+            lanes.clear()
+            got = pd.prefix(k)
+            need = sum(m != "identity" for m in modes[j + 1 : k + 1])
+            assert lanes == ([64] if need else []), (j, k)
+            assert pd.layers_decoded == paid + need and pd.depth == k
+            assert np.array_equal(_bits(got.numpy()), _bits(want[k + 1]))
+            # every shallower prefix is cached: no launch, the reference's bits
+            for d in range(-1, k + 1):
+                assert np.array_equal(_bits(pd.prefix(d).numpy()), _bits(want[d + 1]))
+            assert lanes == ([64] if need else [])
+            assert pd.guarantee() == R.ProgressiveDecoder(R.cs_from_bytes(blob)).guarantee(k)
+
+
+def _short_words(payload: bytes) -> bytes:
+    """A consistent rANS payload whose first plane lost its last 5 words."""
+    npres = int(np.unpackbits(np.frombuffer(payload[19:51], np.uint8)).sum())
+    at = 1 + 18 + 32 + 2 * npres + 4 * payload[18]
+    (nwords,) = struct.unpack_from("<I", payload, at)
+    return payload[:at] + struct.pack("<I", nwords - 5) + payload[at + 4 : -10]
+
+
+FAULTS = {
+    "corrupt_payload": lambda layer: setattr(layer, "payload", layer.payload[:9]),
+    "short_words": lambda layer: setattr(layer, "payload", _short_words(layer.payload)),
+    "quarantined": lambda layer: setattr(layer, "corrupt", True),
+    "wrong_length": lambda layer: setattr(
+        layer, "payload", R_entropy.encode_ints(np.arange(705), backend="rans")),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("start", [-1, 1])
+def test_prefix_failure_mid_batch_leaves_the_reference_state(fault, start):
+    """A fault in layer 3 of a prefix decoded from ``start`` to 4: the same
+    error and ``layer=`` as the reference's layer-by-layer loop, the layers
+    before it kept, the depth unmoved, and later prefixes alike."""
+    blob = _pyramid_blob()
+    decs = []
+    for pkg, make in ((R, R.ProgressiveDecoder), (P, lambda cs: P.ProgressiveDecoder(cs, "cpu"))):
+        cs = pkg.cs_from_bytes(blob)
+        FAULTS[fault](cs.pyramid.layers[3])
+        decs.append(make(cs))
+    for dec in decs:
+        dec.prefix(start)
+    errs = []
+    for dec in decs:
+        with pytest.raises(ValueError) as info:
+            dec.prefix(4)
+        errs.append(info.value)
+    rd, pd = decs
+    assert type(errs[1]).__name__ == type(errs[0]).__name__ == "LayerCorruptError"
+    assert errs[1].layer == errs[0].layer == 3
+    assert pd.layers_decoded == rd.layers_decoded and pd.depth == rd.depth == start
+    (pv, pg), (rv, rg) = pd.available(), rd.available()
+    assert pg == rg and np.array_equal(_bits(pv.numpy()), _bits(rv))
+    for k in (2, 1, 0):
+        assert np.array_equal(_bits(pd.prefix(k).numpy()), _bits(rd.prefix(k)))
+        assert pd.layers_decoded == rd.layers_decoded and pd.depth == rd.depth
+    with pytest.raises(ValueError) as again:
+        pd.prefix(4)
+    assert type(again.value).__name__ == "LayerCorruptError" and again.value.layer == 3
+
+
+def test_range_batcher_stats_unchanged_on_golden_container():
+    blob = (GOLDEN / "golden_v4_ref.shrks").read_bytes()
+    ref = RefBatcher(blob, cache_frames=2)
+    port = P_serving.RangeQueryBatcher(blob, cache_frames=2, device="cpu")
+    meta = R.routing_metadata(blob)
+    rng = np.random.default_rng(19)
+    specs = []
+    for qid in range(48):
+        sid = meta["series_ids"][qid % len(meta["series_ids"])]
+        lo, hi = ref.span(sid)
+        t0 = int(rng.integers(lo, hi - 1))
+        t1 = int(rng.integers(t0 + 1, hi + 1))
+        specs.append((qid, sid, t0, t1, [1.0, 1e-2, 0.005, 0.0][qid // 6 % 4]))
+    for batch in (specs[:20], specs[20:]):
+        for args in batch:
+            ref.submit(RefQuery(*args))
+            port.submit(P_serving.RangeQuery(*args))
+        for w, g in zip(ref.run(), port.run()):
+            assert (g.error is None) == (w.error is None), (g.error, w.error)
+            assert (g.achieved, g.degraded) == (w.achieved, w.degraded)
+            if w.error is None:
+                assert np.array_equal(_bits(g.result.numpy()), _bits(w.result))
+    assert port.stats == ref.stats
+    assert port.stats["layers_decoded"] > 0 and port.stats["layer_hits"] > 0
