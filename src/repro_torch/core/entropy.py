@@ -906,6 +906,8 @@ def _rans_decode_many(parsed: list, device) -> tuple[list[torch.Tensor], int | N
     by_k: dict[int, list[int]] = {}
     for i, (_m, _c, k, _p) in enumerate(parsed):
         by_k.setdefault(k, []).append(i)
+    # every row's steps * k fit: the kernel keeps its writes inside cols
+    # and does not check the width against ns
     cols = max(-(-counts[i] // k) * k for k, idxs in by_k.items() for i in idxs)
     # the launches' rows in order: per row its plane, its stream and the
     # byte its first symbol goes to

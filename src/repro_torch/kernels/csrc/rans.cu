@@ -80,18 +80,13 @@ __global__ void rans_encode_kernel(const int16_t* __restrict__ sym, int cols, in
 // entry (symbol | (f - 1) << 8 | (slot - c) << 20), a multiply-add, the
 // ballot and a popcount for the rank, and, if the lane renormalises, one
 // shared load of its word.  The words reach shared memory through a ring of
-// two 256-word chunks (its first 64 entries mirrored past its end, so a
-// step's reads never wrap); the chunk after them waits in registers, loaded
-// when pos entered the current chunk, so device memory stays off the chain.
-// A step reads at most 64 words, so the ring covers four steps from any pos
-// and the refill is checked once every four steps.  A ring entry also holds
-// the table offset of the slot its word selects, and each lane carries the
-// address of its next slot entry, so a renormalising lane's next table load
-// is one add after its word load.
+// two 256-word chunks; the chunk after them waits in registers, loaded when
+// pos entered the current chunk, so device memory stays off the chain.  A
+// step reads at most 64 words, so the ring covers four steps from any pos
+// and the refill is checked once every four steps.
 #define DEC_WARPS 4
 #define CHUNK 256
 #define RING (2 * CHUNK)
-#define MIRROR 64
 #define CHUNK_REGS (CHUNK / 32)
 #define UNROLL 4
 
@@ -100,7 +95,7 @@ struct RowSmem {
   uint32_t nz[256 + 4];          // symbols that own slots, in order: sym | (f - 1) << 8 | c << 20
   uint32_t starts[RANS_M / 32];  // bit i: slot i starts a symbol's range
   uint32_t before[RANS_M / 32];  // set bits of starts[] before each word
-  uint32_t ring[RING + MIRROR];  // words [256 c, 256 c + 512) of the row, c = pos / 256
+  uint16_t ring[RING];           // words [256 c, 256 c + 512) of the row, c = pos / 256
 };
 #define DEC_SMEM (DEC_WARPS * sizeof(RowSmem))
 
@@ -114,21 +109,11 @@ __device__ __forceinline__ void load_chunk(uint16_t (&r)[CHUNK_REGS], const int1
   }
 }
 
-// A ring entry holds its word and, in the high half, the byte offset in the
-// slot table of the slot the word selects when it becomes a state's low half.
-__device__ __forceinline__ uint32_t ring_entry(uint16_t w) {
-  return (uint32_t)w | ((uint32_t)w & (RANS_M - 1)) << 18;
-}
-
-__device__ __forceinline__ void store_chunk(uint32_t* ring, const uint16_t (&r)[CHUNK_REGS],
+__device__ __forceinline__ void store_chunk(uint16_t* ring, const uint16_t (&r)[CHUNK_REGS],
                                             int64_t c, int wl) {
   const int at = (int)(c & 1) * CHUNK;
 #pragma unroll
-  for (int j = 0; j < CHUNK_REGS; ++j) ring[at + wl + 32 * j] = ring_entry(r[j]);
-  if (at == 0) {
-    ring[RING + wl] = ring_entry(r[0]);
-    ring[RING + 32 + wl] = ring_entry(r[1]);
-  }
+  for (int j = 0; j < CHUNK_REGS; ++j) ring[at + wl + 32 * j] = r[j];
 }
 
 // Exclusive prefix sum over the warp.
@@ -188,48 +173,22 @@ __device__ __forceinline__ void build_tables(RowSmem& sm, const uint32_t (&f)[8]
   for (int j = 0; j < 4; ++j) sm.before[4 * wl + j] = pre + loc[j];
   __syncwarp();
   const uint32_t bit = (4u * wl) & 31u;  // the first slot's bit in its word, the same for every i
-  uint32_t upto[4];
+#pragma unroll 4
+  for (int i = 0; i < 32; ++i) {
+    const uint32_t slot0 = 128u * i + 4u * wl;
+    const uint32_t m = sm.starts[slot0 >> 5], b = sm.before[slot0 >> 5];
+    uint32_t e[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) upto[q] = 0xFFFFFFFFu >> (31u - bit - q);
-  // eight groups' loads are all issued before their stores, so their
-  // latencies overlap (a load after a store to the same shared memory waits)
-#pragma unroll 1
-  for (int i0 = 0; i0 < 32; i0 += 8) {
-    uint32_t e[8][4];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const uint32_t slot0 = 128u * (i0 + u) + 4u * wl;
-      const uint32_t m = sm.starts[slot0 >> 5], b = sm.before[slot0 >> 5];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t r = b + __popc(m & upto[q]);
-        const uint32_t ent = sm.nz[r > 0u ? r - 1u : 0u];
-        // a table that sums below M leaves its last slots to its last symbol
-        // with fields cut to 12 bits: wrong symbols, never an access out of range
-        e[u][q] = (ent & 0xFFFFFu) | ((slot0 + q - (ent >> 20)) & 0xFFFu) << 20;
-      }
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t r = b + __popc(m & (0xFFFFFFFFu >> (31u - bit - q)));
+      const uint32_t ent = sm.nz[r > 0u ? r - 1u : 0u];
+      // a table that sums below M leaves its last slots to its last symbol
+      // with fields cut to 12 bits: wrong symbols, never an access out of range
+      e[q] = (ent & 0xFFFFFu) | ((slot0 + q - (ent >> 20)) & 0xFFFu) << 20;
     }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      *reinterpret_cast<uint4*>(&sm.tab[128u * (i0 + u) + 4u * wl]) =
-          make_uint4(e[u][0], e[u][1], e[u][2], e[u][3]);
-    }
+    *reinterpret_cast<uint4*>(&sm.tab[slot0]) = make_uint4(e[0], e[1], e[2], e[3]);
   }
   __syncwarp();
-}
-
-// The shared address of the ring's entry p (mod 512), hidden from the
-// compiler so that adding a rank stays one instruction on the chain.
-__device__ __forceinline__ uint32_t ring_at(uint32_t ring_s, uint32_t p) {
-  uint32_t a;
-  asm("mad.lo.u32 %0, %1, 4, %2;" : "=r"(a) : "r"(p & (RING - 1)), "r"(ring_s));
-  return a;
-}
-
-__device__ __forceinline__ uint32_t lds(uint32_t a) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
-  return v;
 }
 
 // One step of a lane: x -> f (x >> 12) + slot - c, written as
@@ -252,7 +211,8 @@ rans_decode_kernel(const int64_t* __restrict__ states, int rows, int K,
   if (row >= rows) return;  // the whole warp: no block barrier below
   RowSmem& sm = reinterpret_cast<RowSmem*>(smem_raw)[warp];
   uint8_t* out = syms + (int64_t)row * cols;
-  const int64_t n = min(ns[row], cols);  // a short cols never writes past the row
+  // the caller passes cols >= ceil(ns / K) * K; a shorter one never writes past the row
+  const int64_t n = min(ns[row], cols);
   int64_t pos = 0;
   if (n > 0) {
     uint32_t f[8];  // the row's frequencies, asked for first: the tables wait on them
@@ -260,6 +220,7 @@ rans_decode_kernel(const int64_t* __restrict__ states, int rows, int K,
     for (int j = 0; j < 8; ++j) f[j] = (uint32_t)freqs[(int64_t)row * 256 + 8 * wl + j];
     const int16_t* w = words + word_off[row];
     const int64_t wcnt = word_cnt[row];
+    // the first three chunks are asked for before the tables are built
     uint16_t r0[CHUNK_REGS], r1[CHUNK_REGS], pre[CHUNK_REGS];
     load_chunk(r0, w, wcnt, 0, wl);
     load_chunk(r1, w, wcnt, 1, wl);
@@ -268,17 +229,11 @@ rans_decode_kernel(const int64_t* __restrict__ states, int rows, int K,
     // lanes past K carry junk states that never renormalise or store
     uint32_t x0 = has0 ? (uint32_t)states[(int64_t)row * K + wl] : 0u;
     uint32_t x1 = has1 ? (uint32_t)states[(int64_t)row * K + wl + 32] : 0u;
-    // each lane carries the shared address of its next slot entry: from a
-    // renormalising lane's word (the ring entry's high half) it is one add
-    const uint32_t tab_s = (uint32_t)__cvta_generic_to_shared(sm.tab);
-    uint32_t t0 = tab_s + ((x0 & (RANS_M - 1)) << 2);
-    uint32_t t1 = tab_s + ((x1 & (RANS_M - 1)) << 2);
     build_tables(sm, f, wl);
     store_chunk(sm.ring, r0, 0, wl);
     store_chunk(sm.ring, r1, 1, wl);
     __syncwarp();
     const uint32_t lt = (1u << wl) - 1u;
-    const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(sm.ring);
     const int64_t groups = ((n + K - 1) / K + UNROLL - 1) / UNROLL;
     int64_t chunk = 0;  // pos / CHUNK at the last refill check
     uint8_t* o = out;   // the step's first cell
@@ -289,8 +244,8 @@ rans_decode_kernel(const int64_t* __restrict__ states, int rows, int K,
         // steps past the row's last are all inactive: their ballots are 0
         const bool a0 = has0 && wl < left;
         const bool a1 = has1 && wl + 32 < left;
-        const uint32_t e0 = lds(t0);
-        const uint32_t e1 = lds(t1);
+        const uint32_t e0 = sm.tab[x0 & (RANS_M - 1)];
+        const uint32_t e1 = sm.tab[x1 & (RANS_M - 1)];
         x0 = advance(x0, e0);
         x1 = advance(x1, e1);
         const bool n0 = a0 && x0 < RANS_L;
@@ -298,22 +253,9 @@ rans_decode_kernel(const int64_t* __restrict__ states, int rows, int K,
         const uint32_t b0 = __ballot_sync(0xffffffffu, n0);
         const uint32_t b1 = __ballot_sync(0xffffffffu, n1);
         const uint32_t lo_cnt = __popc(b0);
-        const uint32_t at0 = ring_at(ring_s, (uint32_t)pos);
-        const uint32_t at1 = ring_at(ring_s, (uint32_t)pos + lo_cnt);
-        if (n0) {
-          const uint32_t r = lds(at0 + 4u * __popc(b0 & lt));
-          x0 = (x0 << 16) | (r & 0xFFFFu);
-          t0 = tab_s + (r >> 16);
-        } else {
-          t0 = tab_s + ((x0 & (RANS_M - 1)) << 2);
-        }
-        if (n1) {
-          const uint32_t r = lds(at1 + 4u * __popc(b1 & lt));
-          x1 = (x1 << 16) | (r & 0xFFFFu);
-          t1 = tab_s + (r >> 16);
-        } else {
-          t1 = tab_s + ((x1 & (RANS_M - 1)) << 2);
-        }
+        const uint32_t p = (uint32_t)pos;
+        if (n0) x0 = (x0 << 16) | sm.ring[(p + __popc(b0 & lt)) & (RING - 1)];
+        if (n1) x1 = (x1 << 16) | sm.ring[(p + lo_cnt + __popc(b1 & lt)) & (RING - 1)];
         if (a0) o[wl] = (uint8_t)(e0 & 0xFFu);
         if (a1) o[wl + 32] = (uint8_t)(e1 & 0xFFu);
         pos += lo_cnt + __popc(b1);

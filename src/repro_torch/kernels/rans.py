@@ -232,9 +232,13 @@ def decode_rows(states, freqs, words, word_off, word_cnt, ns, k: int, cols: int 
     """The decode wrapper: the kernel for a CUDA tensor, the plain version
     for a CPU tensor.  Returns syms[R, cols] uint8 (row i valid in its first
     ns[i] entries, 0 after them) and used[R], the words each row consumed.
-    ``cols`` defaults to max steps * k, which reads ``ns`` back; a caller
-    that knows the lengths on the host passes it (at least max steps * k)
-    and saves that synchronization."""
+
+    Without ``cols`` the output has max steps * k columns, found by reading
+    ``ns`` back (one synchronization).  The codec's decode path knows the
+    lengths on the host and passes ``cols``, which must be at least that
+    width.  A smaller ``cols`` raises on the CPU; the kernel cannot see it
+    without reading ``ns`` back, so it only keeps its writes inside
+    ``cols``: the decode path takes the width from the counts it parsed."""
     r = states.shape[0]
     if cols is None:
         cols = int((-(-ns // k)).max()) * k if r else 0
@@ -242,4 +246,6 @@ def decode_rows(states, freqs, words, word_off, word_cnt, ns, k: int, cols: int 
         return decode_rows_cuda(states, freqs, words, word_off, word_cnt, ns, k, cols)
     if states.device.type != "cpu":
         raise ValueError(f"rans decode runs on cuda or cpu, got {states.device}")
+    if r and cols < int((-(-ns // k)).max()) * k:
+        raise ValueError(f"rans decode: cols {cols} is below the longest row's steps * {k}")
     return decode_rows_plain(states, freqs, words, word_off, word_cnt, ns, k, cols)

@@ -87,6 +87,20 @@ def test_fewer_lanes_round_trip(k):
         np.testing.assert_array_equal(syms[i, :ln].numpy(), sym[i, :ln])
 
 
+def test_decode_rows_width_below_longest_row_raises():
+    k = 5
+    sym, freqs, lens = _rows([(k * 3 + 1, 40), (k, 7)])
+    states, words, counts = rans.encode_rows(
+        torch.as_tensor(sym).to(torch.int16), torch.as_tensor(freqs), k
+    )
+    off = torch.cat([torch.zeros(1, dtype=torch.int64), counts.cumsum(0)[:-1]])
+    args = (states, torch.as_tensor(freqs), words, off, counts, torch.as_tensor(lens))
+    wide, _ = rans.decode_rows(*args, k, cols=-(-max(lens) // k) * k + k)
+    assert wide.shape[1] == -(-max(lens) // k) * k + k and not wide[:, max(lens):].any()
+    with pytest.raises(ValueError, match="cols"):
+        rans.decode_rows(*args, k, cols=-(-max(lens) // k) * k - 1)
+
+
 def _streams():
     return {
         "empty": np.zeros(0, dtype=np.int64),
