@@ -25,7 +25,9 @@ result line):
    tier checks': at most one a series (a prefix's layers share a launch).
 3. kernels: each kernel against its plain torch version on the card, on
    the inputs the main path gave it, exactly (torch.equal); the cone scan
-   also once in float32.  Times from CUDA events; ``rans_decode`` at the
+   also once in float32 and once on an input of the path's shape that
+   breaks at every step (eps = -1; ``breaky_ms``), its float64 time also
+   as a CUDA graph of 20 calls.  Times from CUDA events; ``rans_decode`` at the
    path's first call (one series' rows) and at that call's first row (the
    shape PR 18 launched), each also as a CUDA graph of 20 calls
    (``graph_ms``, device time without the host's launch overhead).
@@ -38,7 +40,9 @@ result line):
    log-uniform over 7..30,000 plus 4 empty and 4 length-1 series, with the
    default ``best`` entropy backend; lossless decode bit-identical, every
    tier within its eps; the cone scan's masked mode against its plain
-   version (torch.equal) on the first and the last bucket's inputs; 8
+   version (torch.equal) on the first and the last bucket's inputs, and
+   the path's masked scans timed together (``masked_total_ms``) beside the
+   largest bucket's byte bound; 8
    series through ``device="cpu"`` give the same bytes; the backend count
    per stream and whether ``zstandard`` imports; the timed decode's
    ``rans_decode`` launches.
@@ -47,7 +51,8 @@ result line):
    for a batch of 4, ``promote_caches`` to 8192, ``quantize_cache``,
    ``dequantize_cache``.  ``residual_quant``, ``dequant`` and ``base_fit``
    (the fit, in the reference's summation order) against their plain
-   versions on the path's own inputs (torch.equal); the float32
+   versions on the path's own inputs (torch.equal), ``base_fit`` also
+   timed as a CUDA graph of 20 calls; the float32
    reconstruction within half a step of its input plus float32 rounding
    (the largest error in half-steps is printed); memory bits against
    bf16; rows whose bf16 theta/slope differ from the CPU route on a
@@ -345,36 +350,56 @@ def main_path(P, values: np.ndarray, dev: torch.device, launches: dict) -> dict:
     }
 
 
+def scan_bound_ms(shape, itemsize: int = 8) -> float:
+    """The cone scan's byte bound: x and eps read, brk (int32), theta,
+    psi_lo and psi_hi written (44 bytes a point in float64), fin_lo and
+    fin_hi; its ~9 operations a point (4 adds, 2 divisions, 3 compares)
+    take less time at the FP64 peak."""
+    t_len, s = shape
+    nbytes = t_len * s * (5 * itemsize + 4) + 2 * s * itemsize
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, 9 * t_len * s / FP64_OPS_PER_S)
+
+
+def check_scan_equal(cs_mod, what: str, x, eps, lengths=None) -> tuple[float, float]:
+    """The kernel against its plain version on one input, every output
+    exactly; returns (max |kernel - plain|, ms of the plain version)."""
+    got = cs_mod.cone_scan_cuda(x, eps, lengths)
+    want, plain_s = sync_time(lambda: cs_mod.cone_scan_plain(x, eps, lengths))
+    err = max_abs_err(got, want)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{what} cone_scan kernel differs from its plain version (max err {err})")
+    return err, plain_s * 1e3
+
+
 def check_cone_scan(cs_mod, x, eps, launches: int) -> dict:
     """The float64 kernel (the main path's) and the float32 one, each against
     its plain version; the row describes the float64 kernel and carries the
-    float32 check beside it."""
+    float32 check beside it, the float64 time as a CUDA graph of 20 calls
+    (``graph_ms``) and an input of the same shape that breaks at every step
+    (eps = -1 crosses every pair of candidate slopes): each break costs the
+    window scan one more pass (``breaky_ms``)."""
     t_len, s = x.shape
     res = {}
     for dtype in (torch.float64, torch.float32):
         xd, ed = x.to(dtype), eps.to(dtype)
-        got = cs_mod.cone_scan_cuda(xd, ed)
-        want, plain_s = sync_time(lambda: cs_mod.cone_scan_plain(xd, ed))
-        err = max_abs_err(got, want)
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"cone_scan {dtype} kernel differs from its plain version (max err {err})")
+        err, plain_ms = check_scan_equal(cs_mod, str(dtype), xd, ed)
         ms = event_ms(lambda: cs_mod.cone_scan_cuda(xd, ed), 5)
-        res[dtype] = (err, ms, plain_s * 1e3)
-    # bytes: x and eps read, brk (int32) + theta + psi_lo + psi_hi written
-    nbytes = t_len * s * (8 + 8 + 4 + 8 + 8 + 8) + 2 * s * 8
-    ops = 9 * t_len * s  # 4 adds, 2 divisions, 3 compares per point
+        res[dtype] = (err, ms, plain_ms)
+    breaky = torch.full_like(eps, -1.0)
+    breaky_err, _ = check_scan_equal(cs_mod, "every-step-break", x, breaky)
     err, ms, plain_ms = res[torch.float64]
     return {
         "name": "cone_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cone_scan.cu",
         "replaces": "src/repro/kernels/cone_scan.py:41",
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S),
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP64_OPS_PER_S
-        else "operations",
+        "bound_ms": scan_bound_ms(x.shape), "bound_by": "bytes",
         "library_ms": None, "shape": [t_len, s], "dtype": "float64",
+        "graph_ms": graph_ms(lambda: cs_mod.cone_scan_cuda(x, eps), 20),
         "f32_max_abs_err": res[torch.float32][0], "f32_ms": res[torch.float32][1],
-        "f32_plain_ms": res[torch.float32][2],
+        "f32_plain_ms": res[torch.float32][2], "f32_bound_ms": scan_bound_ms(x.shape, 4),
+        "breaky_ms": event_ms(lambda: cs_mod.cone_scan_cuda(x, breaky), 3),
+        "breaky_max_abs_err": breaky_err,
     }
 
 
@@ -514,14 +539,22 @@ def ragged_path(P, E, ops, cs_mod, arrs: list[np.ndarray], dev) -> dict:
     masked = {}
     for which, (x, eps, ln) in (("first", scans[0]), ("last", scans[-1])):
         check(ln is not None, "the ragged path's scan ran without lengths")
-        got = cs_mod.cone_scan_cuda(x, eps, ln)
-        want, plain_s = sync_time(lambda: cs_mod.cone_scan_plain(x, eps, ln))
-        err = max_abs_err(got, want)
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"masked cone_scan ({which} bucket) differs from its plain version (max err {err})")
+        err, plain_ms = check_scan_equal(cs_mod, f"masked ({which} bucket)", x, eps, ln)
         masked[which] = {"shape": list(x.shape), "max_abs_err": err,
                          "ms": event_ms(lambda: cs_mod.cone_scan_cuda(x, eps, ln), 5),
-                         "plain_ms": plain_s * 1e3}
+                         "plain_ms": plain_ms, "bound_ms": scan_bound_ms(x.shape)}
+
+    def all_buckets():
+        for args in scans:
+            cs_mod.cone_scan_cuda(*args)
+
+    # the path's masked scans together, beside the largest bucket's bound
+    largest = max(scans, key=lambda a: a[0].numel())[0].shape
+    masked_total = {
+        "masked_total_ms": event_ms(all_buckets, 5),
+        "masked_total_bound_ms": sum(scan_bound_ms(a[0].shape) for a in scans),
+        "masked_largest_shape": list(largest), "masked_largest_bound_ms": scan_bound_ms(largest),
+    }
     # 8 series through the CPU route: the same bytes
     ns = np.array([a.size for a in arrs])
     order = np.argsort(ns, kind="stable")
@@ -540,7 +573,7 @@ def ragged_path(P, E, ops, cs_mod, arrs: list[np.ndarray], dev) -> dict:
         "decode_rans_launches": decode_launches,
         "launches": launches, "buckets": len(scans), "backend_streams": backends,
         "zstandard_importable": "zstd" in E.available_backends(),
-        "cpu_route_series": pick, "masked_scan": masked,
+        "cpu_route_series": pick, "masked_scan": masked, "masked_total": masked_total,
     }
 
 
@@ -637,6 +670,7 @@ def kv_path(T, KV, P_layers, ops, RQ, DQ, BF, batch: int, seed: int, dev) -> tup
     check(ok, f"base_fit kernel differs from its plain version (max bit diff {err_fit})")
     del fit
     ms_fit = event_ms(lambda: BF.base_fit_cuda(xb), 5)
+    fit_graph_ms = graph_ms(lambda: BF.base_fit_cuda(xb), 20)
     # the float32 reconstruction is within half a step of each input
     # element, plus float32 rounding: r = x - pred, q * step, the
     # reciprocal and x_hat itself each round by at most half an ulp of a
@@ -674,9 +708,10 @@ def kv_path(T, KV, P_layers, ops, RQ, DQ, BF, batch: int, seed: int, dev) -> tup
                    "src/repro/kernels/dequant.py:20", launches, err_dq, ms_dq,
                    plain_dq * 1e3, dq_bytes, dq_ops, F32_OPS_PER_S, [m, xb.shape[1]]),
         kernel_row("base_fit", "src/repro_torch/kernels/csrc/base_fit.cu",
-                   "src/repro/core/jaxshrink.py:66", launches, err_fit, ms_fit,
+                   "src/repro/core/jaxshrink.py:67", launches, err_fit, ms_fit,
                    plain_fit * 1e3, fit_bytes, fit_ops, F32_OPS_PER_S, [m, xb.shape[1]]),
     ]
+    rows_out[-1]["graph_ms"] = fit_graph_ms
     stats = {
         "shape": list(cache.k.shape), "blocks_per_tensor": m,
         "promote_s": t_promote, "quantize_cache_s": t_quant, "dequantize_cache_s": t_dequant,
@@ -1568,6 +1603,7 @@ def main() -> None:
     rows[0]["launches_by_path"] = {"gateway": launches["cone_scan"],
                                    "ragged": ragged["launches"]["cone_scan"]}
     rows[0]["masked"] = ragged["masked_scan"]
+    rows[0].update(ragged["masked_total"])
     print("ragged: " + json.dumps(ragged), flush=True)
     torch.cuda.empty_cache()
 

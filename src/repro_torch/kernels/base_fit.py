@@ -11,9 +11,10 @@ The sums run in the order XLA's CPU code gives them (see
 :func:`_row_dot` and :func:`_row_sum`), so the plain version is
 bit-identical to the reference on the CPU for blocks of up to 876
 elements (wider rows the reference's CPU product sums in another order).
-The kernel is ``csrc/base_fit.cu``, the same order in one thread per row;
-``base_fit_plain`` is elementwise torch ops with an exact fused
-multiply-add, so the two agree bit for bit.  The kernel takes blocks of
+The kernel is ``csrc/base_fit.cu``, the same order with eight threads a
+row on tiles of rows staged in shared memory; ``base_fit_plain`` is
+elementwise torch ops with an exact fused multiply-add, so the two agree
+bit for bit.  The kernel takes blocks of
 up to 1024 elements.
 """
 from __future__ import annotations

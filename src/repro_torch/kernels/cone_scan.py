@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.kernels.cone_scan`` (the Pallas TPU kernel
 ``_cone_scan_kernel`` / ``cone_scan_pallas``).  The kernel is
-``csrc/cone_scan.cu``: one thread per series, the cone state in registers,
-a loop over all T steps inside the thread (see the source's note for its
-bound on the card).  ``cone_scan_plain`` is the same recurrence as torch
-ops, one [S]-vector step per time index.
+``csrc/cone_scan.cu``: one warp a series, which walks windows of
+:data:`WINDOW` steps and scans up to a window in one parallel pass
+(candidate slopes, prefix min and max, the first break), starting the
+next pass at each break (see the source's note for why that gives the
+loop's bits and what bounds it on the card).  ``cone_scan_plain`` is the recurrence as torch ops, one
+[S]-vector step per time index.
 
 Both take time-major x[T, S] and eps_hat[T, S] (the adaptive threshold of a
 cone that would start at (t, s)) and return
@@ -31,6 +33,8 @@ import torch
 from . import _build
 
 __all__ = ["cone_scan", "cone_scan_cuda", "cone_scan_plain"]
+
+WINDOW = 256  # steps the kernel scans at once (C in csrc/cone_scan.cu)
 
 
 def cone_scan_plain(

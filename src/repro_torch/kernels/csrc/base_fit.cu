@@ -17,107 +17,185 @@
 // * the sum: K <= 32 is one chain from 0.0; otherwise the row, zero-padded
 //   evenly at both ends to a multiple of 32, is cut into windows of 32,
 //   each summed in a chain from 0.0, and the window sums are summed in a
-//   chain from 0.0 (K <= 1024, so at most 32 windows).  The padding zeros
-//   are added too: 0.0 turns a -0.0 sum into +0.0.
+//   chain from 0.0 (K <= 1024, so at most 32 windows).  A chain from +0.0
+//   never holds -0.0 (x + y is -0.0 only for two -0.0), so adding a padding
+//   zero anywhere in it changes no bit: every window is summed over all its
+//   32 positions, zeros included, and a row of K <= 32 as one window.
 // Every other multiply, add and the division are explicit round-to-nearest
 // intrinsics, which nvcc never contracts (and the build passes
 // --fmad=false); the only FMAs are the dot's, written as fmaf.
 //
 // Bound on the card: 4 bytes read per element and 8 written per row
-// against ~3 float operations per element: memory bytes bound it.  One
-// thread owns a row and reads it once, 8 columns at a time (two 16-byte
-// loads when K % 8 == 0 and the base is aligned); the 8 dot accumulators,
-// the window sum and the running total sit in registers.
+// against ~3 float operations per element: memory bytes bound it.  A block
+// walks tiles of RT contiguous rows (RT * K * 4 bytes, one contiguous chunk
+// of device memory): the whole block copies a tile into shared memory with
+// cp.async, 16 bytes a thread where the rows allow it (K % 4 == 0, a left
+// padding % 4 == 0 and a 16-byte-aligned base; else 4 bytes a thread),
+// while it computes on the tile before it (NBUF buffers).  Eight threads
+// own a row: thread j runs dot accumulator j and windows j, j + 8, ...; the
+// accumulators and window sums then reach the group's first thread by
+// shuffles, which combines them in the order above.  The shared row holds
+// the padded row (zeros at both ends) with 4 words of padding after every
+// 32 positions and a row stride of 8 (mod 32) words: a warp's four rows
+// read their 8 dot columns from distinct banks, and a row's windows, read
+// 16 bytes at a time, start in distinct bank quads.  One kernel takes every
+// K in 1..1024, every M and any base address.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-struct SumState {
-  float win;  // the open window's chain
-  float tot;  // the chain of closed windows
+namespace {
+
+constexpr int G = 8;                 // threads a row (one a dot accumulator)
+constexpr int TILE_BYTES = 40960;    // a tile's shared bytes at most (rows a multiple of 4)
+constexpr int NBUF = 2;              // tiles in shared memory: one copied while one is read
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Shape {
+  int k, k8, nwin, left, rs, rt;  // rs: a row's shared stride in words; rt: rows a tile
+  __host__ __device__ Shape(int k_) : k(k_), k8(k_ - k_ % 8) {
+    nwin = (k + 31) / 32;
+    left = k > 32 ? (nwin * 32 - k) / 2 : 0;
+    rs = 36 * nwin + 8;
+    rt = TILE_BYTES / (rs * 4) & ~3;
+    if (rt > 32) rt = 32;
+    if (rt < 4) rt = 4;
+  }
+  // shared word of padded position p (0..32 * nwin - 1) of row slot r
+  __device__ __forceinline__ int at(int r, int p) const { return r * rs + p + 4 * (p >> 5); }
 };
 
-// add x at padded position p (position in the row + the left padding)
-__device__ __forceinline__ void add_sum(SumState& s, float x, int p) {
-  if (p != 0 && (p & 31) == 0) {
-    s.tot = __fadd_rn(s.tot, s.win);
-    s.win = 0.0f;
+// start the copy of tile `tile` (rows tile * rt .. , at most m) into buf
+__device__ __forceinline__ void stage(const float* __restrict__ xb, int64_t m, const Shape& sh,
+                                      bool vec, int64_t tile, float* buf) {
+  const int64_t row0 = tile * sh.rt;
+  const int nr = m - row0 < sh.rt ? (int)(m - row0) : sh.rt;
+  const float* src = xb + row0 * sh.k;
+  if (vec) {
+    const int per_row = sh.k / 4;
+    for (int c = threadIdx.x; c < nr * per_row; c += blockDim.x) {
+      const int r = c / per_row, col = (c - r * per_row) * 4;
+      __pipeline_memcpy_async(buf + sh.at(r, col + sh.left), src + 4 * (int64_t)c, 16);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * sh.k; e += blockDim.x) {
+      const int r = e / sh.k, col = e - r * sh.k;
+      __pipeline_memcpy_async(buf + sh.at(r, col + sh.left), src + e, 4);
+    }
   }
-  s.win = __fadd_rn(s.win, x);
 }
 
-template <bool VEC>
-__global__ void base_fit_kernel(const float* __restrict__ xb, int64_t m, int k, float denom,
-                                float inv_k, float t_mean, float* __restrict__ theta,
-                                float* __restrict__ slope) {
-  const int k8 = k - k % 8;
-  const int padding = k > 32 ? ((k + 31) / 32) * 32 - k : 0;
-  const int left = padding / 2;
+__global__ void __launch_bounds__(256)
+base_fit_kernel(const float* __restrict__ xb, int64_t m, int k, bool vec, float denom,
+                float inv_k, float t_mean, float* __restrict__ theta,
+                float* __restrict__ slope) {
+  extern __shared__ __align__(16) float smem[];
+  const Shape sh(k);
+  const int tile_words = sh.rt * sh.rs;
+  const int64_t ntiles = (m + sh.rt - 1) / sh.rt;
   const int64_t full = m - m % 8;
-  for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < m;
-       row += (int64_t)gridDim.x * blockDim.x) {
-    const float* x = xb + (size_t)row * k;
-    float acc[8];
+  const int lane = threadIdx.x & 31, r = threadIdx.x / G, j = threadIdx.x % G;
+  const int leader = lane & ~(G - 1);
+  // the padding positions stay zero: the copies write only a row's columns
+  for (int i = threadIdx.x; i < NBUF * tile_words; i += blockDim.x) smem[i] = 0.0f;
+  __syncthreads();
+  // the block's tiles are blockIdx.x + i * gridDim.x, i = 0, 1, ...
+  for (int i = 0; i < NBUF - 1; ++i) {
+    const int64_t t = blockIdx.x + (int64_t)i * gridDim.x;
+    if (t < ntiles) stage(xb, m, sh, vec, t, smem + i * tile_words);
+    __pipeline_commit();
+  }
+  int64_t tile = blockIdx.x;
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const int64_t next = tile + (int64_t)(NBUF - 1) * gridDim.x;
+    if (next < ntiles)  // into the buffer the previous tile used
+      stage(xb, m, sh, vec, next, smem + ((it + NBUF - 1) % NBUF) * tile_words);
+    __pipeline_commit();
+    __pipeline_wait_prior(NBUF - 1);  // this tile has landed
+    __syncthreads();
+    const float* buf = smem + (it % NBUF) * tile_words;
+    // accumulator j over columns j, j + 8, ... below k8
+    float acc = 0.0f;
+    for (int c = j; c < sh.k8; c += G) {
+      acc = fmaf(buf[sh.at(r, c + sh.left)], __fsub_rn((float)c, t_mean), acc);
+    }
+    // windows j, j + 8, j + 16, j + 24: 32 positions each, from 0.0
+    float wsum[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-    SumState s{0.0f, 0.0f};
-    for (int c = 0; c < k8; c += 8) {
-      float v[8];
-      if (VEC) {
-        const float4 lo = __ldg(reinterpret_cast<const float4*>(x + c));
-        const float4 hi = __ldg(reinterpret_cast<const float4*>(x + c + 4));
-        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-      } else {
+    for (int q = 0; q < 4; ++q) {
+      float s = 0.0f;
+      const int w = j + G * q;
+      if (w < sh.nwin) {
+        const float4* p = reinterpret_cast<const float4*>(buf + sh.at(r, 32 * w));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __ldg(x + c + j);
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = p[i];
+          s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, v.x), v.y), v.z), v.w);
+        }
       }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float tc = __fsub_rn((float)(c + j), t_mean);  // exact half-integer
-        acc[j] = fmaf(v[j], tc, acc[j]);
-        add_sum(s, v[j], c + j + left);
-      }
+      wsum[q] = s;
     }
     float tail = 0.0f;
-    for (int c = k8; c < k; ++c) {
-      const float v = __ldg(x + c);
-      tail = fmaf(v, __fsub_rn((float)c, t_mean), tail);
-      add_sum(s, v, c + left);
+    if (j == 0) {
+      for (int c = sh.k8; c < sh.k; ++c)
+        tail = fmaf(buf[sh.at(r, c + sh.left)], __fsub_rn((float)c, t_mean), tail);
     }
-    float dot;
-    if (row < full)
-      dot = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[2], acc[3])),
-                      __fadd_rn(__fadd_rn(acc[4], acc[5]), __fadd_rn(acc[6], acc[7])));
-    else
-      dot = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[4]), __fadd_rn(acc[2], acc[6])),
-                      __fadd_rn(__fadd_rn(acc[1], acc[5]), __fadd_rn(acc[3], acc[7])));
-    if (k8 < k) dot = __fadd_rn(dot, tail);
-    float sum = s.win;
-    if (k > 32) {
-      if (padding - left > 0) s.win = __fadd_rn(s.win, 0.0f);  // the right padding
-      sum = __fadd_rn(s.tot, s.win);
+    float a[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[i] = __shfl_sync(FULL, acc, leader + i);
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (G * q + i < sh.nwin) sum = __fadd_rn(sum, __shfl_sync(FULL, wsum[q], leader + i));
+      }
     }
-    const float sl = __fdiv_rn(dot, denom);
-    slope[row] = sl;
-    theta[row] = __fsub_rn(__fmul_rn(sum, inv_k), __fmul_rn(sl, t_mean));
+    const int64_t row = tile * sh.rt + r;
+    if (j == 0 && row < m) {
+      float dot;
+      if (row < full)
+        dot = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])),
+                        __fadd_rn(__fadd_rn(a[4], a[5]), __fadd_rn(a[6], a[7])));
+      else
+        dot = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[4]), __fadd_rn(a[2], a[6])),
+                        __fadd_rn(__fadd_rn(a[1], a[5]), __fadd_rn(a[3], a[7])));
+      if (sh.k8 < sh.k) dot = __fadd_rn(dot, tail);
+      const float sl = __fdiv_rn(dot, denom);
+      slope[row] = sl;
+      theta[row] = __fsub_rn(__fmul_rn(sum, inv_k), __fmul_rn(sl, t_mean));
+    }
+    __syncthreads();  // the next iteration copies into this buffer
   }
 }
+
+}  // namespace
 
 extern "C" {
 int base_fit(const float* xb, int64_t m, int k, float denom, float inv_k, float t_mean,
              float* theta, float* slope, cudaStream_t stream) {
   if (k < 1 || k > 1024) return (int)cudaErrorInvalidValue;
-  const bool vec = k % 8 == 0 && (uintptr_t)xb % 16 == 0;
-  const int threads = 128;
-  int64_t blocks = (m + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  if (blocks < 1) blocks = 1;
-  if (vec)
-    base_fit_kernel<true><<<(unsigned)blocks, threads, 0, stream>>>(xb, m, k, denom, inv_k,
-                                                                    t_mean, theta, slope);
-  else
-    base_fit_kernel<false><<<(unsigned)blocks, threads, 0, stream>>>(xb, m, k, denom, inv_k,
-                                                                     t_mean, theta, slope);
+  if (m <= 0) return (int)cudaGetLastError();
+  const Shape sh(k);
+  const int threads = G * sh.rt;
+  const size_t smem = NBUF * (size_t)sh.rt * sh.rs * sizeof(float);
+  // above 48 KB a block's dynamic shared memory must be asked for
+  cudaError_t e = cudaFuncSetAttribute(base_fit_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // one wave of resident blocks, each walking every gridDim-th tile
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, base_fit_kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) per_sm = 1;
+  const int64_t ntiles = (m + sh.rt - 1) / sh.rt;
+  const int64_t blocks = ntiles < (int64_t)sms * per_sm ? ntiles : (int64_t)sms * per_sm;
+  const bool vec = k % 4 == 0 && sh.left % 4 == 0 && (uintptr_t)xb % 16 == 0;
+  base_fit_kernel<<<(unsigned)blocks, threads, smem, stream>>>(xb, m, k, vec, denom, inv_k,
+                                                               t_mean, theta, slope);
   return (int)cudaGetLastError();
 }
 }

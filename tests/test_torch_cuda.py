@@ -50,6 +50,47 @@ def _walk(seed: int, s: int, t: int) -> np.ndarray:
     return np.round(np.cumsum(rng.standard_normal((s, t)), axis=1) * 0.1, 4)
 
 
+def _hard_cone_cases(t_len: int, s: int, seed: int = 0):
+    """x, eps [T, S] float64 and lengths [S] for the window scan's hard
+    spots: 0 breaks at every step (eps = -1 crosses every pair of
+    candidates); 1, 2 and 3 jump at the last and first steps of windows of
+    ``WINDOW`` and at lane-run edges; 4 and 5 give cand_hi == 3 and
+    cand_lo == 3 at every step; 6 breaks every second step; 7, 8 and 9 have
+    lengths 0, 1 and min(T, 300), 9 breaking at every step up to it; 10
+    holds a NaN sample (its candidates compare false); the rest are walks."""
+    w = cs_mod.WINDOW
+    rng = np.random.default_rng(seed)
+    t = np.arange(t_len, dtype=np.float64)
+    x = np.cumsum(rng.integers(-3, 4, (t_len, s)), axis=0).astype(np.float64)
+    e = np.full((t_len, s), 2.0)
+    ln = np.full(s, t_len, np.int32)
+    e[:, 0] = -1.0
+    for col, jumps in ((1, (w - 1, 2 * w - 1, 3 * w - 1)), (2, (w, 2 * w, 3 * w)),
+                       (3, (8, 15, 31, 40, w - 1, w + 1, 2 * w - 1, 2 * w + 1))):
+        x[:, col] = 0.0
+        for j in jumps:
+            x[j:, col] += 100.0
+        e[:, col] = 1.0
+    x[:, 4], e[:, 4] = np.where(t > 0, 3 * t - 1, 0), 1.0
+    x[:, 5], e[:, 5] = np.where(t > 0, 3 * t + 1, 0), 1.0
+    x[:, 6], e[:, 6] = 10.0 * (np.arange(t_len) % 2), 0.5
+    ln[7], ln[8], ln[9] = 0, 1, min(t_len, 300)
+    e[:, 9] = -1.0
+    if s > 10:
+        x[t_len // 2 + 1 :: 97, 10] = np.nan
+    return x, e, ln
+
+
+def _signed_zero_cone_case(dtype):
+    """Candidates that round to -0.0 and +0.0 (subnormal numerators over
+    dt): the scan keeps the earlier of two equal zeros, as the loop does."""
+    tiny = 5e-324 if dtype == torch.float64 else 1.4e-45
+    x = np.full((600, 6), -tiny)
+    x[::3] = 0.0
+    x[0] = -tiny
+    return torch.as_tensor(x, dtype=dtype), torch.full((600, 6), tiny, dtype=dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cone_scan_kernel_equals_plain(card, dtype):
     v = torch.as_tensor(_walk(0, 96, 3000), device=card)
@@ -59,13 +100,25 @@ def test_cone_scan_kernel_equals_plain(card, dtype):
     lengths = torch.as_tensor(
         np.random.default_rng(0).integers(1, 3001, 96), dtype=torch.int32, device=card
     )
-    for ln in (None, lengths):
+    inputs = [(x, e, None), (x, e, lengths)]
+    # the window scan's hard spots: T = 1, T < WINDOW, T no multiple of it
+    # and a multiple of it; S no multiple of a block's 4 (float64) or 8
+    # (float32) series
+    for t_len, s in ((1, 13), (100, 13), (700, 13), (512, 10), (1100, 11)):
+        hx, he, hl = (torch.as_tensor(a, device=card) for a in _hard_cone_cases(t_len, s))
+        hx, he = hx.to(dtype), he.to(dtype)
+        inputs += [(hx, he, None), (hx, he, hl)]
+    zx, ze = (a.to(card) for a in _signed_zero_cone_case(dtype))
+    inputs.append((zx, ze, None))
+    for xi, ei, ln in inputs:
         before = ops.launches["cone_scan"]
-        got = cs_mod.cone_scan(x, e, ln)
+        got = cs_mod.cone_scan(xi, ei, ln)
         assert ops.launches["cone_scan"] == before + 1
-        want = cs_mod.cone_scan_plain(x, e, ln)
+        want = cs_mod.cone_scan_plain(xi, ei, ln)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+            if a.is_floating_point():  # the signs of zeros too
+                assert torch.equal(torch.signbit(a), torch.signbit(b))
 
 
 @pytest.mark.parametrize("k", [64, 17, 1])
@@ -241,25 +294,29 @@ def _bits(a: torch.Tensor) -> torch.Tensor:
     return a.view(torch.int32)  # compares the signs of zeros too
 
 
-@pytest.mark.parametrize("k", [256, 130, 100, 20, 876, 1024, 7])
+@pytest.mark.parametrize("k", [256, 130, 100, 20, 876, 1024, 7, 32, 33])
 def test_base_fit_kernel_equals_plain(card, k):
-    g = torch.Generator(device="cuda").manual_seed(k)
-    m = 1003
-    xb = torch.randn((m, k), device=card, generator=g)
-    xb = xb * torch.exp(torch.randn((m, 1), device=card, generator=g) * 2)
-    xb[1] = -0.0
-    xb[2, ::3] = 0.0
-    xb[2, 1::3] = -0.0
-    # the same rows 4 bytes off a 16-byte boundary: the scalar-load path
-    shifted = torch.cat([xb.new_zeros(1), xb.reshape(-1)])[1:].view(m, k)
-    want = BF.base_fit_plain(xb)
-    want_cpu = BF.base_fit_plain(xb.cpu())
-    for rows in (xb, shifted):
-        before = ops.launches["base_fit"]
-        got = ops.base_fit(rows)
-        assert ops.launches["base_fit"] == before + 1
-        for a, b, c in zip(got, want, want_cpu):
-            assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a.cpu()), _bits(c))
+    # 1003 rows: no multiple of 8 or of a tile's rows; 1, 5 and 13 rows:
+    # fewer than a tile (32 rows up to K = 256, 8 at K = 1024); 40: whole
+    # tiles of 8 rows only
+    for m in (1003, 1, 5, 13, 40):
+        g = torch.Generator(device="cuda").manual_seed(k * m)
+        xb = torch.randn((m, k), device=card, generator=g)
+        xb = xb * torch.exp(torch.randn((m, 1), device=card, generator=g) * 2)
+        if m > 2:
+            xb[1] = -0.0
+            xb[2, ::3] = 0.0
+            xb[2, 1::3] = -0.0
+        # the same rows 4 bytes off a 16-byte boundary: the scalar-load path
+        shifted = torch.cat([xb.new_zeros(1), xb.reshape(-1)])[1:].view(m, k)
+        want = BF.base_fit_plain(xb)
+        want_cpu = BF.base_fit_plain(xb.cpu())
+        for rows in (xb, shifted):
+            before = ops.launches["base_fit"]
+            got = ops.base_fit(rows)
+            assert ops.launches["base_fit"] == before + 1
+            for a, b, c in zip(got, want, want_cpu):
+                assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a.cpu()), _bits(c))
 
 
 def test_base_fit_kernel_refuses_blocks_over_1024(card):

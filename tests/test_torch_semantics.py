@@ -6,7 +6,11 @@
 * the plain cone scan in float32 against the TPU kernel's oracle
   ``repro.kernels.ref.cone_scan_ref``: breaks and origins exactly, spans
   within a stated bound (the two group the candidate slopes differently),
-  with the oracle's +-3.4e38 span sentinels read as +-inf.
+  with the oracle's +-3.4e38 span sentinels read as +-inf;
+* the same on inputs where the card's window scan is hardest (breaks at
+  every step, at window and lane-run edges, runs of equal candidates,
+  lengths 0, 1 and T): small integers and halves, so both groupings are
+  exact and every output must be equal.
 """
 import math
 
@@ -153,6 +157,63 @@ def test_plain_scan_float32_matches_tpu_oracle(ragged):
         bound = 2 * np.spacing(scale.astype(np.float32)) + np.spacing(np.abs(w0))
         diff = np.abs(np.where(finite, g, 0).astype(np.float64) - w0)
         assert (diff <= np.broadcast_to(bound, g.shape)).all()
+
+
+def _hard_cases(t_len: int, s: int, seed: int = 0):
+    """x, eps [T, S] and lengths [S] for the window scan's hard spots, in
+    small integers and halves (exact in float32 under either grouping of
+    the candidate slopes).  Columns: 0 breaks at every step (eps = -1
+    crosses every pair of candidates); 1, 2 and 3 jump at the last and
+    first steps of windows of ``WINDOW`` and at lane-run edges; 4 and 5
+    give cand_hi == 3 and cand_lo == 3 at every step; 6 breaks every
+    second step; 7, 8 and 9 have lengths 0, 1 and min(T, 300), 9 breaking
+    at every step up to it; the rest are integer walks."""
+    w = cs_mod.WINDOW
+    rng = np.random.default_rng(seed)
+    t = np.arange(t_len, dtype=np.float64)
+    x = np.cumsum(rng.integers(-3, 4, (t_len, s)), axis=0).astype(np.float64)
+    e = np.full((t_len, s), 2.0)
+    ln = np.full(s, t_len, np.int32)
+    e[:, 0] = -1.0
+    for col, jumps in ((1, (w - 1, 2 * w - 1, 3 * w - 1)), (2, (w, 2 * w, 3 * w)),
+                       (3, (8, 15, 31, 40, w - 1, w + 1, 2 * w - 1, 2 * w + 1))):
+        x[:, col] = 0.0
+        for j in jumps:
+            x[j:, col] += 100.0
+        e[:, col] = 1.0
+    x[:, 4], e[:, 4] = np.where(t > 0, 3 * t - 1, 0), 1.0
+    x[:, 5], e[:, 5] = np.where(t > 0, 3 * t + 1, 0), 1.0
+    x[:, 6], e[:, 6] = 10.0 * (np.arange(t_len) % 2), 0.5
+    ln[7], ln[8], ln[9] = 0, 1, min(t_len, 300)
+    e[:, 9] = -1.0
+    return x, e, ln
+
+
+@pytest.mark.parametrize("t_len,s", [(1, 13), (100, 13), (700, 13), (512, 10)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_plain_scan_hard_cases_match_tpu_oracle(t_len, s, ragged):
+    """Every output of the plain scan equals the oracle's (sentinels read as
+    +-inf) where the card's kernel is hardest: T = 1, T < WINDOW, T no
+    multiple of it and a multiple of it; S no multiple of a block's 4 or 8
+    series."""
+    x, e, ln = _hard_cases(t_len, s)
+    x, e = x.astype(np.float32), e.astype(np.float32)
+    lengths = ln if ragged else None
+    want = [np.asarray(a) for a in cone_scan_ref(x, e, lengths=lengths)]
+    got = cs_mod.cone_scan_plain(
+        torch.as_tensor(x), torch.as_tensor(e),
+        None if lengths is None else torch.as_tensor(lengths),
+    )
+    got = [g.numpy() for g in got]
+    assert got[0][:, 0].sum() == t_len  # column 0 breaks at every step
+    if t_len > 2 * cs_mod.WINDOW:
+        assert got[0][[cs_mod.WINDOW - 1, 2 * cs_mod.WINDOW - 1], 1].all()
+        assert got[0][[cs_mod.WINDOW, 2 * cs_mod.WINDOW], 2].all()
+    for g, w in zip(got, want):
+        w = w.reshape(g.shape)
+        if g.dtype.kind == "f":
+            w = np.where(np.abs(w) >= 1e38, np.copysign(np.inf, w), w).astype(g.dtype)
+        np.testing.assert_array_equal(g, w)
 
 
 def test_wrapper_takes_plain_version_on_cpu():
