@@ -69,11 +69,21 @@ result line):
    and every count exact.  The CPU route gives the same container bytes
    for 8 of the series and the same answers for 64 of the queries; both
    routes' runs of those 64 are timed (q/s side by side), and a third run
-   on the card counts its synchronizing CUDA calls.
-   ``segment_agg`` against its plain version: float64 on the largest
-   input the path gave it and on one launch over every segment of the
-   container, float32 on the same rows; a wrapper call's device time from
-   a CUDA graph beside its event time and the profiler's kernel time.
+   on the card counts its synchronizing CUDA calls.  Every analytics query
+   is wrapped: its ``segment_query`` launches (the fused segment step; at
+   most one a step, two for a stddev, or the phase fails) and, in the
+   third run, its synchronizing calls are printed by query kind (sketch
+   aggregate, tiered aggregate, ``count_where``) beside the count before
+   the fused step.  ``segment_query`` against its plain version (the
+   output buffers read back part by part, bit for bit) on the run's
+   largest step and on one query over every frame of the container in
+   each mode; its kernel time (profiler), a wrapper call's time (events
+   and a CUDA graph), the whole host step (descriptors up, launch, one
+   copy back, one sync) for every frame and for one.  ``segment_agg``,
+   the row kernel, once through ``ops.segment_agg`` over every segment of
+   the container (its launch counted, as the kernel surface calls it),
+   then against its plain version in float64 and float32 on those rows,
+   timed likewise.
 9. dense model at full width and depth: llama3-8b
    (``src/repro/configs/llama3_8b.py``: 32 layers, d_model 4096, 32 heads,
    8 KV heads, head_dim 128, d_ff 14336, vocab 128256; 8,030,261,248 bf16
@@ -191,6 +201,9 @@ SURF_STEP_FRACTIONS = (1.0, 1 / 16, 1 / 256)
 RANS_DECODE_PREV_MS = {"block a row, PR 18 runs A-D": [0.08738, 0.09069]}
 # interval_stats' previous times at [131072, 256], W 1024 (PERF.md section
 # 6, row 4: the one-element-a-thread kernel, runs A and B)
+# synchronizing CUDA calls an analytics query (64 queries) before the fused
+# segment step, with a segment_agg launch a frame (PERF.md, sections 5 and 6)
+SYNCS_PER_QUERY_PREV = {"a segment_agg launch a frame": 57.1}
 INTERVAL_PREV_MS = {
     "float64": {"one element a thread, run A": 0.09576, "run B": 0.09532},
     "float32": {"one element a thread, run A": 0.05397, "run B": 0.05360},
@@ -286,16 +299,6 @@ class Recorder:
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.orig)
-
-
-class LargestRecorder(Recorder):
-    """A :class:`Recorder` that keeps the arguments of the call whose first
-    argument has the most rows."""
-
-    def __call__(self, *args, **kwargs):
-        if self.args is None or args[0].shape[0] > self.args[0][0].shape[0]:
-            self.args = (args, kwargs)
-        return self.orig(*args, **kwargs)
 
 
 def gateway_batch(series: int, samples: int, seed: int) -> np.ndarray:
@@ -914,22 +917,6 @@ def stream_gateway(P, v: np.ndarray, series, cfg, tiers, dev):
     return sc, sc.finalize()
 
 
-def count_syncs(fn):
-    """Run ``fn`` with CUDA's sync debug mode warning on every synchronizing
-    call; returns (its result, the number of such calls)."""
-    import warnings
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return out, sum(1 for w in caught if "synchroniz" in str(w.message))
-
-
 BITS = {torch.float64: torch.int64, torch.float32: torch.int32, torch.bfloat16: torch.int16}
 
 
@@ -940,26 +927,30 @@ def same_bits(got, want) -> bool:
     return all(a.shape == b.shape and torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
 
 
-def check_segment_agg(P, SA, Sz, blob: bytes, largest, launches: dict, dev) -> dict:
-    """``segment_agg`` against its plain version: float64 on the largest
-    input of the analytics run and on one launch over every segment of the
-    container (a = 0, b = length), float32 on the same rows."""
+def container_segments(P, Sz, blob: bytes):
+    """(t0s, lens, thetas, slopes) of every frame of the container, each
+    frame's segments in order, as numpy arrays."""
     from repro_torch.core.base import _flat_segments
 
-    got = SA.segment_agg_cuda(*largest)
-    check(same_bits(got, SA.segment_agg_plain(*largest)),
-          f"segment_agg f64 differs from its plain version on the path's largest input "
-          f"(max err {max_abs_err(got, SA.segment_agg_plain(*largest))})")
     metas, _ = Sz.parse_framed_container(blob)
-    thetas, slopes, lens = [], [], []
-    for m in metas:
-        _, ln, th, sl = _flat_segments(P.cs_from_bytes(Sz.frame_payload(blob, m)).base)
-        thetas.append(th)
-        slopes.append(sl)
-        lens.append(ln)
-    lens = np.concatenate(lens).astype(np.float64)
+    return metas, [_flat_segments(P.cs_from_bytes(Sz.frame_payload(blob, m)).base)
+                   for m in metas]
+
+
+def check_segment_agg(SA, ops, frames, dev) -> dict:
+    """``segment_agg``, the row kernel, through ``ops.segment_agg`` as the
+    reference's kernel surface calls it: one launch over every segment of
+    the container (a = 0, b = length), counted; then against its plain
+    version in float64 and float32 on the same rows, timed."""
+    lens = np.concatenate([f[1] for f in frames]).astype(np.float64)
     rows = [torch.as_tensor(x, device=dev).reshape(-1, 1)
-            for x in (np.concatenate(thetas), np.concatenate(slopes), np.zeros_like(lens), lens)]
+            for x in (np.concatenate([f[2] for f in frames]),
+                      np.concatenate([f[3] for f in frames]), np.zeros_like(lens), lens)]
+    ops.reset_launches()
+    ops.segment_agg(*rows)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    check(launches["segment_agg"] == 1, "kernel segment_agg was not launched by its surface call")
     res = {}
     for dtype in (torch.float64, torch.float32):
         cols = [x.to(dtype) for x in rows]
@@ -971,29 +962,173 @@ def check_segment_agg(P, SA, Sz, blob: bytes, largest, launches: dict, dev) -> d
         res[dtype] = (err, event_ms(lambda: SA.segment_agg_cuda(*cols), 20), plain_s * 1e3)
     m = rows[0].shape[0]
     err, ms, plain_ms = res[torch.float64]
-    # the events above time the wrapper's calls back to back (packing and the
-    # ctypes launch included); the profiler gives the kernel's own device time
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            SA.segment_agg_cuda(*rows)
-        torch.cuda.synchronize()
-    kernel_us = sum(e.device_time_total for e in prof.key_averages()
-                    if "segment_agg" in e.key) / 20
-    # a wrapper call's device time (the row packing and the kernel) from a
-    # CUDA graph of 20 calls, with the host's launch overhead left out
-    call_graph_ms = graph_ms(lambda: SA.segment_agg_cuda(*rows), 20)
+    kernel_ms = profiled_kernel_ms(lambda: SA.segment_agg_cuda(*rows), "segment_agg_f64")
     # a row: four float64 scalars read, four written; ~40 float64 operations
     row = kernel_row("segment_agg", "src/repro_torch/kernels/csrc/segment_agg.cu",
                      "src/repro/kernels/segment_agg.py:37", launches, err, ms, plain_ms,
                      64 * m, 40 * m, FP64_OPS_PER_S, [m, 1])
-    row.update({"dtype": "float64", "kernel_device_ms": kernel_us / 1e3 or None,
-                "graph_ms": call_graph_ms,
-                "largest_path_input_rows": int(largest[0].shape[0]),
+    row.update({"dtype": "float64", "kernel_device_ms": kernel_ms,
+                "graph_ms": graph_ms(lambda: SA.segment_agg_cuda(*rows), 20),
+                "path": "kernel surface (ops.segment_agg over every segment of the container)",
                 "f32_max_abs_err": res[torch.float32][0], "f32_ms": res[torch.float32][1],
                 "f32_plain_ms": res[torch.float32][2]})
     return row
+
+
+def profiled_kernel_ms(fn, name: str, reps: int = 20) -> float | None:
+    """The device time of the kernels whose name holds ``name``, a call,
+    from torch.profiler over ``reps`` calls (None if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if name in e.key) / reps
+    return us / 1e3 or None
+
+
+class StepRecorder(Recorder):
+    """A :class:`Recorder` of ``ops.segment_query`` that keeps the call
+    with the most parts."""
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None or args[1].shape[0] > self.args[0][1].shape[0]:
+            self.args = (args, kwargs)
+        return self.orig(*args, **kwargs)
+
+
+def step_bytes(desc: np.ndarray, parts, mode: str, nrows: int) -> int:
+    """The bytes a step must move: its descriptors, the table rows it
+    touches (t0, len, theta, slope) and its output buffer."""
+    from repro_torch.kernels import segment_agg as SA
+
+    rows = sum(i1 - i0 for i0, i1, *_ in parts)
+    return desc.nbytes + 32 * rows + 8 * (SA.HEADER_WORDS * len(desc)
+                                          + SA.MODES[mode][1] * nrows)
+
+
+def check_segment_query(SA, ops, largest, frames, an_launches: dict, dev) -> dict:
+    """``segment_query``, the fused step, against its plain version: on the
+    analytics run's largest step (as recorded) and on one query over every
+    frame of the container in each mode (whole frames; thresholds at each
+    frame's first prediction), the output buffers read back part by part
+    and equal bit for bit.  Timed on the every-frame query: the kernel
+    (profiler), a wrapper call (events; CUDA graph), the whole host step
+    (descriptors up, launch, one copy back and one sync) and the plain
+    version."""
+    (tabs, desc, mode, op, nrows), _ = largest
+    want = SA.segment_query_plain(tabs, desc, mode, op, nrows)
+    got = SA.segment_query_cuda(tabs, desc, mode, op, nrows)
+    dh = desc.cpu().numpy()
+    g, w = (SA.query_parts(x.cpu().numpy(), dh, mode, nrows) for x in (got, want))
+    check(all(a[:4] == b[:4] and np.array_equal(a[4].view(np.int64), b[4].view(np.int64))
+              for a, b in zip(g, w)),
+          f"segment_query differs from its plain version on the path's largest step ({mode})")
+    largest_parts = len(dh)
+    tables = [SA.pack_table(*(torch.as_tensor(x, device=dev) for x in f)) for f in frames]
+    d = np.zeros((len(frames), SA.DESC_WORDS), dtype=np.int64)
+    off = 0
+    for i, (f, t) in enumerate(zip(frames, tables)):
+        n, k = int(f[1].sum()), len(f[0])
+        c = np.float64(f[2][0]).view(np.int64)  # the frame's first prediction
+        d[i] = (t.data_ptr(), k, 0, n, off, c, (np.float64(f[2][0]) + 1e-3).view(np.int64), 0)
+        off += min(k, n)
+    desc = torch.as_tensor(d, device=dev)
+    res = {}
+    for mode in ("aggregate", "central", "count"):
+        got = SA.segment_query_cuda(tables, desc, mode, "gt", off)
+        want, plain_s = sync_time(lambda: SA.segment_query_plain(tables, desc, mode, "gt", off))
+        g, w = (SA.query_parts(x.cpu().numpy(), d, mode, off) for x in (got, want))
+        check(all(a[:4] == b[:4] and np.array_equal(a[4].view(np.int64), b[4].view(np.int64))
+                  for a, b in zip(g, w)),
+              f"segment_query differs from its plain version on every frame ({mode})")
+        call = lambda: SA.segment_query_cuda(tables, desc, mode, "gt", off)  # noqa: E731
+        res[mode] = {"ms": event_ms(call, 20), "graph_ms": graph_ms(call, 20),
+                     "kernel_device_ms": profiled_kernel_ms(call, "segment_query"),
+                     "plain_ms": plain_s * 1e3, "bytes": step_bytes(d, g, mode, off)}
+    # the whole host step of a query touching every frame, as the engine
+    # makes it: host descriptors, one launch, one copy back, one sync
+    from repro_torch.core import segment_algebra as PA
+
+    sk = [PA.SegmentTable(n=int(f[1].sum()), t0s=t[0], lens=t[1], thetas=t[2].view(
+        torch.float64), slopes=t[3].view(torch.float64)) for f, t in zip(frames, tables)]
+    parts = [(tab, 0, tab.n) for tab in sk]
+    PA.aggregate_parts(parts)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        PA.aggregate_parts(parts)
+    step_s = (time.perf_counter() - t0) / 5
+    one = [(sk[0], 0, sk[0].n)]
+    t0 = time.perf_counter()
+    for _ in range(50):
+        PA.aggregate_parts(one)
+    one_s = (time.perf_counter() - t0) / 50
+    agg = res["aggregate"]
+    row = kernel_row("segment_query", "src/repro_torch/kernels/csrc/segment_agg.cu",
+                     "src/repro/kernels/segment_agg.py:37", an_launches, 0.0, agg["ms"],
+                     agg["plain_ms"], agg["bytes"], 40 * sum(i1 - i0 for i0, i1, *_ in g),
+                     FP64_OPS_PER_S, [len(frames), SA.DESC_WORDS])
+    row.update({"graph_ms": agg["graph_ms"], "kernel_device_ms": agg["kernel_device_ms"],
+                "modes": res, "parts": len(frames), "rows": int(sum(len(f[0]) for f in frames)),
+                "largest_path_step_parts": largest_parts,
+                "host_step_ms_every_frame": step_s * 1e3, "host_step_ms_one_frame": one_s * 1e3})
+    return row
+
+
+KINDS = ("sketch_aggregate", "tiered_aggregate", "count_where")
+
+
+def by_kind(ops, eng, run, sync_debug: bool):
+    """Run ``run()`` with ``eng``'s ``aggregate`` and ``count_where``
+    wrapped: per query kind (a zero-decode sketch aggregate, a tiered
+    aggregate, a ``count_where``) its queries, ``segment_query`` launches
+    and, with ``sync_debug``, synchronizing CUDA calls (the sync debug
+    mode's warnings).  Fails if a query makes more than one launch a
+    segment step (two for a stddev).  Returns (run's result, the counts)."""
+    import warnings
+
+    counts = {k: {"queries": 0, "segment_launches": 0, "syncs": 0} for k in KINDS}
+    seen: list = []
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            kind = "count_where" if name == "count_where" else (
+                "sketch_aggregate" if kwargs.get("eps") is None else "tiered_aggregate")
+            l0, s0 = ops.launches["segment_query"], len(seen)
+            out = fn(*args, **kwargs)
+            dl = ops.launches["segment_query"] - l0
+            limit = 2 if name == "aggregate" and args[1] == "stddev" else 1
+            check(dl <= limit, f"{kind} {args}: {dl} segment_query launches (at most {limit})")
+            c = counts[kind]
+            c["queries"] += 1
+            c["segment_launches"] += dl
+            c["syncs"] += sum("synchroniz" in str(w.message) for w in seen[s0:])
+            return out
+        return call
+
+    eng.aggregate = wrap("aggregate", eng.aggregate)
+    eng.count_where = wrap("count_where", eng.count_where)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seen = caught
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for c in counts.values():
+        q = max(c["queries"], 1)
+        c["segment_launches_per_query"] = c["segment_launches"] / q
+        if sync_debug:
+            c["syncs_per_query"] = c["syncs"] / q
+        else:
+            del c["syncs"]
+    return out, counts
 
 
 def cprofile_top(job, top: int = 20) -> dict:
@@ -1052,7 +1187,7 @@ def streamed_path(P, SA, series: int, samples: int, range_queries: int,
                   analytics_queries: int, seed: int, dev,
                   trace_dir: pathlib.Path | None = None) -> tuple[dict, dict]:
     """Phase 8: streamed gateway ingest, range serving and analytics;
-    returns the stats and the ``segment_agg`` row."""
+    returns the stats and the ``segment_query`` and ``segment_agg`` rows."""
     from repro_torch.analytics import AnalyticsEngine
     from repro_torch.core import serialize as Sz
     from repro_torch.kernels import ops
@@ -1108,18 +1243,19 @@ def streamed_path(P, SA, series: int, samples: int, range_queries: int,
     print("range serving: " + json.dumps(rng_stats), flush=True)
     del batcher
 
-    # analytics, with segment_agg's largest input recorded
-    rec = LargestRecorder(ops, "segment_agg")
+    # analytics, with segment_query's largest step recorded and each
+    # query's segment steps counted by kind
+    rec = StepRecorder(ops, "segment_query")
     eng = AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev))
     try:
         ops.reset_launches()
-        ares = serve.analytics_traffic(eng, v, analytics_queries, GW_FRAME, tiers,
-                                       seed=GW_QUERY_SEED)
+        ares, an_kinds = by_kind(ops, eng, lambda: serve.analytics_traffic(
+            eng, v, analytics_queries, GW_FRAME, tiers, seed=GW_QUERY_SEED), False)
         an_launches = dict(ops.launches)
     finally:
         rec.restore()
     check(ares["failed"] == 0, f"analytics: {ares['failed']} answers missed the truth")
-    for name in ("segment_agg", "rans_decode"):
+    for name in ("segment_query", "rans_decode"):
         check(an_launches[name] > 0, f"kernel {name} was not launched by the analytics run")
     # the first 64 queries again on fresh engines, each run timed: the card's
     # and the CPU route's answers must be equal; a third run on the card
@@ -1136,25 +1272,29 @@ def streamed_path(P, SA, series: int, samples: int, range_queries: int,
     check([a.__dict__ for a in card_ans] == [a.__dict__ for a in cpu_ans]
           and eng_c.stats == eng_h.stats, "analytics: the CPU route's answers differ from the card's")
     eng_s = AnalyticsEngine(RangeQueryBatcher(blob, cache_frames=GW_CACHE, device=dev))
-    _, syncs = count_syncs(lambda: serve.analytics_traffic(
-        eng_s, v, GW_CPU_QUERIES, GW_FRAME, tiers, seed=GW_QUERY_SEED))
+    _, sync_kinds = by_kind(ops, eng_s, lambda: serve.analytics_traffic(
+        eng_s, v, GW_CPU_QUERIES, GW_FRAME, tiers, seed=GW_QUERY_SEED), True)
+    syncs = sum(c["syncs"] for c in sync_kinds.values())
     an_stats = {**ares, "q_per_s": ares["queries"] / ares["seconds"], **eng.stats,
                 "serving_cache_hits": eng.batcher.stats["frame_hits"],
-                "segment_agg_launches": an_launches["segment_agg"],
-                "segment_agg_launches_per_query": an_launches["segment_agg"] / ares["queries"],
+                "segment_query_launches": an_launches["segment_query"],
+                "segment_query_launches_per_query": an_launches["segment_query"] / ares["queries"],
+                "segment_launches_by_kind": an_kinds,
                 "launches": an_launches, "cpu_route_queries": GW_CPU_QUERIES,
                 "first_queries_card_q_per_s": card64["queries"] / card64["seconds"],
                 "first_queries_cpu_route_q_per_s": cpu64["queries"] / cpu64["seconds"],
-                "syncs_per_query": syncs / GW_CPU_QUERIES}
+                "syncs_per_query": syncs / GW_CPU_QUERIES, "syncs_by_kind": sync_kinds,
+                "syncs_per_query_before": SYNCS_PER_QUERY_PREV}
     print("analytics: " + json.dumps(an_stats), flush=True)
-    (largest, _) = rec.args
-    row = check_segment_agg(P, SA, Sz, blob, largest, an_launches, dev)
+    _, frames = container_segments(P, Sz, blob)
+    rows = [check_segment_query(SA, ops, rec.args, frames, an_launches, dev),
+            check_segment_agg(SA, ops, frames, dev)]
     out = {"ingest": stats, "range": rng_stats, "analytics": an_stats}
     if trace_dir is not None:
         out["trace"] = profile_streamed(P, serve, AnalyticsEngine, RangeQueryBatcher, v, cfg,
                                         tiers, blob, dev, trace_dir)
         print("streamed trace: " + json.dumps(out["trace"]), flush=True)
-    return out, row
+    return out, rows
 
 
 def trace_main_path(P, values: np.ndarray, codec, dev, out_dir: pathlib.Path) -> dict:
@@ -1387,7 +1527,7 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
     from repro_torch.models import transformer as T
 
     m = build_model(cfg)
-    params, init_s = sync_time(lambda: m.init(seed=seed, device=dev))
+    params, init_s = sync_time(lambda: m.init(seed, device=dev))
     n_params = sum(t.numel() for t in _leaves(params))
     g = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (batch, length), generator=g, device=dev)
@@ -1563,7 +1703,7 @@ def main() -> None:
 
     # phase 2: the main path, with the kernels' inputs recorded
     values = gateway_batch(args.series, args.samples, args.seed)
-    recs = [Recorder(ops, name) for name in ("cone_scan", "rans_encode_rows", "rans_decode_rows")]
+    recs = [Recorder(ops, "cone_scan"), Recorder(rk, "encode_rows"), Recorder(rk, "decode_rows")]
     ops.reset_launches()
     stats = main_path(P, values, dev, ops.launches)
     launches = dict(ops.launches)
@@ -1614,9 +1754,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 8: the streamed gateway, range serving and analytics
-    _, sa_row = streamed_path(P, SA, args.gw_series, args.gw_samples, args.gw_range_queries,
-                              args.gw_analytics_queries, args.seed, dev, args.trace)
-    rows.append(sa_row)
+    _, sa_rows = streamed_path(P, SA, args.gw_series, args.gw_samples, args.gw_range_queries,
+                               args.gw_analytics_queries, args.seed, dev, args.trace)
+    rows += sa_rows
     torch.cuda.empty_cache()
 
     # phase 9: llama3-8b at full width and depth: prefill through the flash

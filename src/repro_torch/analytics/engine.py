@@ -5,9 +5,9 @@
 without reconstructing it:
 
 * the **segment path** evaluates the closed-form per-segment algebra
-  (``core.segment_algebra``: the ``segment_agg`` kernel and torch ops on
-  the card) over the knowledge base, with zero entropy work, and widens
-  the result by the base's practical error bound;
+  (``core.segment_algebra``: one ``segment_query`` launch a step on the
+  card) over the knowledge base, with zero entropy work, and widens the
+  result by the base's practical error bound;
 * the **dense path** decodes the cheapest pyramid layer prefix meeting
   the requested ``eps`` (a cached :class:`ProgressiveDecoder` on the
   card) and widens by that tier's guarantee;
@@ -32,7 +32,7 @@ from ..core.segment_algebra import (
     SegmentTable,
     base_aggregate,
     base_aggregate_with_m2,
-    count_cmp,
+    count_parts,
     segment_table,
 )
 from ..core.shrink import ProgressiveDecoder
@@ -366,8 +366,8 @@ class SeriesAnalytics:
         g = self.cs.eps_b_practical
         margin = point_margin(g, self.scale)
         sgn = 1.0 if op in ("gt", "ge") else -1.0
-        definite = count_cmp(self.table, t0, t1, op, value + sgn * margin)
-        possible = count_cmp(self.table, t0, t1, op, value - sgn * margin)
+        ((definite, possible),) = count_parts([(self.table, t0, t1)], op,
+                                              [value + sgn * margin], [value - sgn * margin])
         if definite == possible or self._use_segments(eps):
             return AggregateAnswer(
                 op=op, lo=float(definite), hi=float(possible), m=m, eps=g,

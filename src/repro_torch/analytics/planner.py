@@ -16,10 +16,12 @@ against a framed stream container, planning per frame:
   (``RangeQueryBatcher.decoder``), so analytics and range queries share
   decoded layers.
 
-The segment algebra runs on the batcher's device (the ``segment_agg``
-kernel on the card); a refined frame's dense slice is copied to the host
-once and reduced with numpy, so every answer and every ``stats`` count
-equals the reference's.
+The segment algebra runs on the batcher's device: each step of a query
+(the extrema, the unrefined parts' sums, the central second moment, or
+both thresholds of every part of a ``count_where``) is one
+``segment_query`` launch over all the frames it touches, with one read-back.
+A refined frame's dense slice is copied to the host once and reduced with
+numpy, so every answer and every ``stats`` count equals the reference's.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ import torch
 from ..core.errors import CorruptFrameError
 from ..core.segment_algebra import (
     SegmentTable,
-    base_aggregate,
-    base_central_m2,
-    count_cmp,
+    aggregate_parts,
+    central_m2_parts,
+    count_parts,
     segment_table,
 )
 from ..core.serialize import frame_payload
@@ -230,8 +232,7 @@ class AnalyticsEngine:
 
     def _extremum(self, op: str, parts, eps: float | None) -> AggregateAnswer:
         sign = 1.0 if op == "min" else -1.0  # work in "min" orientation
-        for p in parts:
-            st = base_aggregate(p.sk.table, p.a, p.b)
+        for p, st in zip(parts, aggregate_parts([(p.sk.table, p.a, p.b) for p in parts])):
             p.est = sign * (st.vmin if op == "min" else st.vmax)
             p.e_pt = point_margin(p.sk.eps_b, p.sk.scale) + _fp_slack(p.sk.scale)
         # frame-skipping: a frame whose optimistic bound cannot beat the
@@ -275,6 +276,10 @@ class AnalyticsEngine:
         if m <= 0:
             raise ValueError("empty sample range")
         paid = 0
+        # the unrefined parts' sums: one query step over all of them
+        seg = [p for p in parts if not self._wants_refine(eps, p.sk)]
+        for p, st in zip(seg, aggregate_parts([(p.sk.table, p.a, p.b) for p in seg])):
+            p.est = st.total
         for p in parts:
             if self._wants_refine(eps, p.sk):
                 paid += self._refine(p, eps)
@@ -282,8 +287,6 @@ class AnalyticsEngine:
                 if not p.exact:
                     p.e_pt += _fp_slack(p.sk.scale)
             else:
-                st = base_aggregate(p.sk.table, p.a, p.b)
-                p.est = st.total
                 p.e_pt = point_margin(p.sk.eps_b, p.sk.scale) + _fp_slack(p.sk.scale)
                 self.stats["segment_frames"] += 1
         scale = max(p.sk.scale for p in parts)
@@ -322,12 +325,11 @@ class AnalyticsEngine:
         if single_exact:
             est = float(np.std(parts[0].dense))
             return AggregateAnswer(op=op, lo=est, hi=est, eps=0.0, exact=True, **common)
+        seg = [p for p in parts if p.dense is None]
+        central = iter(central_m2_parts([(p.sk.table, p.a, p.b) for p in seg], [mu] * len(seg)))
         m2 = 0.0
         for p in parts:
-            if p.dense is not None:
-                m2 += float(((p.dense - mu) ** 2).sum())
-            else:
-                m2 += base_central_m2(p.sk.table, p.a, p.b, mu)
+            m2 += float(((p.dense - mu) ** 2).sum()) if p.dense is not None else next(central)
         est = math.sqrt(max(m2, 0.0) / m)
         e = math.sqrt(sum(p.m * p.e_pt * p.e_pt for p in parts) / m) + compose
         return AggregateAnswer(op=op, lo=max(est - e, 0.0), hi=est + e, eps=g,
@@ -355,10 +357,12 @@ class AnalyticsEngine:
         lo_total, hi_total = 0, 0
         g_worst = 0.0
         refined = skipped = paid_q = 0
-        for p in parts:
-            margin = point_margin(p.sk.eps_b, p.sk.scale)
-            definite = count_cmp(p.sk.table, p.a, p.b, op, value + sgn * margin)
-            possible = count_cmp(p.sk.table, p.a, p.b, op, value - sgn * margin)
+        # both thresholds of every part: one query step
+        margins = [point_margin(p.sk.eps_b, p.sk.scale) for p in parts]
+        counts = count_parts([(p.sk.table, p.a, p.b) for p in parts], op,
+                             [value + sgn * mg for mg in margins],
+                             [value - sgn * mg for mg in margins])
+        for p, (definite, possible) in zip(parts, counts):
             if definite == possible or not self._wants_refine(eps, p.sk):
                 if definite == possible:
                     skipped += 1  # segment bounds settled it: no decode

@@ -16,6 +16,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .phases import eps_hat_for_level
 from .slope import optimized_slope
 from .types import Base, Segment, ShrinkConfig, SubBase
@@ -153,9 +154,10 @@ def base_predictions_ragged(
     return out
 
 
-def base_predictions(base: Base, device: torch.device | str) -> torch.Tensor:
-    """The base-only approximation of one series: n float64 values."""
-    return base_predictions_batch([base], device)[0]
+def base_predictions(base: Base, device: torch.device | str | None = None) -> torch.Tensor:
+    """The base-only approximation of one series: n float64 values on
+    ``device`` (default the card)."""
+    return base_predictions_batch([base], resolve_device(device))[0]
 
 
 def practical_eps_b(values: torch.Tensor, base: Base, pred: torch.Tensor | None = None) -> float:

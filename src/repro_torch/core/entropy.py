@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels import rans as rans_rows
 from .device import resolve_device
 from .errors import CorruptFrameError, FormatError, TruncatedArchiveError
 
@@ -671,7 +672,7 @@ def _rans_encode_streams(st: _Streams) -> list[bytes]:
             for r, r1, rid, pos in st.row_chunks(a, b):
                 lo = st.row_first[r] - st.row_first[a]
                 cells[r - a + rid, pos] = rows[lo : lo + rid.numel()]
-        x, w, c = ops.rans_encode_rows(cells, freqs[a:b], k)
+        x, w, c = rans_rows.encode_rows(cells, freqs[a:b], k)
         states.append(x.cpu().numpy().astype("<u4"))
         words.append(w)
         wcounts.append(c)
@@ -959,7 +960,7 @@ def _rans_decode_many(parsed: list, device) -> tuple[list[torch.Tensor], int | N
         at += r * (k + 256)
         off, cnt, ns = (buf[at + j * r : at + (j + 1) * r] for j in range(3))
         at += 3 * r
-        sy, used = ops.rans_decode_rows(states, freqs, words, off, cnt, ns, k, cols=cols)
+        sy, used = rans_rows.decode_rows(states, freqs, words, off, cnt, ns, k, cols=cols)
         syms.append(sy)
         short.append(used > cnt)
         ns_all.append(ns)

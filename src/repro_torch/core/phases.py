@@ -95,8 +95,9 @@ def fluctuation_table(
     values: torch.Tensor,
     delta_global: torch.Tensor,
     config: ShrinkConfig,
-    n_hint: int | None = None,
     lengths=None,
+    *,
+    n_hint: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Vectorized Alg. 2 over a batch of series: the (level, eps_hat) of a
     cone starting at every (series, index).

@@ -113,12 +113,16 @@ def row_ranges(values: torch.Tensor, valid: torch.Tensor | None = None):
 def extract_semantics_batch(
     values: torch.Tensor,
     config: ShrinkConfig,
+    chunk: int = 256,
+    lengths=None,
+    *,
     value_range: tuple[float, float] | None = None,
     n_hint: int | None = None,
-    lengths=None,
 ) -> list[list[Segment]]:
     """Multi-series cone scan: values[S, T] float64 -> one segment list per
-    series.  ``value_range`` pins every row's (vmin, vmax) and ``n_hint``
+    series.  ``chunk`` takes the reference's argument in its place: its
+    output does not depend on it, and the scan kernel walks every row in
+    one launch, so the port ignores it.  ``value_range`` pins every row's (vmin, vmax) and ``n_hint``
     the length that sets the interval L, as a caller scanning part of a
     longer series does; ``None`` derives both from each row.
 
@@ -201,4 +205,6 @@ def extract_semantics(
         return []
     if value_range is None:
         value_range = global_range(values)
-    return extract_semantics_batch(values[None], config, value_range, n_hint)[0]
+    return extract_semantics_batch(
+        values[None], config, value_range=value_range, n_hint=n_hint
+    )[0]

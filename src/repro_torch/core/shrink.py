@@ -146,12 +146,15 @@ class ShrinkCodec:
         values,
         eps_targets: list[float],
         decimals: int | None = None,
+        semantics: str = "auto",
         lengths=None,
         max_buckets: int | None = None,
     ) -> list[CompressedSeries]:
         """Batched Alg. 1 over S series: ``values[S, T]``, ``values[S, T]``
         with ``lengths[S]`` (row i holds ``lengths[i]`` real samples), or a
-        list of 1-D series of any lengths, empty ones included.  Ragged
+        list of 1-D series of any lengths, empty ones included.
+        ``semantics`` takes the reference's argument in its place; the port
+        has one scan route (the cone-scan kernel), so it changes nothing.  Ragged
         input is cut into at most ``max_buckets`` percentile length buckets
         (default: about one per 4 series, between 4 and 16), each scanned
         with the valid-length mask, and every layer of every series shares

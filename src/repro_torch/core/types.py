@@ -87,8 +87,23 @@ class Base:
     vmax: float
     subbases: list[SubBase]
 
+    @property
+    def k(self) -> int:
+        return len(self.subbases)
+
     def segment_count(self) -> int:
         return int(sum(len(sb.t0s) for sb in self.subbases))
+
+    def predictions(self) -> np.ndarray:
+        """The base-only approximation of all n points as a float64 host
+        array, as the reference computes it (``base_predictions`` gives the
+        same values on a device)."""
+        out = np.empty(self.n, dtype=np.float64)
+        for sb in self.subbases:
+            for t0, ln in zip(sb.t0s.tolist(), sb.lengths.tolist()):
+                t = np.arange(ln, dtype=np.float64)
+                out[t0 : t0 + ln] = sb.theta + sb.slope * t
+        return out
 
 
 @dataclasses.dataclass
@@ -158,6 +173,13 @@ class ResidualPyramid:
             f"{self.tiers()} (base-only above {eps_b_practical!r})"
         )
 
+    def prefix_nbytes(self, k: int) -> int:
+        """Payload bytes needed to decode at layer k (-1 = base only)."""
+        return sum(layer.nbytes() for layer in self.layers[: k + 1])
+
+    def nbytes(self) -> int:
+        return self.prefix_nbytes(len(self.layers) - 1)
+
     def backend_stats(self) -> dict[str, dict[str, int]]:
         """Per-backend ``{"streams": count, "bytes": payload bytes}``."""
         out: dict[str, dict[str, int]] = {}
@@ -183,6 +205,15 @@ class CompressedSeries:
 
     def tiers(self) -> list[float]:
         return self.pyramid.tiers()
+
+    def size_at(self, eps: float) -> int:
+        """Bytes needed to decode at resolution ``eps``: the base and the
+        cheapest sufficient layer prefix (the paper's compression ratio)."""
+        k = self.pyramid.resolve(eps, self.eps_b_practical)
+        return len(self.base_bytes) + self.pyramid.prefix_nbytes(k)
+
+    def total_nbytes(self) -> int:
+        return len(self.base_bytes) + self.pyramid.nbytes()
 
     def backend_stats(self) -> dict[str, dict[str, int]]:
         """Per-backend stream/byte counts of this series' residual layers."""

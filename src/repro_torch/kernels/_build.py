@@ -41,8 +41,8 @@ NVCC_FLAGS = [
 
 launches: dict[str, int] = {
     "cone_scan": 0, "rans_encode": 0, "rans_decode": 0, "residual_quant": 0, "dequant": 0,
-    "base_fit": 0, "segment_agg": 0, "flash_attention": 0, "interval_stats": 0,
-    "pyramid_quant": 0, "pyramid_reconstruct": 0,
+    "base_fit": 0, "segment_agg": 0, "segment_query": 0, "flash_attention": 0,
+    "interval_stats": 0, "pyramid_quant": 0, "pyramid_reconstruct": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -8,9 +8,11 @@ kernel).  For xb[M, K] float32, with tc = t - (K - 1) / 2:
     slope = (xb @ tc) / sum(tc * tc);  theta = mean(xb) - slope * (K - 1) / 2
 
 The sums run in the order XLA's CPU code gives them (see
-:func:`_row_dot` and :func:`_row_sum`), so the plain version is
-bit-identical to the reference on the CPU for blocks of up to 876
-elements (wider rows the reference's CPU product sums in another order).
+:func:`_row_dot`, :func:`_dot_single` for a single row, and
+:func:`_row_sum`), so the plain version is bit-identical to the reference
+on the CPU for a single row of up to 1024 elements and for blocks of up to
+876 elements (wider blocks of several rows the reference's CPU product sums
+in another order).
 The kernel is ``csrc/base_fit.cu``, the same order with eight threads a
 row on tiles of rows staged in shared memory; ``base_fit_plain`` is
 elementwise torch ops with an exact fused multiply-add, so the two agree
@@ -81,6 +83,88 @@ def _row_dot(xb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _halves(v: torch.Tensor) -> torch.Tensor:
+    """Float32 sum of the lanes of v[M, 2^j] by halves: lane i + lane i + h."""
+    while v.shape[1] > 1:
+        h = v.shape[1] // 2
+        v = v[:, :h] + v[:, h:]
+    return v[:, 0]
+
+
+def _lanes(m: int, n: int, first: torch.Tensor | float, device) -> torch.Tensor:
+    """[m, n] float32 accumulators: -0.0, lane 0 starting at ``first``."""
+    acc = torch.full((m, n), -0.0, device=device)
+    acc[:, 0] = first
+    return acc
+
+
+def _epilogue_lanes(rem: int) -> int:
+    """The lanes of the vector epilogue over ``rem`` columns: the least
+    rem // e + rem % e steps over e in (2, 4, 8), the smaller e on a tie;
+    1 = none."""
+    best, lanes = rem, 1
+    for e in (2, 4, 8):
+        if rem // e + rem % e < best:
+            best, lanes = rem // e + rem % e, e
+    return lanes
+
+
+def _dot_single(xb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``xb[1, K] @ v[K]`` in XLA's CPU order for a single row, where the
+    product becomes a vector dot that LLVM vectorizes with 8 lanes (read off
+    the reference on the CPU): K < 60 is one chain of fused multiply-adds
+    from 0.0.  Otherwise U = 4 accumulators (2 below K = 64) of 8 lanes take
+    W = 8U columns a step over the first K // W steps: up to 17 steps the
+    code is unrolled and each lane is one chain (accumulator 0's columns in
+    step order, then each next accumulator's in the step order 1, 0, 2,
+    3, ...); from 18 steps it is a loop of separate chains, added as
+    ((a0 + a1) + a2) + a3.  The lanes sum by halves; the columns left go
+    through a vector epilogue (:func:`_epilogue_lanes`, lane 0 starting at
+    the sum) and then one by one.  ``csrc/base_fit.cu`` computes the same
+    order."""
+    m, k = xb.shape
+    prods = xb.double() * v.double()
+    if k < 60:
+        acc = xb.new_zeros(m)
+        for c in range(k):
+            acc = _fma32(acc, prods[:, c])
+        return acc
+    u_n = 4 if k >= 64 else 2
+    w = 8 * u_n
+    steps = k // w
+    main = steps * w
+    p = prods[:, :main].reshape(m, steps, u_n, 8)
+    if steps <= 17:
+        s = _lanes(m, 8, 0.0, xb.device)
+        for i in range(steps):
+            s = _fma32(s, p[:, i, 0])
+        for u in range(1, u_n):
+            for i in [1, 0, *range(2, steps)]:
+                s = _fma32(s, p[:, i, u])
+    else:
+        accs = []
+        for u in range(u_n):
+            acc = _lanes(m, 8, 0.0 if u == 0 else -0.0, xb.device)
+            for i in range(steps):
+                acc = _fma32(acc, p[:, i, u])
+            accs.append(acc)
+        s = accs[0]
+        for acc in accs[1:]:
+            s = acc + s
+    out = _halves(s)
+    e = _epilogue_lanes(k - main)
+    if e > 1:
+        n = (k - main) // e
+        acc = _lanes(m, e, out, xb.device)
+        for c in range(n):
+            acc = _fma32(acc, prods[:, main + c * e : main + (c + 1) * e])
+        out = _halves(acc)
+        main += n * e
+    for c in range(main, k):
+        out = _fma32(out, prods[:, c])
+    return out
+
+
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """Row sums of x[M, K] in float32, in XLA's CPU order for a reduction:
     rows longer than 32 are cut into windows of 32 (zero-padded evenly at
@@ -105,9 +189,10 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _constants(k: int) -> tuple[float, float, float]:
     """(denom, 1 / K, (K - 1) / 2) as float32 values: denom = sum(tc * tc)
-    summed on the CPU, whatever the device of the rows."""
+    summed on the CPU in XLA's order for a reduction (:func:`_row_sum`),
+    whatever the device of the rows."""
     tc = torch.arange(k, dtype=torch.float32) - (k - 1) / 2.0
-    denom = float(torch.sum(tc * tc))
+    denom = float(_row_sum((tc * tc)[None])[0])
     inv_k = float(torch.tensor(1.0 / k, dtype=torch.float32))
     return denom, inv_k, (k - 1) / 2.0
 
@@ -120,9 +205,10 @@ def base_fit_plain(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     inv_k_t = torch.tensor(inv_k, dtype=xb.dtype, device=xb.device)
     theta = torch.empty(m, dtype=xb.dtype, device=xb.device)
     slope = torch.empty_like(theta)
+    dot = _dot_single if m == 1 else _row_dot
     for a in range(0, m, _ROWS):
         rows = xb[a : a + _ROWS]
-        slope[a : a + _ROWS] = torch.div(_row_dot(rows, tc), denom_t)
+        slope[a : a + _ROWS] = torch.div(dot(rows, tc), denom_t)
         mean = _row_sum(rows) * inv_k_t
         theta[a : a + _ROWS] = mean - slope[a : a + _ROWS] * t_mean
     return theta, slope

@@ -169,6 +169,107 @@ base_fit_kernel(const float* __restrict__ xb, int64_t m, int k, bool vec, float 
   }
 }
 
+// One row (M == 1): XLA's CPU code makes the product a vector dot, which
+// LLVM vectorizes with 8 lanes; the order, read off the reference on the
+// CPU (kernels/base_fit.py _dot_single), is:
+// * K < 60: one chain of fmaf from 0.0 in column order;
+// * else W = 8 * U columns a step (U = 4 accumulators, 2 below K = 64) over
+//   the first N = K / W steps.  Lane l of accumulator u takes column
+//   i * W + 8u + l at step i.  Up to 17 steps the code is unrolled and the
+//   accumulators are folded into one chain a lane: accumulator 0's columns
+//   in step order, then each next accumulator's in the order 1, 0, 2, 3, ...
+//   From 18 steps it is a loop: four chains a lane, each from its own zero,
+//   added as (((a0 + a1) + a2) + a3).  Lane 0 of accumulator 0 starts at
+//   +0.0, every other lane at -0.0.  The 8 lanes then sum by halves:
+//   ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7));
+// * the R = K - N * W columns left: an epilogue of E lanes (E in 8, 4, 2,
+//   or none; the least R / E + R % E steps, the smaller E on a tie) whose
+//   lane 0 starts at the sum so far, chains of fmaf over floor(R / E)
+//   chunks, summed by halves; then the last columns by fmaf, one by one.
+// One thread computes it (a single row is a few microseconds of chains);
+// the mean is the multi-row kernel's windowed sum.
+__device__ __forceinline__ float tc_at(int c, float t_mean) { return __fsub_rn((float)c, t_mean); }
+
+__device__ float halves(float* v, int n) {
+  for (int h = n / 2; h >= 1; h /= 2)
+    for (int i = 0; i < h; ++i) v[i] = __fadd_rn(v[i], v[i + h]);
+  return v[0];
+}
+
+__global__ void base_fit_row_kernel(const float* __restrict__ x, int k, float denom,
+                                    float inv_k, float t_mean, float* __restrict__ theta,
+                                    float* __restrict__ slope) {
+  if (threadIdx.x != 0) return;
+  float dot = 0.0f;
+  int pos = 0;
+  if (k >= 60) {
+    const int u_n = k >= 64 ? 4 : 2, w = 8 * u_n, steps = k / w;
+    float s[8];
+    if (steps <= 17) {
+      for (int l = 0; l < 8; ++l) s[l] = l ? -0.0f : 0.0f;
+      for (int i = 0; i < steps; ++i)
+        for (int l = 0; l < 8; ++l) s[l] = fmaf(x[i * w + l], tc_at(i * w + l, t_mean), s[l]);
+      for (int u = 1; u < u_n; ++u)
+        for (int o = 0; o < steps; ++o) {
+          const int i = o < 2 ? 1 - o : o;
+          for (int l = 0; l < 8; ++l) {
+            const int c = i * w + 8 * u + l;
+            s[l] = fmaf(x[c], tc_at(c, t_mean), s[l]);
+          }
+        }
+    } else {
+      for (int l = 0; l < 8; ++l) {
+        float acc[4];
+        for (int u = 0; u < u_n; ++u) {
+          acc[u] = (u || l) ? -0.0f : 0.0f;
+          for (int i = 0; i < steps; ++i) {
+            const int c = i * w + 8 * u + l;
+            acc[u] = fmaf(x[c], tc_at(c, t_mean), acc[u]);
+          }
+        }
+        s[l] = acc[0];
+        for (int u = 1; u < u_n; ++u) s[l] = __fadd_rn(acc[u], s[l]);
+      }
+    }
+    dot = halves(s, 8);
+    pos = steps * w;
+    const int rem = k - pos;
+    int e = 1, cost = rem;
+    for (int v = 2; v <= 8; v *= 2)
+      if (rem / v + rem % v < cost) e = v, cost = rem / v + rem % v;
+    if (e > 1) {
+      float ev[8];
+      for (int l = 0; l < e; ++l) ev[l] = l ? -0.0f : dot;
+      for (int c = 0; c < rem / e; ++c)
+        for (int l = 0; l < e; ++l) {
+          const int col = pos + c * e + l;
+          ev[l] = fmaf(x[col], tc_at(col, t_mean), ev[l]);
+        }
+      dot = halves(ev, e);
+      pos += rem / e * e;
+    }
+  }
+  for (int c = pos; c < k; ++c) dot = fmaf(x[c], tc_at(c, t_mean), dot);
+  // the mean: the multi-row kernel's windows of 32, zero-padded evenly
+  float sum = 0.0f;
+  if (k <= 32) {
+    for (int c = 0; c < k; ++c) sum = __fadd_rn(sum, x[c]);
+  } else {
+    const int nwin = (k + 31) / 32, left = (nwin * 32 - k) / 2;
+    for (int wi = 0; wi < nwin; ++wi) {
+      float ws = 0.0f;
+      for (int p = 32 * wi; p < 32 * wi + 32; ++p) {
+        const int c = p - left;
+        ws = __fadd_rn(ws, c >= 0 && c < k ? x[c] : 0.0f);
+      }
+      sum = __fadd_rn(sum, ws);
+    }
+  }
+  const float sl = __fdiv_rn(dot, denom);
+  slope[0] = sl;
+  theta[0] = __fsub_rn(__fmul_rn(sum, inv_k), __fmul_rn(sl, t_mean));
+}
+
 }  // namespace
 
 extern "C" {
@@ -176,6 +277,10 @@ int base_fit(const float* xb, int64_t m, int k, float denom, float inv_k, float 
              float* theta, float* slope, cudaStream_t stream) {
   if (k < 1 || k > 1024) return (int)cudaErrorInvalidValue;
   if (m <= 0) return (int)cudaGetLastError();
+  if (m == 1) {
+    base_fit_row_kernel<<<1, 32, 0, stream>>>(xb, k, denom, inv_k, t_mean, theta, slope);
+    return (int)cudaGetLastError();
+  }
   const Shape sh(k);
   const int threads = G * sh.rt;
   const size_t smem = NBUF * (size_t)sh.rt * sh.rs * sizeof(float);

@@ -9,6 +9,9 @@ orders are the reference's, without its ``force_ref`` switch (the
 tensor's device picks the route): ``interval_stats(x, window)``,
 ``pyramid_quant(x, theta, slope, steps, qmax=127, lengths=None)``,
 ``pyramid_reconstruct(qs, theta, slope, steps)`` and the rest.
+``rans_encode_rows`` and ``rans_decode_rows`` keep the reference's numpy
+row contract (their ``route`` is accepted and ignored); the codec calls
+the device row functions of ``kernels.rans`` directly.
 
 The cone scan needs no block padding: the kernel loops over all T steps
 inside each thread, where the TPU kernel needed T to be a multiple of its
@@ -18,8 +21,10 @@ XLA.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from . import rans as _rans
 from ._build import launches, reset_launches
 from .base_fit import base_fit
 from .cone_scan import cone_scan
@@ -27,10 +32,8 @@ from .dequant import dequant, pyramid_reconstruct
 from .flash_attention import flash_attention
 from .interval_stats import interval_stats
 from .rans import ID_SYM as RANS_ID_SYM
-from .rans import decode_rows as rans_decode_rows
-from .rans import encode_rows as rans_encode_rows
 from .residual_quant import pyramid_quant, residual_quant
-from .segment_agg import segment_agg
+from .segment_agg import segment_agg, segment_query
 
 __all__ = [
     "base_fit",
@@ -50,7 +53,48 @@ __all__ = [
     "reset_launches",
     "residual_quant",
     "segment_agg",
+    "segment_query",
 ]
+
+_LANES = 64  # the reference's interleaved rANS states a row (``_K``)
+
+
+def rans_encode_rows(sym_mat, freqs, route: str = "auto", *, device=None):
+    """The reference's row encoder: ``sym_mat[R, cols]`` symbols in [0, 256]
+    (256 pads short rows) and ``freqs[R, 256]`` normalized tables, as
+    numpy arrays, through the ``rans_encode`` kernel on ``device`` (default
+    the card).  Returns (states[R, 64] uint32, each row's uint16 words in
+    decoder order).  ``route`` is the reference's route switch, ignored."""
+    from ..core.device import resolve_device
+
+    dev = resolve_device(device)
+    sym = torch.as_tensor(np.asarray(sym_mat, dtype=np.int16), device=dev)
+    f = torch.as_tensor(np.asarray(freqs, dtype=np.int64), device=dev)
+    states, words, counts = _rans.encode_rows(sym, f, _LANES)
+    words = words.cpu().numpy().view(np.uint16)
+    cut = np.cumsum(counts.cpu().numpy())[:-1]
+    return states.cpu().numpy().astype(np.uint32), np.split(words, cut) if len(counts) else []
+
+
+def rans_decode_rows(states, freqs, words: list, n: int, route: str = "auto", *, device=None):
+    """The reference's row decoder: R rows of ``n`` symbols from their
+    final ``states[R, 64]``, ``freqs[R, 256]`` and word streams (numpy),
+    through the ``rans_decode`` kernel on ``device`` (default the card).
+    Returns syms[R, n] uint8.  ``route`` is ignored, as above."""
+    from ..core.device import resolve_device
+
+    dev = resolve_device(device)
+    r = len(states)
+    cnt = np.array([len(w) for w in words], dtype=np.int64)
+    off = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
+    flat = np.concatenate([np.asarray(w, dtype=np.uint16) for w in words]) if r else \
+        np.zeros(0, np.uint16)
+    steps = -(-int(n) // _LANES)
+    args = [torch.as_tensor(np.asarray(a), device=dev) for a in (
+        np.asarray(states, dtype=np.int64), np.asarray(freqs, dtype=np.int64),
+        flat.view(np.int16), off, cnt, np.full(r, int(n), dtype=np.int64))]
+    syms, _ = _rans.decode_rows(*args, _LANES, cols=steps * _LANES)
+    return syms[:, : int(n)].cpu().numpy()
 
 
 def compact_segments(brk, theta, psi_lo, psi_hi, fin_lo, fin_hi):

@@ -130,7 +130,7 @@ def _serve_model(args, dev: torch.device) -> int:
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg)
-    params = model.init(seed=0, device=dev)
+    params = model.init(0, device=dev)
     rng = np.random.default_rng(0)
     batcher = ContinuousBatcher(
         decode_fn=lambda t, c, i: model.decode_step(params, t, c, i),

@@ -31,10 +31,11 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 class Model:
     cfg: ModelConfig
 
-    def init(self, seed: int = 0, device=None) -> Params:
-        """Random params from a generator seeded with ``seed`` on ``device``
-        (the card unless ``device="cpu"``)."""
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    def init(self, key: int = 0, *, device=None) -> Params:
+        """Random params from a generator seeded with the int ``key`` on
+        ``device`` (the card unless ``device="cpu"``).  The reference takes
+        a JAX PRNG key in this place; the port takes its seed."""
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(int(key))
         return T.init_params(gen, self.cfg)
 
     def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:

@@ -88,7 +88,9 @@ def quantize_cache(cache: AttnCache, cfg: TensorCodecConfig = TensorCodecConfig(
     return QuantizedKV(k=ck, v=cv, kpos=cache.kpos)
 
 
-def dequantize_cache(q: QuantizedKV) -> AttnCache:
+def dequantize_cache(q: QuantizedKV, cfg: TensorCodecConfig = TensorCodecConfig()) -> AttnCache:
+    """The cache back in bf16.  ``cfg`` is the reference's argument; the
+    compressed tensors carry their block, so the port reads nothing from it."""
     return AttnCache(
         k=decompress_tensor(q.k).to(torch.bfloat16),
         v=decompress_tensor(q.v).to(torch.bfloat16),

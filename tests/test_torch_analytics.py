@@ -141,6 +141,66 @@ def test_engine_answers_stats_and_topk_equal(seed):
         assert port.segments(sid) == ref.segments(sid)
 
 
+@pytest.mark.parametrize("path", ["GOLDEN_SHRKS", "GOLDEN_RAGGED"])
+def test_engine_equal_on_the_streamed_golden_containers(path):
+    """Every op, resolution and comparison over every series of the
+    streamed golden containers: answers and stats equal the reference's."""
+    blob = getattr(golden, path).read_bytes()
+    ref = RefEngine(blob, cache_frames=3)
+    port = AnalyticsEngine(blob, cache_frames=3, device="cpu")
+    rng = np.random.default_rng(len(blob))
+    for sid in ref.series_ids:
+        lo, hi = ref.span(sid)
+        for i in range(24):
+            t0 = int(rng.integers(lo - 5, max(hi - 1, lo + 1)))
+            t1 = int(min(hi + 5, t0 + rng.integers(1, 1200)))
+            eps = [None, 1e-2, 1e-3, 0.0][i % 4]
+            if i % 3 == 2:
+                c = float(rng.normal())
+                args = ("count_where", sid, ["gt", "ge", "lt", "le"][i % 4], c, t0, t1)
+            else:
+                args = ("aggregate", sid, OPS[i % 6], t0, t1)
+            try:
+                want = _answer(getattr(ref, args[0])(*args[1:], eps=eps))
+            except ValueError as e:
+                want = type(e).__name__
+            try:
+                got = _answer(getattr(port, args[0])(*args[1:], eps=eps))
+            except ValueError as e:
+                got = type(e).__name__
+            assert got == want, (args, eps)
+    assert port.stats == ref.stats and port.batcher.stats == ref.batcher.stats
+
+
+def test_one_segment_step_a_query_step(monkeypatch):
+    """Each step of a planned query is one segment_query call over all the
+    frames it touches: an extremum or a sketch sum one, a stddev two, a
+    count_where one (before its refinements)."""
+    from repro_torch.kernels import ops
+
+    v, tiers, blob = _container(5, s=2, n=6000, frame_len=1024)
+    eng = AnalyticsEngine(blob, cache_frames=4, device="cpu")
+    calls, orig = [], ops.segment_query
+
+    def counting(tables, desc, mode, *args, **kwargs):
+        calls.append((mode, desc.shape[0]))
+        return orig(tables, desc, mode, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "segment_query", counting)
+    for op, want in (("min", ["aggregate"]), ("max", ["aggregate"]), ("sum", ["aggregate"]),
+                     ("mean", ["aggregate"]), ("stddev", ["aggregate", "central"]),
+                     ("count", [])):
+        calls.clear()
+        eng.aggregate(1, op, 100, 5900)
+        assert [c[0] for c in calls] == want and all(c[1] == 6 for c in calls), op
+    calls.clear()
+    eng.count_where(0, "gt", float(np.median(v[0])), 0, 6000)
+    assert calls == [("count", 6)]
+    calls.clear()
+    eng.aggregate(0, "sum", 0, 6000, eps=0.0)  # every frame refined: no segment step
+    assert calls == []
+
+
 def test_series_analytics_equal_on_a_random_walk():
     rng = np.random.default_rng(3)
     v = np.round(np.cumsum(rng.standard_normal(5000)) * 0.1, 4)

@@ -8,7 +8,8 @@ card machine without JAX), on rectangular and ragged batches; the tensor
 codec (its base fit too), the KV store, a streamed SHRKS container and the
 analytics engine on the card against the CPU; the flash-attention,
 interval-stats and ladder (pyramid quant and reconstruct) kernels against
-their plain versions, and the reduced dense model and its serve
+their plain versions, the fused segment query step against its plain
+version, and the reduced dense model and its serve
 launcher on the card against the CPU route.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -319,6 +320,26 @@ def test_base_fit_kernel_equals_plain(card, k):
                 assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a.cpu()), _bits(c))
 
 
+@pytest.mark.parametrize("k", [1, 7, 33, 59, 60, 63, 64, 66, 70, 72, 77, 128, 256, 520, 575, 576,
+                               876, 877, 1024])
+def test_base_fit_kernel_single_row_equals_plain(card, k):
+    """A [1, K] block takes the single-row order (XLA's vector dot) in the
+    kernel's M == 1 branch and in the plain version, on the card and off
+    (K = 1 divides 0 by 0: each device gives its own NaN bits)."""
+    g = torch.Generator(device="cuda").manual_seed(k)
+    for scale in (1.0, 1e-3, 1e4):
+        xb = torch.randn((1, k), device=card, generator=g) * scale
+        if scale == 1e4:
+            xb[0, ::3] = -0.0
+        before = ops.launches["base_fit"]
+        got = ops.base_fit(xb)
+        assert ops.launches["base_fit"] == before + 1
+        for a, b, c in zip(got, BF.base_fit_plain(xb), BF.base_fit_plain(xb.cpu())):
+            assert torch.equal(_bits(a), _bits(b))
+            a = a.cpu()
+            assert torch.equal(_bits(a), _bits(c)) or bool((a.isnan() & c.isnan()).all())
+
+
 def test_base_fit_kernel_refuses_blocks_over_1024(card):
     with pytest.raises(ValueError, match="1024"):
         ops.base_fit(torch.zeros((8, 1025), device=card))
@@ -460,6 +481,68 @@ def _fbits(a: torch.Tensor) -> torch.Tensor:
     return a.view(torch.int64 if a.dtype == torch.float64 else torch.int32)
 
 
+def _query_tables(card, seed: int, n_tables: int = 40):
+    """Seeded packed segment tables on the card: lengths 1..8192, zero,
+    signed-zero, negative and tiny slopes, signed-zero origins."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_tables):
+        k = int(rng.integers(1, 300))
+        lens = rng.choice([1, 1, 2, 3, 7, 64, 700, 8192], k)
+        t0s = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        thetas = np.round(rng.standard_normal(k) * 50, 3)
+        thetas[rng.random(k) < 0.05] = -0.0
+        slopes = rng.choice([0.0, -0.0, 1e-12, -1e-9, 0.25, -3.5, 0.01], k)
+        out.append((int(lens.sum()), SA.pack_table(*(torch.as_tensor(x, device=card) for x in (
+            t0s, lens, thetas, slopes)))))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["aggregate", "central", "count"])
+def test_segment_query_kernel_equals_plain(card, mode):
+    """10^4 random parts over 40 resident tables (empty, out-of-frame and
+    whole ranges included): the kernel's whole step bit-equal to the plain
+    version's, and the counts equal a dense comparison of the predictions."""
+    tables = _query_tables(card, 17)
+    rng = np.random.default_rng(18)
+    parts, desc, off = [], [], 0
+    for p in range(10_000):
+        n, tab = tables[int(rng.integers(0, len(tables)))]
+        t0 = int(rng.integers(-20, n + 5))
+        t1 = t0 + int(rng.integers(-3, 3000)) if p % 7 else n + 9
+        t0c, t1c = max(t0, 0), min(t1, n)
+        if t1c <= t0c:
+            t0c = t1c = 0
+        k = tab.shape[1]
+        f1, f2 = np.float64(rng.normal() * 40), np.float64(rng.normal() * 40)
+        desc.append([tab.data_ptr(), k, t0c, t1c, off, f1.view(np.int64), f2.view(np.int64), 0])
+        parts.append(tab)
+        off += min(k, t1c - t0c)
+    desc_t = torch.tensor(desc, dtype=torch.int64, device=card)
+    ops_ = ("gt", "ge", "lt", "le")
+    for op in (ops_ if mode == "count" else ("gt",)):
+        before = ops.launches["segment_query"]
+        got = ops.segment_query(parts, desc_t, mode, op, off)
+        assert ops.launches["segment_query"] == before + 1
+        want = SA.segment_query_plain(parts, desc_t, mode, op, off)
+        torch.cuda.synchronize()
+        g = SA.query_parts(got.cpu().numpy(), np.asarray(desc), mode, off)
+        w = SA.query_parts(want.cpu().numpy(), np.asarray(desc), mode, off)
+        for a, b in zip(g, w):
+            assert a[:4] == b[:4] and np.array_equal(a[4].view(np.int64), b[4].view(np.int64))
+        if mode == "count":
+            cmp = {"gt": np.greater, "ge": np.greater_equal, "lt": np.less,
+                   "le": np.less_equal}[op]
+            for row, tab, (i0, i1, c1, c2, _) in list(zip(desc, parts, g))[:300]:
+                t = tab.cpu()
+                t0s, lens = t[0].numpy(), t[1].numpy()
+                th, sl = t[2].view(torch.float64).numpy(), t[3].view(torch.float64).numpy()
+                pred = np.concatenate([th[j] + sl[j] * np.arange(lens[j], dtype=np.float64)
+                                       for j in range(len(t0s))])[row[2] : row[3]]
+                for c, cnt in ((row[5], c1), (row[6], c2)):
+                    assert cnt == int(cmp(pred, np.int64(c).view(np.float64)).sum())
+
+
 def test_streamed_container_and_analytics_on_card_equal_cpu(card):
     from repro_torch.analytics import AnalyticsEngine
     from repro_torch.launch import serve
@@ -484,7 +567,7 @@ def test_streamed_container_and_analytics_on_card_equal_cpu(card):
         assert res["failed"] == 0
         answers.append(([a.__dict__ for a in found], eng.stats))
         if dev == card:
-            assert ops.launches["segment_agg"] > 0 and ops.launches["rans_decode"] > 0
+            assert ops.launches["segment_query"] > 0 and ops.launches["rans_decode"] > 0
     assert blobs[0] == blobs[1]
     assert answers[0] == answers[1]
     for sid in range(4):
@@ -532,7 +615,7 @@ def test_dense_model_on_card_equals_cpu(card):
 
     cfg = reduced_config(ARCHS["llama3-8b"])
     m = build_model(cfg)
-    params = m.init(seed=0, device="cpu")
+    params = m.init(0, device="cpu")
     on_card = _to(params, card)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
     out = []

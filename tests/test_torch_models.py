@@ -321,7 +321,7 @@ def test_decode_caches_equal_reference_layout():
 def test_prefill_decode_shapes(arch):
     cfg = PC.reduced_config(PC.ARCHS[arch])
     m = build_model(cfg)
-    params = m.init(seed=2, device="cpu")
+    params = m.init(2, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
     logits, caches = m.prefill(params, {"tokens": toks})
     assert logits.shape == (2, 1, cfg.padded_vocab)
@@ -339,7 +339,7 @@ def test_incremental_decode_matches_full_forward(arch):
     prefill's last-position logits, at the reference test's bound."""
     cfg = PC.reduced_config(PC.ARCHS[arch])
     m = build_model(cfg)
-    params = m.init(seed=3, device="cpu")
+    params = m.init(3, device="cpu")
     b, s = 2, 12
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s)))
     full, _ = m.prefill(params, {"tokens": toks})
@@ -354,7 +354,7 @@ def test_incremental_decode_matches_full_forward(arch):
 def test_reduced_configs_are_small():
     for arch in DENSE:
         cfg = PC.reduced_config(PC.ARCHS[arch])
-        params = build_model(cfg).init(seed=0, device="cpu")
+        params = build_model(cfg).init(0, device="cpu")
         n = sum(t.numel() for t in _leaves(params))
         assert n < 5_000_000, f"{arch}: reduced config too big ({n})"
         ref_n = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(
@@ -375,7 +375,7 @@ def test_init_draws_the_reference_distributions():
     the reference's scales (normal with std 0.02 for the embeddings,
     fan_in**-0.5 for projections, norms 1)."""
     cfg = PC.reduced_config(PC.ARCHS["llama3-8b"])
-    params = build_model(cfg).init(seed=5, device="cpu")
+    params = build_model(cfg).init(5, device="cpu")
     ref = _np(ref_build(RC.reduced_config(RC.ARCHS["llama3-8b"])).init(jax.random.PRNGKey(5)))
 
     def walk(g, w):

@@ -1,14 +1,25 @@
 """Every public name of a reference package whose port is marked done
-exists in the port, and the names repaired here hold the reference's
-outputs bit for bit (float64 and int64, as the codec does).
+exists in the port, with the reference's public methods and parameters,
+and the names repaired here hold the reference's outputs bit for bit
+(float64 and int64, as the codec does).
 
 A package's public names are its ``__all__`` where it has one, else every
 name without a leading underscore that is not a submodule.  The waivers
 below are the only names allowed to be missing, each with the ROADMAP
 item that brings it.
+
+For every public function, and every public method (and ``__init__``) of
+every public class, the reference's parameters must open the port's, with
+the same names, kinds and positions, so a reference call binds the same
+arguments in the port; the port may add parameters with defaults after
+them.  Methods keep the reference's kind (function, property, static or
+class method).  Waived: the route switches the port's rules forbid
+(``force_ref``, ``route``, ``block_t``, ``use_kernel``) and the gaps that
+ROADMAP names as a later slice's, each with its item.
 """
 import dataclasses
 import importlib
+import inspect
 import types
 
 import numpy as np
@@ -39,6 +50,19 @@ WAIVERS = {
 }
 
 
+ROUTE_SWITCHES = {"force_ref", "route", "block_t", "use_kernel"}
+
+# (package, qualified name[, parameter]) -> the ROADMAP item that brings it
+LATER = {
+    ("core", "ShrinkStreamCodec.__init__", "inline_kb"):
+        "ROADMAP queue 1 item 2 (serving/kbstore.py with ShrinkStreamCodec's inline_kb)",
+    ("core", "ShrinkStreamCodec.__init__", "source"):
+        "ROADMAP queue 1 item 2 (serving/kbstore.py with ShrinkStreamCodec's source)",
+    ("models", "Model.init_shapes"): "ROADMAP queue 1 item 6 (launch tools: Model.init_shapes)",
+    ("models", "Model.input_specs"): "ROADMAP queue 1 item 6 (launch tools: Model.input_specs)",
+}
+
+
 def _public(mod) -> list[str]:
     names = getattr(mod, "__all__", None)
     if names is None:
@@ -56,6 +80,63 @@ def test_every_reference_name_exists_in_the_port(pkg):
     assert missing == []
     # a waiver names a name the reference has and the port still lacks
     assert all(n in _public(ref) and not hasattr(port, n) for n in waived)
+
+
+def _params(fn):
+    try:
+        return list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):  # a builtin without a signature
+        return None
+
+
+def _param_gaps(pkg: str, qual: str, ref_fn, port_fn) -> list[str]:
+    """Where a reference call of ``qual`` would not bind the same way in
+    the port: the reference's parameters (less the waived ones) must open
+    the port's, same names and kinds; the port's extra ones need defaults."""
+    ref, port = _params(ref_fn), _params(port_fn)
+    if ref is None or port is None:
+        return [] if ref == port else [f"{qual}: signature"]
+    ref = [p for p in ref if p.name not in ROUTE_SWITCHES and (pkg, qual, p.name) not in LATER]
+    head = [(p.name, p.kind) for p in port[: len(ref)]]
+    gaps = [] if head == [(p.name, p.kind) for p in ref] else [
+        f"{qual}: {[p.name for p in ref]} against {[p.name for p in port]}"]
+    for p in port[len(ref):]:
+        if p.default is p.empty and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            gaps.append(f"{qual}: the port's extra parameter {p.name} has no default")
+    return gaps
+
+
+def _methods(cls) -> list[str]:
+    return sorted(n for n in dir(cls) if not n.startswith("_")) + ["__init__"]
+
+
+@pytest.mark.parametrize("pkg", PORTED)
+def test_reference_methods_and_parameters_bind_the_same_in_the_port(pkg):
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    gaps = []
+    for name in _public(ref):
+        r, p = getattr(ref, name), getattr(port, name, None)
+        if p is None:
+            continue  # a waived name (test_every_reference_name_exists_in_the_port)
+        if not inspect.isclass(r):
+            if callable(r):
+                gaps += _param_gaps(pkg, name, r, p)
+            continue
+        for m in _methods(r):
+            qual = f"{name}.{m}"
+            if (pkg, qual) in LATER:
+                assert not hasattr(p, m), f"{qual} is waived but the port has it"
+                continue
+            if not hasattr(p, m):
+                gaps.append(f"{qual}: missing")
+                continue
+            rk, pk = type(inspect.getattr_static(r, m)), type(inspect.getattr_static(p, m))
+            if rk is not pk:
+                gaps.append(f"{qual}: a {rk.__name__} in the reference, a {pk.__name__} here")
+            elif callable(getattr(r, m)) and not inspect.isclass(getattr(r, m)):
+                gaps += _param_gaps(pkg, qual, getattr(r, m), getattr(p, m))
+    assert gaps == []
 
 
 def test_ops_under_the_reference_names():

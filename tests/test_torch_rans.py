@@ -197,7 +197,7 @@ def test_corrupt_table_and_short_words_raise():
 def test_wrappers_take_plain_versions_on_cpu():
     sym, freqs, lens = _rows([(130, 9)])
     before = dict(ops.launches)
-    ops.rans_encode_rows(torch.as_tensor(sym).to(torch.int16), torch.as_tensor(freqs), 64)
+    rans.encode_rows(torch.as_tensor(sym).to(torch.int16), torch.as_tensor(freqs), 64)
     assert dict(ops.launches) == before
 
 
@@ -225,13 +225,13 @@ def test_decode_ints_batch_mixed_lanes_planes_and_empty(monkeypatch):
     blob, with one decoder launch per lane count (the empty stream has
     k = 1)."""
     blobs = _mixed_blobs()
-    lanes, orig = [], ops.rans_decode_rows
+    lanes, orig = [], rans.decode_rows
 
     def counting(*args, **kwargs):
         lanes.append(args[6])
         return orig(*args, **kwargs)
 
-    monkeypatch.setattr(ops, "rans_decode_rows", counting)
+    monkeypatch.setattr(rans, "decode_rows", counting)
     got = entropy.decode_ints_batch(blobs, device="cpu")
     assert sorted(lanes) == sorted({b[18] for b in blobs if b[0] == 3})
     assert len(got) == len(blobs)

@@ -127,7 +127,7 @@ def _bases():
 def test_segment_algebra_equals_the_reference():
     for v, rbase, pbase in _bases():
         rt, pt = RA.segment_table(rbase), PA.segment_table(pbase, "cpu")
-        assert np.array_equal(pt.t0s.numpy(), rt.t0s) and np.array_equal(pt.ends.numpy(), rt.ends())
+        assert np.array_equal(pt.t0s.numpy(), rt.t0s) and np.array_equal(pt.ends().numpy(), rt.ends())
         n = v.size
         for t0, t1 in ((0, n), (7, 19), (n // 3, n - 5), (n - 1, n), (4, 4), (-9, n + 50)):
             assert dataclasses.astuple(PA.base_aggregate(pt, t0, t1)) == \
@@ -157,10 +157,141 @@ def test_zero_extremes_take_numpys_sign():
     slopes = np.array([-0.0, 0.0, 0.0, -0.0])
     ref = RA.SegmentTable(n=4, t0s=t0s, lens=lens, thetas=thetas, slopes=slopes)
     port = PA.SegmentTable(n=4, t0s=torch.from_numpy(t0s), lens=torch.from_numpy(lens),
-                           thetas=torch.from_numpy(thetas), slopes=torch.from_numpy(slopes),
-                           ends=torch.from_numpy(t0s + lens))
+                           thetas=torch.from_numpy(thetas), slopes=torch.from_numpy(slopes))
     for t0, t1 in ((0, 4), (0, 2), (1, 4), (1, 3)):
         want, got = RA.base_aggregate(ref, t0, t1), PA.base_aggregate(port, t0, t1)
         assert np.signbit([got.vmin, got.vmax]).tolist() == \
             np.signbit([want.vmin, want.vmax]).tolist(), (t0, t1)
         assert dataclasses.astuple(got) == dataclasses.astuple(want)
+
+
+# ------------------------------------------------ the fused query step
+def _table_pair(seed: int, k: int = 48):
+    """A seeded segment table (reference, port): lengths from 1 to 8192
+    (one-sample segments included), zero, signed-zero, negative and tiny
+    slopes, and signed-zero origins."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([1, 1, 2, 3, 5, 8, 64, 700, 8192], k).astype(np.int64)
+    lens[:3] = [1, 8192, 1]
+    t0s = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    thetas = np.round(rng.standard_normal(k) * 50, 3)
+    slopes = rng.choice([0.0, -0.0, 1e-12, -1e-9, 0.25, -3.5, 0.01, -0.02], k)
+    thetas[3:7], slopes[3:7] = [-0.0, 0.0, -0.0, 0.0], [-0.0, 0.0, 0.0, -0.0]
+    n = int(lens.sum())
+    ref = RA.SegmentTable(n=n, t0s=t0s, lens=lens, thetas=thetas, slopes=slopes)
+    port = PA.SegmentTable(n=n, t0s=torch.from_numpy(t0s), lens=torch.from_numpy(lens),
+                           thetas=torch.from_numpy(thetas), slopes=torch.from_numpy(slopes))
+    return ref, port
+
+
+def _ranges(n: int, rng) -> list[tuple[int, int]]:
+    """Whole, inner, one-sample, empty and out-of-frame ranges of [0, n)."""
+    out = [(0, n), (-50, n + 50), (3, 4), (7, 7), (9, 2), (n, n + 9), (-9, 0), (-5, 3),
+           (n - 1, n + 100)]
+    for _ in range(12):
+        a = int(rng.integers(-20, n))
+        out.append((a, a + int(rng.integers(0, 20000))))
+    return out
+
+
+def _f64_bits(x: float) -> int:
+    return int(np.float64(x).view(np.int64))
+
+
+def _stats_bits(st) -> tuple:
+    return (st.m, *(_f64_bits(x) for x in (st.total, st.sumsq, st.vmin, st.vmax)))
+
+
+def _counting(monkeypatch) -> list:
+    """Wrap ``ops.segment_query``; returns the list of its calls' modes."""
+    calls, orig = [], ops.segment_query
+
+    def counting(tables, desc, mode, *args, **kwargs):
+        calls.append(mode)
+        return orig(tables, desc, mode, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "segment_query", counting)
+    return calls
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_step_equals_reference_functions(seed, monkeypatch):
+    """aggregate_parts, central_m2_parts and count_parts over many parts of
+    three tables, one query step each, bit-identical to the reference's
+    base_aggregate, base_central_m2 and count_cmp per part."""
+    rng = np.random.default_rng(seed + 100)
+    pairs = [_table_pair(seed * 3 + i) for i in range(3)]
+    parts_r, parts_p = [], []
+    for rt, pt in pairs:
+        for t0, t1 in _ranges(rt.n, rng):
+            parts_r.append((rt, t0, t1))
+            parts_p.append((pt, t0, t1))
+    calls = _counting(monkeypatch)
+    got = PA.aggregate_parts(parts_p)
+    want = [RA.base_aggregate(*p) for p in parts_r]
+    assert [_stats_bits(s) for s in got] == [_stats_bits(s) for s in want]
+    mus = [float(rng.normal() * 30) for _ in parts_p]
+    got = PA.central_m2_parts(parts_p, mus)
+    assert [_f64_bits(x) for x in got] == [
+        _f64_bits(RA.base_central_m2(*p, mu)) for p, mu in zip(parts_r, mus)]
+    # thresholds: random, and exactly equal to a prediction of the part
+    preds = [RA.base_aggregate(*p) for p in parts_r]
+    c1 = [s.vmin if s.m and i % 2 else float(rng.normal() * 40) for i, s in enumerate(preds)]
+    c2 = [s.vmax if s.m and i % 3 else float(rng.normal() * 40) for i, s in enumerate(preds)]
+    for op in ("gt", "ge", "lt", "le"):
+        got = PA.count_parts(parts_p, op, c1, c2)
+        assert got == [(RA.count_cmp(*p, op, a), RA.count_cmp(*p, op, b))
+                       for p, a, b in zip(parts_r, c1, c2)]
+    assert calls == ["aggregate", "central", "count", "count", "count", "count"]
+    with pytest.raises(ValueError, match="unknown comparison"):
+        PA.count_parts(parts_p, "eq", c1, c2)
+
+
+def test_fused_counts_equal_the_dense_count():
+    """The fixed-step bisection's counts equal a dense comparison of the
+    float predictions, thresholds on a prediction included."""
+    rt, pt = _table_pair(7)
+    pred = np.concatenate([th + sl * np.arange(ln, dtype=np.float64)
+                           for th, sl, ln in zip(rt.thetas, rt.slopes, rt.lens)])
+    rng = np.random.default_rng(8)
+    ranges = [(0, rt.n), (100, 9000), (8193, 8194), (5, 5)]
+    cs = [float(pred[i]) for i in rng.integers(0, rt.n, 6)] + [0.0, -0.0, 1e9]
+    for op, cmp in (("gt", np.greater), ("ge", np.greater_equal), ("lt", np.less),
+                    ("le", np.less_equal)):
+        for c in cs:
+            got = PA.count_parts([(pt, a, b) for a, b in ranges], op, [c] * 4, [c] * 4)
+            want = [int(cmp(pred[max(a, 0):b], c).sum()) for a, b in ranges]
+            assert [g[0] for g in got] == want and [g[1] for g in got] == want
+
+
+def test_reference_functions_are_one_step_each(monkeypatch):
+    rt, pt = _table_pair(3)
+    calls = _counting(monkeypatch)
+    PA.base_aggregate(pt, 2, 9000)
+    PA.base_central_m2(pt, 2, 9000, 1.5)
+    PA.count_cmp(pt, 2, 9000, "le", 0.5)
+    PA.base_aggregate_with_m2(pt, 2, 9000)
+    assert calls == ["aggregate", "central", "count", "aggregate", "central"]
+    stats, m2 = PA.base_aggregate_with_m2(pt, 2, 9000)
+    want_stats, want_m2 = RA.base_aggregate_with_m2(rt, 2, 9000)
+    assert (_stats_bits(stats), _f64_bits(m2)) == (_stats_bits(want_stats), _f64_bits(want_m2))
+    assert PA.aggregate_parts([]) == [] and PA.count_parts([], "gt", [], []) == []
+
+
+def test_plain_query_buffer_layout():
+    """The step's buffer: a header (i0, i1, counts) a part, then the rows
+    of each part from its row offset; ``query_parts`` reads it back."""
+    rt, pt = _table_pair(4, k=8)
+    tabs = [pt._packed, pt._packed]
+    desc = torch.zeros((2, SA.DESC_WORDS), dtype=torch.int64)
+    desc[0, 1:5] = torch.tensor([8, 0, 3, 0])
+    desc[1, 1:5] = torch.tensor([8, 1, rt.n, 3])
+    out = SA.segment_query(tabs, desc, "aggregate", "gt", 3 + 8)
+    parts = SA.query_parts(out.numpy(), desc.numpy(), "aggregate", 11)
+    for (t0, t1), (i0, i1, _, _, rows) in zip(((0, 3), (1, rt.n)), parts):
+        idx, a, b = rt.overlap(t0, t1)
+        assert (i0, i1) == (idx[0], idx[-1] + 1) and rows.shape == (4, idx.size)
+        want = _reference_rows(rt.thetas[idx], rt.slopes[idx], a, b)
+        assert all(np.array_equal(_bits(g), _bits(w)) for g, w in zip(rows, want))
+    with pytest.raises(ValueError, match="mode"):
+        SA.segment_query(tabs, desc, "sum", "gt", 11)

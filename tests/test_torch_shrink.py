@@ -33,7 +33,7 @@ from repro_torch import serving as P_serving
 from repro_torch.core import base as port_base
 from repro_torch.core import residuals as port_res
 from repro_torch.core.errors import ConfigError
-from repro_torch.kernels import ops
+from repro_torch.kernels import rans
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 # the fixture constants of tests/golden/regen.py
@@ -257,7 +257,7 @@ def test_decoder_types_corrupt_payloads_and_passes_kernel_errors(monkeypatch):
     def failed_launch(*args, **kwargs):
         raise RuntimeError("CUDA kernel rans_decode failed to launch: cudaError 209")
 
-    monkeypatch.setattr(ops, "rans_decode_rows", failed_launch)
+    monkeypatch.setattr(rans, "decode_rows", failed_launch)
     with pytest.raises(RuntimeError, match="failed to launch") as info:
         P.ProgressiveDecoder(cs, "cpu").prefix(len(TIERS) - 1)
     assert not isinstance(info.value, P.ShrinkError)
@@ -275,15 +275,15 @@ def _pyramid_blob() -> bytes:
 
 
 def _count_decode_launches(monkeypatch) -> list[int]:
-    """Wrap ``ops.rans_decode_rows``; returns the list of lane counts of its
-    calls."""
-    lanes, orig = [], ops.rans_decode_rows
+    """Wrap ``kernels.rans.decode_rows``, the codec's row decoder; returns the
+    list of lane counts of its calls."""
+    lanes, orig = [], rans.decode_rows
 
     def counting(*args, **kwargs):
         lanes.append(args[6])
         return orig(*args, **kwargs)
 
-    monkeypatch.setattr(ops, "rans_decode_rows", counting)
+    monkeypatch.setattr(rans, "decode_rows", counting)
     return lanes
 
 
