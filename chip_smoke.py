@@ -121,6 +121,25 @@ result line):
    (``PERF.md``, section 6) printed beside the new ones; both
    ``interval_stats`` and ``aminmax`` are also timed as one CUDA graph of
    20 calls (``graph_ms``), which keeps the host's launch overhead out.
+11. the serving tier, through the port's entry points: ragged gateway
+   ingest of ``ragged_sensor_traffic(256, 1000, seed=0)`` (rates
+   log-uniform over 2..512 samples a tick; its generation timed apart)
+   through one ``RaggedBatcher`` on the card (eps_b 0.4, eps 8e-3, rANS,
+   4 buckets, flushes of 2**21 samples): every series read back in 4
+   range queries within eps, and the first 50 ticks of 32 sensors give
+   the same container on the CPU route; a ``KBStore`` of those 32
+   series, one ref-mode archive each, written on the card and on the CPU
+   route (the same archives and SHKS snapshot bytes), then ``serve --mode
+   kbstore`` at its defaults on the card; ``serve --mode chaos`` at its
+   defaults on the card and the CPU route (no silent corruption; the
+   container and the tallies of phases 1 and 3 equal, phase 2 runs on the
+   real clock); ``run_fleet_sim`` with 4 shards, 256 series, 480 ticks,
+   768 queries, frames of 2048 on the card (no silent corruption, no byte
+   mismatch against the 1-shard oracle, the shard-kill tail typed or
+   flagged; p50/p99 latencies and the reference's critical-path model,
+   the shards sharing the one card).  ``cone_scan``, ``rans_encode``,
+   ``rans_decode`` and ``segment_query`` must each launch inside the
+   phase; their rows carry ``launches_serving_tier``.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -209,6 +228,17 @@ INTERVAL_PREV_MS = {
     "float32": {"one element a thread, run A": 0.05397, "run B": 0.05360},
     "bfloat16": {"one element a thread, run A": 0.07621, "run B": 0.08508},
 }
+# phase 11: the serving tier (ragged ingest, KB store, chaos, fleet)
+SERVE_SENSORS, SERVE_TICKS = 256, 1000  # ragged_sensor_traffic's size
+SERVE_CONFIG = {"eps_b": 0.4, "lam": 1e-4}  # the ingest and fleet launchers' codec
+SERVE_EPS = 8e-3  # the ingest and fleet launchers' eps (8 x 1e-3)
+SERVE_FLUSH = 1 << 21  # samples a ragged flush at the gateway's scale
+SERVE_BUCKETS = 4
+SERVE_CUT = (50, 32)  # ticks, sensors of the CPU route's byte check
+SERVE_RANGES = 4  # range reads a series in the decode check
+FLEET_SHARDS, FLEET_SERIES, FLEET_QUERIES, FLEET_FLUSH = 4, 256, 768, 2048
+FLEET_TICKS = 480
+SERVING_KERNELS = ("cone_scan", "rans_encode", "rans_decode", "segment_query")
 
 
 def fail(msg: str) -> None:
@@ -1611,17 +1641,24 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
     return stats, row
 
 
+def run_main(serve, argv: list[str]) -> str:
+    """``serve.main(argv)``, which must exit 0; returns what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    out = buf.getvalue().strip()
+    print(out, flush=True)
+    check(rc == 0, f"serve {' '.join(argv)} exited {rc}")
+    return out
+
+
 def serve_model_path(serve, arch: str) -> dict:
     """``serve --mode model --arch <arch>`` at the launcher's defaults,
     through its ``main``; its report line is parsed."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--mode", "model", "--arch", arch])
-    out = buf.getvalue().strip()
-    print(out, flush=True)
+    out = run_main(serve, ["--mode", "model", "--arch", arch])
     got = re.search(r"served (\d+) requests, (\d+) tokens, ([\d.]+)s \(([\d.]+) tok/s\), "
                     r"failed=(\d+)", out)
-    check(rc == 0 and got is not None and int(got.group(5)) == 0, f"serve --mode model: {out}")
+    check(got is not None and int(got.group(5)) == 0, f"serve --mode model: {out}")
     check(int(got.group(1)) == SERVE_REQUESTS, f"serve --mode model served {got.group(1)}")
     return {"requests": int(got.group(1)), "tokens": int(got.group(2)),
             "seconds": float(got.group(3)), "tokens_per_s": float(got.group(4))}
@@ -1650,6 +1687,178 @@ def check_golden(P, dev) -> list[str]:
         check(P.cs_to_bytes(codec.compress(v, tiers, decimals=GOLDEN_DECIMALS)) == blob,
               f"{name}: compress on the card differs from the fixture")
     return sorted(cases)
+
+
+def launch_delta(ops, before: dict) -> dict:
+    return {k: ops.launches[k] - before[k] for k in SERVING_KERNELS}
+
+
+def serving_ingest(P, ops, serve, dev) -> tuple[dict, list]:
+    """Ragged gateway ingest at a gateway's scale: ``ragged_sensor_traffic``
+    through one ``RaggedBatcher`` on the card, every series read back in
+    ``SERVE_RANGES`` range queries within eps, and the CPU route's bytes
+    on a cut of the traffic.  Returns the stats and the cut's series."""
+    from repro_torch.data.synthetic import ragged_sensor_traffic
+    from repro_torch.serving import RaggedBatcher, RangeQuery, RangeQueryBatcher
+
+    t = time.perf_counter()
+    traffic = ragged_sensor_traffic(SERVE_SENSORS, SERVE_TICKS, seed=0)
+    gen_s = time.perf_counter() - t
+
+    def batcher(device):
+        return RaggedBatcher(P.ShrinkConfig(**SERVE_CONFIG), eps_targets=[SERVE_EPS], backend="rans",
+                             flush_samples=SERVE_FLUSH, max_buckets=SERVE_BUCKETS,
+                             device=device)
+
+    b = batcher(dev)
+    l0 = dict(ops.launches)
+    (blob, history), ingest_s = sync_time(lambda: serve.ragged_ingest(b, traffic))
+    ingest_launches = launch_delta(ops, l0)
+    for name in ("cone_scan", "rans_encode"):
+        check(ingest_launches[name] > 0, f"kernel {name} was not launched by the ragged ingest")
+    st = b.stats()
+    n = st["samples_ingested"]
+    stats = {"sensors": SERVE_SENSORS, "ticks": SERVE_TICKS, "samples": n,
+             "traffic_gen_s": gen_s, "ingest_s": ingest_s, "samples_per_s": n / ingest_s,
+             "frames": st["frames"], "flushes": st["flushes"], "container_bytes": len(blob),
+             "compression_ratio": P.BYTES_PER_ROW * n / len(blob),
+             "kb_entries": st["kb"]["entries"], "backends": st["backends"],
+             "launches": ingest_launches}
+    del traffic
+    # every series read back within eps: a few range queries a series,
+    # each answer read back once
+    rq = RangeQueryBatcher(blob, cache_frames=64, device=dev)
+    full = {sid: np.concatenate(chunks) for sid, chunks in history.items()}
+    for sid, v in full.items():
+        edges = np.linspace(0, v.size, SERVE_RANGES + 1).astype(np.int64)
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            if hi > lo:
+                rq.submit(RangeQuery(qid=sid, series_id=sid, t0=int(lo), t1=int(hi),
+                                     eps=SERVE_EPS))
+    l0 = dict(ops.launches)
+    done, decode_s = sync_time(rq.run)
+    worst = 0.0
+    for q in done:
+        check(q.error is None, f"ingest decode check: series {q.series_id}: {q.error}")
+        err = float(np.abs(q.result.cpu().numpy() - full[q.series_id][q.t0 : q.t1]).max())
+        worst = max(worst, err)
+    check(worst <= SERVE_EPS * (1 + 1e-9), f"ingest decode check: error {worst} > {SERVE_EPS}")
+    check(sum(q.t1 - q.t0 for q in done) == n, "ingest decode check did not cover every sample")
+    stats.update(decode_queries=len(done), decode_s=decode_s, decode_max_abs_err=worst,
+                 decode_launches=launch_delta(ops, l0))
+    del rq, full, history
+    # the CPU route's bytes on a cut of the traffic
+    ticks_cut, sensors_cut = SERVE_CUT
+    cut = [[(s, c) for s, c in tick if s < sensors_cut]
+           for tick in ragged_sensor_traffic(SERVE_SENSORS, ticks_cut, seed=0)]
+    card_cut, cut_history = serve.ragged_ingest(batcher(dev), cut)
+    cpu_cut, _ = serve.ragged_ingest(batcher("cpu"), cut)
+    check(card_cut == cpu_cut, "ragged ingest: the CPU route's container differs from the card's")
+    stats["cpu_route_cut"] = {"ticks": ticks_cut, "sensors": sensors_cut,
+                              "samples": sum(c.size for tick in cut for _, c in tick),
+                              "container_bytes": len(card_cut)}
+    archives = [(sid, np.concatenate(cut_history[sid])) for sid in sorted(cut_history)]
+    return stats, archives
+
+
+def kb_store_archives(P, archives, device) -> tuple[list[bytes], list[bytes]]:
+    """One ref-mode SHRKS archive a series, written on ``device`` against
+    one ``KBStore``; returns the archives and the store's SHKS snapshots
+    (``snapshot_to_bytes``), after each archive's ref is resolved."""
+    from repro_torch.serving import KBStore, resolve_container_kb
+
+    store = KBStore(P.ShrinkConfig(**SERVE_CONFIG))
+    blobs = []
+    for sid, v in archives:
+        sc = P.ShrinkStreamCodec(P.ShrinkConfig(**SERVE_CONFIG), [SERVE_EPS], backend="rans", kb_store=store,
+                                 source=f"sensor{sid}", device=device)
+        sc.ingest(v, series_id=sid)
+        blobs.append(sc.finalize())
+    for blob in blobs:
+        check(resolve_container_kb(blob, store)[1] == "store",
+              "KB store: an archive's snapshot ref did not resolve")
+    return blobs, [snap.blob for snap in store.snapshots]
+
+
+def serving_kbstore(P, ops, serve, archives, dev) -> dict:
+    """The smoke's own ``KBStore`` over the ingest cut's series, written on
+    the card and on the CPU route: the archives and the snapshot bytes
+    must be equal.  Then ``serve --mode kbstore`` at its defaults on the
+    card, which must exit 0 with no mismatch."""
+    l0 = dict(ops.launches)
+    (card_blobs, card_snaps), card_s = sync_time(lambda: kb_store_archives(P, archives, dev))
+    launches = launch_delta(ops, l0)
+    cpu_blobs, cpu_snaps = kb_store_archives(P, archives, "cpu")
+    check(card_blobs == cpu_blobs and card_snaps == cpu_snaps,
+          "KB store: the CPU route's archives or snapshots differ from the card's")
+    out, serve_s = sync_time(lambda: run_main(serve, ["--mode", "kbstore"]))
+    check("mismatches: 0" in out, "serve --mode kbstore reported mismatches")
+    return {"archives": len(card_blobs), "archive_bytes": sum(map(len, card_blobs)),
+            "snapshots": len(card_snaps), "last_snapshot_bytes": len(card_snaps[-1]),
+            "card_s": card_s, "launches": launches, "serve_kbstore_s": serve_s}
+
+
+CHAOS_SAME = re.compile(r"^(pristine|phase 1|phase 3)")
+
+
+def serving_chaos(ops, serve) -> dict:
+    """``serve --mode chaos`` at its defaults on the card: no silent
+    corruption; the container and the tallies of phases 1 and 3 equal the
+    CPU route's (phase 2 runs on the real clock)."""
+    outs, secs = [], []
+    l0 = dict(ops.launches)
+    for argv in (["--mode", "chaos"], ["--mode", "chaos", "--device", "cpu"]):
+        out, s = sync_time(lambda: run_main(serve, argv))
+        outs.append([re.sub(r" in [\d.]+s", "", ln) for ln in out.splitlines()
+                     if CHAOS_SAME.match(ln)])
+        secs.append(s)
+        check("silent corruptions: 0" in out, f"serve {' '.join(argv)}: silent corruption")
+    check(len(outs[0]) == 3 and outs[0] == outs[1],
+          "serve --mode chaos: the CPU route's tallies of phases 1 and 3 differ from the card's")
+    return {"card_s": secs[0], "cpu_route_s": secs[1], "tallies": outs[0][1:],
+            "launches": launch_delta(ops, l0)}
+
+
+def serving_fleet(ops, serve, seed: int, dev) -> dict:
+    """``run_fleet_sim`` with 4 shards on the card: no silent corruption,
+    no cross-shard byte mismatch against the 1-shard oracle, the shard-kill
+    tail typed or flagged."""
+    l0 = dict(ops.launches)
+    r = serve.run_fleet_sim(n_shards=FLEET_SHARDS, series=FLEET_SERIES, ticks=FLEET_TICKS,
+                            queries=FLEET_QUERIES, flush_samples=FLEET_FLUSH, seed=seed,
+                            device=dev)
+    r["launches"] = launch_delta(ops, l0)
+    check(r["silent"] == 0, f"fleet: {r['silent']} silent corruptions")
+    check(r["byte_mismatch"] == 0, f"fleet: {r['byte_mismatch']} cross-shard byte mismatches")
+    kill = r["kill"]
+    check(kill["fault"] != ""
+          and kill["ok"] + kill["degraded"] + kill["error"] == min(FLEET_QUERIES, 64),
+          f"fleet: the shard-kill tail did not run: {kill}")
+    for name in ("rans_decode", "segment_query"):
+        check(r["launches"][name] > 0, f"kernel {name} was not launched by the fleet's queries")
+    return r
+
+
+def serving_path(P, ops, serve, seed: int, dev) -> dict:
+    """Phase 11: the serving tier through the port's entry points; each of
+    ``SERVING_KERNELS`` must launch inside it."""
+    ops.reset_launches()
+    (ingest, archives), phase_s = sync_time(lambda: serving_ingest(P, ops, serve, dev))
+    out = {"ingest": {**ingest, "phase_s": phase_s}}
+    print("serving ingest: " + json.dumps(out["ingest"]), flush=True)
+    for part, job in (
+        ("kbstore", lambda: serving_kbstore(P, ops, serve, archives, dev)),
+        ("chaos", lambda: serving_chaos(ops, serve)),
+        ("fleet", lambda: serving_fleet(ops, serve, seed, dev)),
+    ):
+        out[part], phase_s = sync_time(job)
+        out[part]["phase_s"] = phase_s
+        print(f"serving {part}: " + json.dumps(out[part]), flush=True)
+        torch.cuda.empty_cache()
+    out["launches"] = {k: ops.launches[k] for k in SERVING_KERNELS}
+    for name, n in out["launches"].items():
+        check(n > 0, f"kernel {name} was not launched in the serving tier's phase")
+    return out
 
 
 def main() -> None:
@@ -1777,6 +1986,15 @@ def main() -> None:
     surf["phase_s"] = phase_s
     rows += surf_rows
     print("kernel surface: " + json.dumps(surf), flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 11: the serving tier (ragged ingest, KB store, chaos, fleet)
+    serving, phase_s = sync_time(lambda: serving_path(P, ops, serve, args.seed, dev))
+    print(f"serving tier: {phase_s:.3f} s, launches " + json.dumps(serving["launches"]),
+          flush=True)
+    for row in rows:
+        if row["name"] in SERVING_KERNELS:
+            row["launches_serving_tier"] = serving["launches"][row["name"]]
     torch.cuda.empty_cache()
 
     if args.trace is not None:

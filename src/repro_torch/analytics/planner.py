@@ -94,7 +94,7 @@ class AnalyticsEngine:
     frame-decoder LRU (and its device), so a dashboard mixing range
     decodes and aggregates pays each pyramid layer at most once.  Built
     from bytes, the engine makes its own batcher on ``device`` (default
-    the card); ``kb_store`` is forwarded to it (only ``None`` so far).
+    the card); ``kb_store`` is forwarded to it.
     """
 
     def __init__(

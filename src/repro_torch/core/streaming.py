@@ -388,9 +388,14 @@ class ShrinkStreamCodec:
     n_hint:       pins the interval length L (Alg. 2); defaults to
                   ``frame_len``.  Both unset forces the deferred scan.
     kb:           share a KnowledgeBase across codecs; default fresh.
-    kb_store:     only ``None``: the port has no KB store yet (ROADMAP
-                  queue 1 item 8, KBStore), so the footer always carries
-                  the knowledge base inline.
+    kb_store:     a ``serving.kbstore.KBStore`` to attach the finalized
+                  container's KB to; the footer then carries a
+                  ``kb_snapshot_ref`` into the store and, unless
+                  ``inline_kb=True``, no inline KB.
+    inline_kb:    force the inline footer KB on or off; default ``None``
+                  = inline exactly when no ``kb_store`` is attached.
+    source:       stable attach handle for ``kb_store`` (default a
+                  store-assigned handle).
     device:       where frames are encoded (default the card).
 
     ``ingest`` returns the frames sealed during the call (as
@@ -408,17 +413,20 @@ class ShrinkStreamCodec:
         frame_len: int | None = None,
         n_hint: int | None = None,
         kb: KnowledgeBase | None = None,
-        kb_store=None,
+        kb_store=None,  # serving.kbstore.KBStore (duck-typed: core does not import serving)
+        inline_kb: bool | None = None,
+        source: str | None = None,
         device: torch.device | str | None = None,
     ):
-        if kb_store is not None:
-            raise NotImplementedError(
-                "kb_store: the port has no KB store yet (ROADMAP queue 1 item 8, KBStore)"
-            )
         if 0.0 in eps_targets and decimals is None:
             raise ConfigError("lossless eps target 0.0 requires `decimals`")
         if frame_len is not None and frame_len < 1:
             raise ConfigError(f"frame_len must be >= 1, got {frame_len}")
+        if inline_kb is False and kb_store is None:
+            raise ConfigError(
+                "inline_kb=False requires a kb_store (a container with "
+                "neither an inline KB nor a snapshot ref loses its dictionary)"
+            )
         self.config = config
         self.eps_targets = list(eps_targets)
         self.decimals = decimals
@@ -430,6 +438,10 @@ class ShrinkStreamCodec:
         self.frame_len = frame_len
         self.n_hint = int(n_hint) if n_hint is not None else None
         self.kb = kb if kb is not None else KnowledgeBase(config)
+        self.kb_store = kb_store
+        self.inline_kb = inline_kb
+        self._store_source = source
+        self._store_handle: str | None = None
         n_for_l = self.n_hint if self.n_hint is not None else frame_len
         self.incremental = self.value_range is not None and n_for_l is not None
         if self.incremental:
@@ -487,12 +499,28 @@ class ShrinkStreamCodec:
 
     def finalize(self) -> bytes:
         """Flush everything and emit the SHRKS framed container (frames in
-        seal order, the knowledge base inline in the footer)."""
+        seal order, the knowledge base in the footer).  With a
+        ``kb_store`` the KB is attached to the store instead and the
+        footer carries a ``kb_snapshot_ref`` (and the inline KB only when
+        ``inline_kb=True``); the container is registered with the store
+        for compaction re-basing."""
         self.flush()
         w = FramedWriter()
         for sid, t_lo, t_hi, epoch, payload in self._sealed:
             w.add_frame(sid, t_lo, t_hi, epoch, payload)
-        return w.finish(self.kb.to_bytes())
+        ref = None
+        if self.kb_store is not None:
+            # a stable handle makes a re-finalize a replace, not a double count
+            rec = self.kb_store.attach_kb(
+                self.kb, source=self._store_handle or self._store_source
+            )
+            self._store_handle = rec.handle
+            ref = rec.ref
+        inline = self.inline_kb if self.inline_kb is not None else self.kb_store is None
+        blob = w.finish(self.kb.to_bytes() if inline else b"", snapshot_ref=ref)
+        if self.kb_store is not None:
+            self.kb_store.register_container(self._store_handle, blob)
+        return blob
 
     @property
     def sealed_frames(self) -> list[tuple[int, int, int, int]]:

@@ -32,6 +32,7 @@ from ..core.errors import (
 )
 from ..core.serialize import frame_payload, parse_framed_container, read_snapshot_ref
 from ..core.shrink import ProgressiveDecoder, cs_from_bytes
+from .kbstore import resolve_container_kb
 
 __all__ = ["ContinuousBatcher", "RangeQuery", "RangeQueryBatcher", "Request"]
 
@@ -158,8 +159,10 @@ class RangeQueryBatcher:
     layer from the finest intact prefix (``q.degraded``, ``q.achieved``
     the bound delivered), and a frame whose residual section is unusable
     but whose header/base CRC holds from its base; a frame that cannot
-    prove its base still errors.  ``kb_store`` is only ``None``: the port
-    has no KB store yet (ROADMAP queue 1 item 8, KBStore).
+    prove its base still errors.  With a ``kb_store`` the container's
+    ``kb_snapshot_ref`` is resolved through it before serving: a stale ref
+    falls back to the inline footer KB or raises a typed
+    ``StaleSnapshotError``, never binds to a wrong dictionary.
     """
 
     def __init__(
@@ -167,13 +170,9 @@ class RangeQueryBatcher:
         blob: bytes,
         cache_frames: int = 32,
         degraded_ok: bool = False,
-        kb_store=None,
+        kb_store=None,  # serving.kbstore.KBStore
         device: torch.device | str | None = None,
     ):
-        if kb_store is not None:
-            raise NotImplementedError(
-                "kb_store: the port has no KB store yet (ROADMAP queue 1 item 8, KBStore)"
-            )
         self.degraded_ok = bool(degraded_ok)
         self.device = resolve_device(device)
         self._blob = bytes(blob)
@@ -187,7 +186,9 @@ class RangeQueryBatcher:
         self._cache_frames = cache_frames
         self.queue: deque[RangeQuery] = deque()
         self.completed: list[RangeQuery] = []
-        if kb_bytes:
+        if kb_store is not None:
+            _, kb_source = resolve_container_kb(self._blob, kb_store)
+        elif kb_bytes:
             kb_source = "inline"
         else:
             kb_source = "ref-unresolved" if read_snapshot_ref(self._blob) else "none"

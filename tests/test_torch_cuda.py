@@ -649,3 +649,87 @@ def test_serve_model_on_card(card, capsys):
 
     assert serve.main(["--mode", "model", "--arch", "qwen3-0.6b", "--reduced"]) == 0
     assert "served 16 requests" in capsys.readouterr().out
+
+
+def _ragged_container(dev, scope: str) -> tuple[bytes, dict]:
+    from repro_torch.data.synthetic import ragged_sensor_traffic
+    from repro_torch.launch import serve
+    from repro_torch.serving import RaggedBatcher
+
+    b = RaggedBatcher(P.ShrinkConfig(eps_b=0.4, lam=1e-4), eps_targets=[8e-3, 0.0], decimals=4,
+                      backend="rans", flush_samples=20_000 if scope == "batch" else 3000,
+                      max_buckets=4, scope=scope, device=dev)
+    blob, _ = serve.ragged_ingest(b, ragged_sensor_traffic(48, 60, seed=3))
+    return blob, b.stats()
+
+
+@pytest.mark.parametrize("scope", ["batch", "series"])
+def test_ragged_batcher_on_card_equals_cpu(card, scope):
+    ops.reset_launches()
+    got = _ragged_container(card, scope)
+    assert ops.launches["cone_scan"] > 0 and ops.launches["rans_encode"] > 0
+    assert got == _ragged_container("cpu", scope)
+
+
+def _flaky_gateway_answers(dev) -> tuple[list, dict]:
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultTolerantGateway, RangeQuery, RetryPolicy
+    from repro_torch.testing import ChaosInjector
+
+    v = serve.sensor_values(4, 6000, 5)
+    cfg = P.ShrinkConfig(eps_b=0.05 * float(v.max() - v.min()), lam=1e-4)
+    sc = P.ShrinkStreamCodec(cfg, [1e-2, 1e-3, 0.0], decimals=4, backend="rans",
+                             value_range=(float(v.min()), float(v.max())), frame_len=1024,
+                             device=dev)
+    for sid in range(4):
+        sc.ingest(v[sid], series_id=sid)
+    now = [0.0]
+
+    def sleep(s):
+        now[0] += s
+
+    gw = FaultTolerantGateway(sc.finalize(), retry=RetryPolicy(max_attempts=3), max_queue=6,
+                              clock=lambda: now[0], sleep=sleep, seed=3, device=dev)
+    gw.frame_decode = ChaosInjector(1).flaky(gw.frame_decode, 0.3)
+    qrng = np.random.default_rng(0)
+    for qid in range(48):
+        lo = int(qrng.integers(0, 5000))
+        gw.submit(RangeQuery(qid=qid, series_id=qid % 4, t0=lo,
+                             t1=lo + int(qrng.integers(1, 2500)), eps=(1e-2, 1e-3, 0.0)[qid % 3]))
+    done = gw.run(deadline_s=1.0)
+    return [(q.error, q.achieved, q.degraded,
+             None if q.result is None else q.result.cpu().numpy().view(np.int64).tolist())
+            for q in done], gw.stats
+
+
+def test_gateway_with_flaky_decode_on_card_equals_cpu(card):
+    ops.reset_launches()
+    got = _flaky_gateway_answers(card)
+    assert ops.launches["rans_decode"] > 0
+    assert got == _flaky_gateway_answers("cpu")
+    assert got[1]["retries"] > 0 and got[1]["shed"] > 0
+
+
+def _fleet_run(dev):
+    from repro_torch.launch import serve
+    from repro_torch.serving import RangeQuery
+
+    fleet, _, _, admitted, rejected = serve._ingest_fleet(
+        serve._gen_traffic(24, 60, seed=1)[0], 4, 1024, device=dev)
+    answers = []
+    for sid in [s for s in sorted(admitted) if sum(c.size for c in admitted[s]) >= 300][:12]:
+        q = fleet.query(RangeQuery(qid=sid, series_id=sid, t0=0, t1=300, eps=8e-3))
+        assert q.error is None, q.error
+        answers.append(q.result.cpu().numpy().view(np.int64).tolist())
+        for op in ("sum", "min", "stddev"):
+            answers.append(fleet.aggregate(sid, op, 5, 280, eps=8e-3).__dict__)
+        answers.append(fleet.count_where(sid, "gt", 0.0, 0, 300, eps=0.0).__dict__)
+    return fleet.seal(), rejected, answers, fleet.fleet_stats()
+
+
+def test_four_shard_fleet_on_card_equals_cpu(card):
+    ops.reset_launches()
+    got = _fleet_run(card)
+    for name in ("cone_scan", "rans_encode", "rans_decode", "segment_query"):
+        assert ops.launches[name] > 0, name
+    assert got == _fleet_run("cpu")

@@ -26,6 +26,10 @@ def test_fresh_import_leaves_jax_and_repro_out():
         "import repro_torch.models.model, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.interval_stats, repro_torch.kernels.residual_quant\n"
         "import repro_torch.kernels.dequant\n"
+        "import repro_torch.data, repro_torch.data.synthetic, repro_torch.testing\n"
+        "import repro_torch.testing.chaos, repro_torch.parallel, repro_torch.parallel.fleet\n"
+        "import repro_torch.serving.ragged, repro_torch.serving.kbstore\n"
+        "import repro_torch.serving.gateway, repro_torch.serving.fleet\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

@@ -31,18 +31,22 @@ import repro.core as R
 import repro_torch.core as P
 from repro_torch.kernels import ops
 
-PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops"]
+PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops", "data", "testing",
+          "parallel"]
 
 WAIVERS = {
     "core": {
         # the TPU cone scan's Pallas entry; the port's batch scan is the kernel route
         "extract_semantics_batch_pallas": "Pallas only (the cone scan is csrc/cone_scan.cu)",
     },
-    "serving": {
-        name: "ROADMAP queue 1 item 2 (serving, the rest of reference item 8)"
-        for name in ("RaggedBatcher", "FaultTolerantGateway", "CircuitBreaker", "RetryPolicy",
-                     "ShrinkFleet", "TenantQuota", "KBStore", "AttachRecord", "StoreSnapshot",
-                     "resolve_container_kb")
+    "data": {
+        name: "ROADMAP queue 1 item 4 (training and data: data/pipeline.py)"
+        for name in ("ShardStore", "TokenPipeline")
+    },
+    "parallel": {
+        name: "ROADMAP queue 1 item 5 (parallel: sharding.py, partition.py)"
+        for name in ("AxisRules", "axis_rules", "make_rules", "shard", "param_specs",
+                     "param_shardings", "fsdp_axes_for")
     },
     "kernels.ops": {
         "use_interpret": "Pallas interpret mode has no CUDA counterpart",
@@ -54,10 +58,6 @@ ROUTE_SWITCHES = {"force_ref", "route", "block_t", "use_kernel"}
 
 # (package, qualified name[, parameter]) -> the ROADMAP item that brings it
 LATER = {
-    ("core", "ShrinkStreamCodec.__init__", "inline_kb"):
-        "ROADMAP queue 1 item 2 (serving/kbstore.py with ShrinkStreamCodec's inline_kb)",
-    ("core", "ShrinkStreamCodec.__init__", "source"):
-        "ROADMAP queue 1 item 2 (serving/kbstore.py with ShrinkStreamCodec's source)",
     ("models", "Model.init_shapes"): "ROADMAP queue 1 item 6 (launch tools: Model.init_shapes)",
     ("models", "Model.input_specs"): "ROADMAP queue 1 item 6 (launch tools: Model.input_specs)",
 }

@@ -222,9 +222,30 @@ def test_bad_queries_raise_the_same_typed_errors():
         assert names[0] == names[1], args
 
 
-def test_kb_store_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="KBStore"):
-        P.ShrinkStreamCodec(P.ShrinkConfig(eps_b=0.1), [1e-2], kb_store=object(), device="cpu")
+def test_stream_codec_kb_store_bytes_equal_reference():
+    """``kb_store``, ``inline_kb`` and ``source`` are the reference's: the
+    footer carries the store's snapshot ref (and the inline KB only when
+    asked), the store's snapshots are the same bytes, and
+    ``inline_kb=False`` without a store raises the same typed error."""
+    from repro.serving.kbstore import KBStore as RStore
+
+    from repro_torch.serving.kbstore import KBStore as PStore
+
+    v = _walks(3, 2, 1500)
+    rcfg, pcfg = _configs(v)
+    blobs = []
+    for mod, cfg, store, kw in ((RS, rcfg, RStore(rcfg), {}),
+                                (PS, pcfg, PStore(pcfg), {"device": "cpu"})):
+        for inline in (None, True):
+            _, blob = _stream(mod, cfg, v, "incremental", 500, "rans", kb_store=store,
+                              inline_kb=inline, source=f"gw{inline}", **kw)
+            blobs.append(blob)
+        blobs.append([s.blob for s in store.snapshots])
+    assert blobs[3:] == blobs[:3]
+    assert P.read_knowledge_base(blobs[3]) is None and PZ.read_snapshot_ref(blobs[3]) is not None
+    for mod, cfg, kw in ((RS, rcfg, {}), (PS, pcfg, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="inline_kb=False requires a kb_store"):
+            mod.ShrinkStreamCodec(cfg, [1e-2], inline_kb=False, **kw)
 
 
 def test_framed_writer_with_snapshot_ref_identical():
