@@ -140,13 +140,51 @@ result line):
    the shards sharing the one card).  ``cone_scan``, ``rans_encode``,
    ``rans_decode`` and ``segment_query`` must each launch inside the
    phase; their rows carry ``launches_serving_tier``.
+12. models slice B at full width, one family at a time (the params freed
+   between them), from ``src/repro/configs/<arch>.py`` with params from a
+   seeded generator on the card: deepseek-v2-lite-16b at full depth (27
+   layers, d_model 2048, MLA with lora 512, nope 128, rope 64, v 128; 64
+   routed experts top-6 and 2 shared; a dense first layer; ~15.7 B bf16
+   params); llama4-maverick-400b-a17b cut to one group of 2 layers (a
+   dense and an MoE layer of 128 experts of 5120 x 8192, top-1, one
+   shared; the cut: 48 layers would not fit); recurrentgemma-9b (38
+   layers, 12 x (rec, rec, local) + a (rec, rec) tail), rwkv6-1.6b (24),
+   llama-3.2-vision-11b (40, a cross layer every 5th; vision stub
+   [4, 1600, 4096]) and seamless-m4t-medium (12 + 12; frames
+   [4, 1024, 1024] and 4 x 1024 tokens, the reference's split) at full
+   depth.  Each prefills 4 x 2048 seeded tokens (an MoE at its capacity
+   factor 1.25) with one ``flash_attention`` launch a causal
+   self-attention layer (27, 2, 0, 0, 40, 12; checked), then prefills
+   1008 tokens (llama4 240: its dropless experts buffer E x tokens x d),
+   grafts the caches into decode buffers (a cross cache whole, a local
+   ring at slot = pos % buffer), decodes 16 greedy steps and holds each
+   step's logits to one forward pass over the extended prompt (1024
+   tokens, a length ``_sdpa``'s query chunks take) at the reference's
+   bound (atol 0.35, rtol 0.05, top-1 >= 0.99 off near ties).  An MoE
+   decodes at a dropless capacity (capacity_factor = n_experts / top_k,
+   so cap == tokens): capacity drops make prefill and decode differ by
+   construction (``src/repro/configs/base.py:218-220``).  Its router's
+   near ties do too: a random-init router is nearly uniform, so the
+   decode's and the forward's rounding pick another k-th expert for some
+   tokens; the forward routes the decoded tokens to the decode's experts
+   (``PinnedRouting``), each such flip must be a near tie, and the
+   comparison with the forward's own routing is printed, not held.
+   deepseek also holds the kernel at its shape (q, k [4, 2048, 16, 192],
+   V padded from 128) to its plain version on layer 0's inputs (bf16 at
+   3e-2), times it beside SDPA on the unpadded V (timed only) and the
+   bound on the unpadded work, and runs its embeddings, head, prefix
+   layer and first MoE layer over 1 x 256 tokens on the CPU (plain
+   versions) and the card (logits at atol 0.1, rtol 0.05).  Then
+   ``serve --mode model --arch deepseek-v2-lite-16b`` at the launcher's
+   defaults and each other family ``--reduced``: every request served.
+   The flash row carries each path's launches and the MLA check.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
 With ``--trace DIR`` phase 8 also profiles an eighth of its ingest and
 128 of its analytics queries (torch.profiler: device busy share and top
-device ops; cProfile: the host functions with the most time), phase 9 a
-prefill and four decode steps (torch.profiler), and a last
+device ops; cProfile: the host functions with the most time), phases 9
+and 12 (deepseek) a prefill and four decode steps (torch.profiler), and a last
 phase times the main path stage by stage
 (the codec's own functions, called in its order) and traces one
 compress_batch and the lossless decode of 64 series with torch.profiler:
@@ -239,6 +277,19 @@ SERVE_RANGES = 4  # range reads a series in the decode check
 FLEET_SHARDS, FLEET_SERIES, FLEET_QUERIES, FLEET_FLUSH = 4, 256, 768, 2048
 FLEET_TICKS = 480
 SERVING_KERNELS = ("cone_scan", "rans_encode", "rans_decode", "segment_query")
+# phase 12: models slice B at full width (src/repro/configs/<arch>.py), one
+# family at a time; llama4's depth is cut to one group (a dense and an MoE
+# layer: one MoE layer's experts alone are 32 GB of bf16)
+FAMILIES = ("deepseek-v2-lite-16b", "llama4-maverick-400b-a17b", "recurrentgemma-9b",
+            "rwkv6-1.6b", "llama-3.2-vision-11b", "seamless-m4t-medium")
+FAMILY_LAYERS = {"llama4-maverick-400b-a17b": 2}
+FAMILY_BATCH, FAMILY_LEN, FAMILY_DECODE = 4, 2048, 16
+# the decode check's prompt: prompt + 16 steps = 1024 tokens, a length
+# every attention route takes (``_sdpa`` chunks queries by 1024); llama4's
+# is shorter because its dropless experts buffer E x tokens x d_model
+FAMILY_DECODE_PROMPT = {"llama4-maverick-400b-a17b": 240}
+FAMILY_DECODE_PROMPT_DEFAULT = 1008
+MOE_CPU_LAYERS, MOE_CPU_LEN = 2, 256  # the prefix layer and the first MoE layer
 
 
 def fail(msg: str) -> None:
@@ -1603,8 +1654,8 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
         profiled = profile_model(m, params, toks, dev, trace) if trace is not None else None
         ext = torch.cat([toks] + fed, dim=1)
         pos = torch.arange(length + steps, device=dev, dtype=torch.int32)[None].expand(batch, -1)
-        x, _ = T.apply_stack(params, T.embed_tokens(params, ext, cfg), cfg, mode="train",
-                             positions=pos)
+        x, _, _ = T.apply_stack(params, T.embed_tokens(params, ext, cfg), cfg, mode="train",
+                                positions=pos)
         full = T.logits_from(params, x[:, length:], cfg)
         del x
         decode = logits_agree(full, torch.stack(dec_logits, dim=1), "decode after prefill")
@@ -1652,10 +1703,11 @@ def run_main(serve, argv: list[str]) -> str:
     return out
 
 
-def serve_model_path(serve, arch: str) -> dict:
-    """``serve --mode model --arch <arch>`` at the launcher's defaults,
-    through its ``main``; its report line is parsed."""
-    out = run_main(serve, ["--mode", "model", "--arch", arch])
+def serve_model_path(serve, arch: str, *extra: str) -> dict:
+    """``serve --mode model --arch <arch>`` at the launcher's defaults (and
+    any ``extra`` flags), through its ``main``: every request served,
+    ``failed=0``; its report line is parsed."""
+    out = run_main(serve, ["--mode", "model", "--arch", arch, *extra])
     got = re.search(r"served (\d+) requests, (\d+) tokens, ([\d.]+)s \(([\d.]+) tok/s\), "
                     r"failed=(\d+)", out)
     check(got is not None and int(got.group(5)) == 0, f"serve --mode model: {out}")
@@ -1861,6 +1913,331 @@ def serving_path(P, ops, serve, seed: int, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+def family_batch(cfg, batch: int, length: int, seed: int, dev) -> dict:
+    """Seeded inputs of a prefill of ``length``: tokens; an
+    encoder-decoder's frames take ``audio_frames_ratio`` of it (the
+    reference's ``input_specs`` split) and its decoder the rest; a VLM adds
+    its vision embeddings [B, vision_tokens, d_model]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        se = int(length * cfg.audio_frames_ratio)
+        frames = torch.randn((batch, se, cfg.d_model), generator=g, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (batch, length - se), generator=g, device=dev)
+        return {"frames": frames, "tokens": toks}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, length), generator=g, device=dev)}
+    if cfg.family == "vlm":
+        out["vision"] = torch.randn((batch, cfg.vision_tokens, cfg.d_model), generator=g,
+                                    device=dev)
+    return out
+
+
+def flash_layers(T, cfg) -> int:
+    """Decoder layers with causal self-attention over the whole sequence
+    (the flash route): kinds "attn" and "cross"; local attention, RG-LRU
+    and RWKV take none, nor does an encoder."""
+    n_prefix, n_groups, n_tail = T._layer_split(cfg)
+    kinds = ([T._block_kind(cfg, i) for i in range(n_prefix)] + list(cfg.block_group) * n_groups
+             + [T._block_kind(cfg, i) for i in range(n_tail)])
+    return sum(k in ("attn", "cross") for k in kinds)
+
+
+def graft(dec, pref, length: int) -> None:
+    """Copy prefill caches into decode buffers in place: a cross cache whole,
+    a KV or latent cache's ``length`` positions at slot = pos % buffer (a
+    local ring keeps the last ones), a recurrent or RWKV state whole."""
+    if isinstance(dec, dict):
+        for k in dec:
+            if k == "cross":
+                _copy_whole(dec[k], pref[k])
+            else:
+                graft(dec[k], pref[k], length)
+        return
+    if isinstance(dec, list):
+        for d, p in zip(dec, pref):
+            graft(d, p, length)
+        return
+    if not hasattr(dec, "kpos"):  # RecState, RwkvState
+        _copy_whole(dec, pref)
+        return
+    ax = dec.kpos.ndim - 1  # the position axis, after any group and the batch axes
+    buf = dec.kpos.shape[ax]
+    pos = torch.arange(max(0, length - buf), length, device=dec.kpos.device)
+    for f in dataclasses.fields(dec):
+        getattr(dec, f.name).index_copy_(ax, pos % buf, getattr(pref, f.name).index_select(ax, pos))
+
+
+def _copy_whole(dec, pref) -> None:
+    for f in dataclasses.fields(dec):
+        getattr(dec, f.name).copy_(getattr(pref, f.name))
+
+
+class PinnedRouting:
+    """Stands in for the MoE router (``models.layers._route``): records the
+    experts and probabilities of each decode step's tokens, then routes the
+    same tokens of the forward pass to the experts the decode chose (gates
+    from the forward's own probabilities).  Router probabilities of a
+    random-init model are nearly uniform, so the decode's and the forward's
+    rounding (absorbed against expanded attention) flip a near tie of the
+    k-th expert; a flip moves the token's output by a whole expert.  Every
+    flip must be such a near tie: the forward's k-th probability within
+    twice the token's largest decode-vs-forward probability difference of
+    the least of the decode's experts."""
+
+    def __init__(self, layers_mod, batch: int, prompt: int, n_moe: int):
+        self.mod, self.orig = layers_mod, layers_mod._route
+        self.b, self.prompt, self.n_moe = batch, prompt, n_moe
+        self.log, self.calls, self.mode = [], 0, "record"  # then "off", then "replay"
+        self.flips, self.rows_flipped, self.worst_gap = 0, set(), 0.0
+        layers_mod._route = self
+
+    def __call__(self, p, xt, cfg):
+        probs, gates, idx = self.orig(p, xt, cfg)
+        if self.mode != "replay":
+            if self.mode == "record":
+                self.log.append((probs, idx))
+            return probs, gates, idx
+        layer = self.calls
+        self.calls += 1
+        seq = xt.shape[0] // self.b
+        idx, gates = idx.clone(), gates.clone()
+        for step in range(len(self.log) // self.n_moe):
+            dec_probs, dec_idx = self.log[step * self.n_moe + layer]
+            rows = torch.arange(self.b, device=xt.device) * seq + self.prompt + step
+            fwd = probs[rows]
+            flipped = (fwd.topk(cfg.top_k, -1).indices.sort(-1).values
+                       != dec_idx.sort(-1).values).any(-1)
+            if bool(flipped.any()):
+                kth = fwd.topk(cfg.top_k, -1).values[:, -1]
+                gap = kth - fwd.gather(1, dec_idx).amin(-1)
+                slack = 2 * (fwd - dec_probs).abs().amax(-1)
+                check(bool((gap[flipped] <= slack[flipped]).all()),
+                      f"{cfg.name}: a decode step's experts differ from the forward's "
+                      f"beyond a near tie (gap {gap[flipped].tolist()}, slack "
+                      f"{slack[flipped].tolist()})")
+                self.flips += int(flipped.sum())
+                self.rows_flipped |= {(int(r), step) for r in torch.nonzero(flipped).flatten()}
+                self.worst_gap = max(self.worst_gap, float(gap[flipped].max()))
+            g = fwd.gather(1, dec_idx)
+            idx[rows], gates[rows] = dec_idx, g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+        return probs, gates, idx
+
+    def restore(self) -> None:
+        self.mod._route = self.orig
+
+
+def family_decode_check(T, L, m, params, batch: dict, prompt: int, steps: int, dev) -> tuple:
+    """Prefill ``prompt`` tokens, graft the caches into decode buffers of
+    prompt + steps, decode greedily, and hold each step's logits to one
+    forward pass over the extended prompt, whose decoded tokens an MoE
+    routes to the decode's experts (``PinnedRouting``; the forward's own
+    routing is compared too, and reported).  Returns (check, step times)."""
+    cfg = m.cfg
+    sub = dict(batch, tokens=batch["tokens"][:, :prompt])
+    logits, caches = m.prefill(params, sub)
+    b = logits.shape[0]
+    dec = m.make_decode_caches(b, prompt + steps, device=dev)
+    graft(dec, caches, prompt)
+    del caches
+    n_moe = sum(cfg.layer_uses_moe(i) for i in range(cfg.n_layers))
+    pin = PinnedRouting(L, b, prompt, n_moe) if n_moe else None
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    fed, outs, step_s = [], [], []
+    try:
+        for i in range(steps):
+            fed.append(tok)
+            (out, dec), dt = sync_time(lambda: m.decode_step(params, tok, dec, prompt + i))
+            step_s.append(dt)
+            outs.append(out[:, 0])
+            tok = out[:, -1].argmax(-1, keepdim=True)
+        del dec
+        ext = torch.cat([sub["tokens"]] + fed, dim=1)
+        pos = torch.arange(ext.shape[1], device=dev, dtype=torch.int32)[None].expand(b, -1)
+        cross = m._cross(params, batch)
+
+        def forward():
+            x, _, _ = T.apply_stack(params, T.embed_tokens(params, ext, cfg), cfg, mode="train",
+                                    positions=pos, cross_source=cross)
+            return T.logits_from(params, x[:, prompt:], cfg)
+
+        got = torch.stack(outs, dim=1)
+        own = None
+        if pin is not None:
+            pin.mode = "off"
+            own = float((forward().float() - got.float()).abs().max())
+            pin.mode = "replay"
+        full = forward()
+    finally:
+        if pin is not None:
+            pin.restore()
+    out = logits_agree(full, got, f"{cfg.name}: decode after prefill")
+    if pin is not None:
+        out["routing"] = {
+            "moe_layers": n_moe, "decoded_tokens": b * steps, "flips": pin.flips,
+            "tokens_with_a_flip": len(pin.rows_flipped), "largest_flip_gap": pin.worst_gap,
+            "max_abs_diff_own_routing": own}
+    return out, step_s
+
+
+def check_flash_mla(FA, q, k, v_pad, v_dim: int, launches: dict) -> dict:
+    """The flash kernel at MLA's shape (q and k at nope + rope, V padded with
+    zeros to that width) against its plain version on layer 0's inputs, its
+    time beside the plain version's and SDPA's on the unpadded V (timed
+    only), and the bound on the unpadded work."""
+    b, sq, h, d = q.shape
+    got = FA.flash_attention_cuda(q, k, v_pad, causal=True)
+    want = FA.flash_attention_plain(q, k, v_pad, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), atol=FLASH_BF16_TOL, rtol=FLASH_BF16_TOL)),
+          f"flash_attention at the MLA shape differs from its plain version (max err {err})")
+    check(bool((got[..., v_dim:] == 0).all()), "flash_attention: the padded V columns are not 0")
+    del got, want
+    ms = event_ms(lambda: FA.flash_attention_cuda(q, k, v_pad, causal=True), 10)
+    plain_ms = event_ms(lambda: FA.flash_attention_plain(q, k, v_pad, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v_pad[..., :v_dim]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+    pairs = b * h * sq * (sq + 1) // 2  # causal (q, k) pairs, Sk == Sq
+    nops = 2 * pairs * (d + v_dim)  # q k^T at d, p v at the unpadded width
+    nbytes = (q.numel() + k.numel() + 2 * b * sq * h * v_dim) * q.element_size()
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+    bound_ms = 1e3 * max(by_bytes, by_ops)
+    return {
+        "shape": [b, sq, h, d], "v_dim": v_dim, "launches": launches["flash_attention"],
+        "max_abs_err": err, "tolerance": FLASH_BF16_TOL, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "padded_bound_ms": 1e3 * 4 * pairs * d / BF16_OPS_PER_S,
+        "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True), V unpadded",
+        "fraction_of_bound": bound_ms / ms, "vs_library": ms / library_ms,
+    }
+
+
+def family_path(ops, FA, T, L, build_model, cfg, seed: int, dev,
+                trace: pathlib.Path | None = None) -> tuple[dict, dict | None]:
+    """Phase 12, one family at full width: init, the timed prefill of
+    FAMILY_BATCH x FAMILY_LEN (one flash launch a causal self-attention
+    layer), the decode check; for MLA also the kernel at its shape, the CPU
+    route and, under ``--trace``, a profiled prefill and four decode steps.
+    Returns (stats, the MLA kernel check or None)."""
+    m = build_model(cfg)
+    params, init_s = sync_time(lambda: m.init(seed, device=dev))
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    batch = family_batch(cfg, FAMILY_BATCH, FAMILY_LEN, seed, dev)
+    want_flash = flash_layers(T, cfg)
+    mla = None
+    with torch.inference_mode():
+        m.prefill(params, {k: v[:1, :128] for k, v in batch.items()})  # warm-up
+        rec = Recorder(ops, "flash_attention") if cfg.mla else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        try:
+            (logits, caches), prefill_s = sync_time(lambda: m.prefill(params, batch))
+            launches = dict(ops.launches)
+        finally:
+            if rec is not None:
+                rec.restore()
+        peak = torch.cuda.max_memory_allocated()
+        del caches
+        check(launches["flash_attention"] == want_flash,
+              f"{cfg.name}: prefill launched flash_attention {launches['flash_attention']} "
+              f"times, not once a causal self-attention layer ({want_flash})")
+        check(tuple(logits.shape) == (FAMILY_BATCH, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: prefill logits")
+        if rec is not None:
+            (q, k, v_pad), _ = rec.args
+            mla = check_flash_mla(FA, q, k, v_pad, cfg.v_head_dim, launches)
+            del q, k, v_pad, rec
+
+        # decode after prefill; an MoE decodes at a dropless capacity
+        # (capacity_factor = n_experts / top_k, so cap == tokens): capacity
+        # drops make prefill and decode differ by construction
+        prompt = FAMILY_DECODE_PROMPT.get(cfg.name, FAMILY_DECODE_PROMPT_DEFAULT)
+        mc = m
+        if cfg.n_experts:
+            mc = build_model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+            for n_tok in (FAMILY_BATCH * prompt, FAMILY_BATCH * (prompt + FAMILY_DECODE)):
+                cap = max(8, int(mc.cfg.capacity_factor * n_tok * cfg.top_k / cfg.n_experts))
+                check(cap >= n_tok, f"{cfg.name}: the decode check's capacity {cap} drops")
+        decode, step_s = family_decode_check(T, L, mc, params, batch, prompt, FAMILY_DECODE,
+                                             dev)
+
+        cpu_route, profiled = None, None
+        if cfg.mla and trace is not None:
+            profiled = profile_model(m, params, batch["tokens"], dev, trace / cfg.name)
+        if cfg.mla:
+            # the CPU route: the embeddings, the head, the prefix layer and
+            # the first MoE layer, on the CPU (plain versions) and the card
+            sm = build_model(dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS))
+            n_groups = MOE_CPU_LAYERS - len(params["prefix"])
+            sub = dict(params, groups={"pos0": _first(params["groups"]["pos0"], n_groups)})
+            short = batch["tokens"][:1, :MOE_CPU_LEN]
+            ops.reset_launches()
+            card_logits, _ = sm.prefill(sub, {"tokens": short})
+            check(ops.launches["flash_attention"] == MOE_CPU_LAYERS, "CPU-route check: launches")
+            sub_cpu = _tree_to(sub, "cpu")
+            (cpu_logits, _), cpu_s = sync_time(lambda: sm.prefill(sub_cpu, {"tokens": short.cpu()}))
+            cpu_route = logits_agree(cpu_logits, card_logits.cpu(), f"{cfg.name}: CPU route",
+                                     CPU_ROUTE_TOL)
+            cpu_route.update(layers=MOE_CPU_LAYERS, tokens=MOE_CPU_LEN, cpu_prefill_s=cpu_s)
+            del sub_cpu, sub
+        del params
+    tokens = sum(t.shape[0] * t.shape[1] for name, t in batch.items() if name != "vision")
+    stats = {
+        "arch": cfg.name, "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+        "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+        "batch": {k: list(v.shape) for k, v in batch.items()}, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": tokens / prefill_s, "max_memory_allocated_bytes": peak,
+        "launches": {k: v for k, v in launches.items() if v}, "flash_launches": launches[
+            "flash_attention"], "decode_prompt": prompt, "decode_steps": FAMILY_DECODE,
+        "decode_step_median_s": float(np.median(step_s[1:] or step_s)),
+        "decode_first_step_s": step_s[0], "decode_vs_forward": decode,
+    }
+    if cfg.n_experts:
+        stats["decode_capacity_factor"] = mc.cfg.capacity_factor
+    if cpu_route is not None:
+        stats["cpu_route"] = cpu_route
+    if profiled is not None:
+        stats["trace"] = profiled
+    return stats, mla
+
+
+def families_path(ops, FA, serve, get_config, seed: int, dev,
+                  trace: pathlib.Path | None = None) -> tuple[dict, dict]:
+    """Phase 12: every family of models slice B at full width, one at a time
+    (the params freed between them), each then served by ``serve --mode
+    model`` (deepseek-v2-lite-16b at the launcher's defaults, the others
+    ``--reduced``).  Returns (stats by arch, the MLA kernel check)."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    out, mla = {}, None
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if arch in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+        (stats, got), phase_s = sync_time(lambda: family_path(ops, FA, T, L, build_model, cfg,
+                                                               seed, dev, trace))
+        mla = mla or got
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = () if arch == FAMILIES[0] else ("--reduced",)
+        stats["serve"], serve_s = sync_time(lambda: serve_model_path(serve, arch, *extra))
+        stats["serve"].update(flags=list(extra), wall_s=serve_s)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["phase_s"] = phase_s + serve_s
+        print(f"family {arch}: " + json.dumps(stats), flush=True)
+        out[arch] = stats
+    return out, mla
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--series", type=int, default=1024)
@@ -1996,6 +2373,16 @@ def main() -> None:
         if row["name"] in SERVING_KERNELS:
             row["launches_serving_tier"] = serving["launches"][row["name"]]
     torch.cuda.empty_cache()
+
+    # phase 12: models slice B at full width (MLA and MoE, llama4's
+    # interleaved MoE, RG-LRU, RWKV6, cross-attention and the encoder)
+    (families, mla), phase_s = sync_time(lambda: families_path(ops, FA, serve, get_config,
+                                                               args.seed, dev, args.trace))
+    print(f"models slice B: {phase_s:.3f} s", flush=True)
+    flash_row["launches_by_path"] = {"dense prefill (phase 9)": flash_row["launches"]} | {
+        f"{arch} prefill (phase 12)": st["flash_launches"] for arch, st in families.items()}
+    flash_row["mla"] = mla
+    print("flash_attention at the MLA shape: " + json.dumps(mla), flush=True)
 
     if args.trace is not None:
         trace = trace_main_path(P, values, stats["codec"], dev, args.trace)

@@ -16,7 +16,8 @@ never a ``repro`` object, so this module imports nothing of ``repro``:
   :func:`compressed_tensor_to_reference` gives them back;
 * :func:`attn_cache_from_reference` takes the k, v and kpos of a
   ``repro.models.layers.AttnCache`` as numpy arrays, and
-  :func:`decode_caches_from_reference` a whole cache tree of them;
+  :func:`decode_caches_from_reference` a whole cache tree of them and of
+  the other cache dataclasses (``MLACache``, ``RecState``, ``RwkvState``);
 * :func:`model_params_from_reference` takes a reference params pytree as
   nested dicts and lists of numpy arrays.
 
@@ -36,7 +37,7 @@ from .core.shrink import cs_from_bytes
 from .core.streaming import KnowledgeBase
 from .core.tensorshrink import CompressedTensor
 from .core.types import CompressedSeries, ShrinkConfig
-from .models.layers import AttnCache
+from .models.layers import AttnCache, MLACache, RecState, RwkvState
 
 __all__ = [
     "attn_cache_from_reference",
@@ -142,13 +143,30 @@ def model_params_from_reference(tree, device=None):
     return torch.from_numpy(a).to(device)
 
 
+# the fields of each reference cache dataclass -> the port's class
+_CACHES = {frozenset(f.name for f in dataclasses.fields(cls)): cls
+           for cls in (AttnCache, MLACache, RecState, RwkvState)}
+_FLOAT32_FIELDS = {"h", "wkv"}  # recurrent and WKV states; kpos is int32, the rest bf16
+
+
+def _cache_field(name: str, a, device) -> torch.Tensor:
+    if name == "kpos":
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+    if name in _FLOAT32_FIELDS:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return _bf16(a, device)
+
+
 def decode_caches_from_reference(tree, device=None):
     """The port's decode caches of a reference cache tree given as nested
-    dicts and lists, each ``AttnCache`` as a dict of numpy k, v and kpos
-    (``dataclasses.asdict``)."""
+    dicts and lists, each cache dataclass (``AttnCache``, ``MLACache``,
+    ``RecState``, ``RwkvState``) as a dict of its numpy fields
+    (``dataclasses.asdict``): bf16 fields as bf16 tensors, the recurrent
+    and WKV states float32, positions int32."""
     device = resolve_device(device)
-    if isinstance(tree, dict) and set(tree) == {"k", "v", "kpos"}:
-        return attn_cache_from_reference(tree["k"], tree["v"], tree["kpos"], device)
+    if isinstance(tree, dict) and frozenset(tree) in _CACHES:
+        cls = _CACHES[frozenset(tree)]
+        return cls(**{name: _cache_field(name, a, device) for name, a in tree.items()})
     if isinstance(tree, dict):
         return {k: decode_caches_from_reference(v, device) for k, v in tree.items()}
     return [decode_caches_from_reference(v, device) for v in tree]

@@ -1,8 +1,10 @@
 """Serving launcher of the port, counterpart of ``repro.launch.serve``:
 
-    # LM decode loop (continuous batching) over a dense model at random init
+    # LM decode loop (continuous batching) over any of the ten configs at
+    # random init (dense, MoE with MLA, hybrid RG-LRU, RWKV, enc-dec, VLM)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \
         --requests 16 --slots 8 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
 
     # time-series range queries against a freshly streamed SHRKS container
     PYTHONPATH=src python -m repro_torch.launch.serve --mode range \
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 
 from ..analytics import AnalyticsEngine
-from ..configs import get_config, reduced_config
+from ..configs import ARCHS, get_config, reduced_config
 from ..core import BYTES_PER_ROW, ShrinkConfig, ShrinkStreamCodec
 from ..core.device import resolve_device
 from ..core.errors import QuotaExceededError, ShrinkError, StaleSnapshotError
@@ -162,8 +164,10 @@ def analytics_traffic(eng: AnalyticsEngine, v: np.ndarray, queries: int, frame_l
 
 
 def _serve_model(args, dev: torch.device) -> int:
-    """Continuous batching over a dense model at random init (seed 0): the
-    reference's seeded prompts of 4-15 tokens, greedy decode, no EOS."""
+    """Continuous batching over any config's model at random init (seed 0):
+    the reference's seeded prompts of 4-15 tokens, greedy decode, no EOS.
+    As in the reference, a VLM's and an encoder-decoder's cross caches
+    start empty (every context position masked)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -872,7 +876,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # model mode
-    ap.add_argument("--arch")
+    ap.add_argument("--arch", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)

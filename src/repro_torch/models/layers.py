@@ -1,6 +1,7 @@
-"""Model layers in PyTorch, counterpart of ``repro.models.layers``: the
-dense family's norms, RoPE, grouped-query attention and SwiGLU MLP, and the
-decode-time cache containers.
+"""Model layers in PyTorch, counterpart of ``repro.models.layers``: norms,
+RoPE, grouped-query, local and cross attention, MLA (latent KV, absorbed
+decode), the SwiGLU MLP, the Switch/GShard MoE with shared experts, RG-LRU
+and RWKV6, and the decode-time cache and state containers.
 
 Functional style as in the reference: ``*_init(gen, cfg)`` returns a params
 dict with the reference pytree's keys and shapes, and the apply functions
@@ -16,7 +17,22 @@ as two bf16 terms, hi and lo, about 16 bits (the bf16 kernel on the card);
 every other case (decode, the local mask, ``"none"``, cross-attention,
 ``attn_softmax_bf16``) goes through the ported ``_sdpa``, which rounds the
 probabilities once to bf16 before ``p @ v``, as the reference does
-everywhere.  The two routes differ by that rounding.
+everywhere.  The two routes differ by that rounding.  MLA's expanded
+prefill takes the same flash route at head dim nope + rope, with V padded
+with zeros to that width (the kernel wants k and v of one shape) and the
+output cut back; its absorbed decode stays in the latent space as the
+reference's does.
+
+The MoE keeps the reference's single-device dispatch (top-k by a stable
+sort, so ties take the lower expert as ``lax.top_k`` does; a capacity in
+Python floats; positions from a one-hot cumsum; an ``[E, cap, d]`` buffer),
+writes only the kept rows of that buffer and adds each token's k
+contributions in slot order in bf16, so the card's sum has one order
+(``index_add_`` on the card adds by atomics, in no fixed order).  The
+RG-LRU scan is ``lax.associative_scan``'s recursion (pair neighbours, scan
+the pairs, fill in the even elements), so its products and sums are the
+reference's, bit for bit.  Decode writes recurrent and RWKV states in
+place, as it writes the KV caches.
 """
 from __future__ import annotations
 
@@ -24,6 +40,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -32,14 +49,24 @@ __all__ = [
     "AttnCache",
     "COMPUTE_DTYPE",
     "MLACache",
+    "RecState",
+    "RwkvState",
     "attention_apply",
     "attention_init",
     "dense_init",
+    "mla_apply",
+    "mla_init",
     "mlp_apply",
     "mlp_init",
+    "moe_apply",
+    "moe_init",
+    "rglru_apply",
+    "rglru_init",
     "rmsnorm",
     "rmsnorm_init",
     "rope",
+    "rwkv_apply",
+    "rwkv_init",
 ]
 
 Params = dict
@@ -101,7 +128,7 @@ class MLACache:
     kpos: torch.Tensor
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def attention_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) -> Params:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     p = {
@@ -186,6 +213,20 @@ def _local_mask(sq: int, sk: int, window: int, device=None) -> torch.Tensor:
     return torch.where(ok, 0.0, _NEG)[None, None]
 
 
+def _write_step(buf: torch.Tensor, new: torch.Tensor, slot: int, masked: bool) -> None:
+    """Write one step ``new`` [B, 1, ...] into ``buf`` [B, S_buf, ...] at
+    ``slot``, in place: a one-hot masked select (a slot past the buffer
+    writes nothing) or ``dynamic_update_slice``'s write, which clamps the
+    slot into the buffer."""
+    n = buf.shape[1]
+    if masked:
+        oh = (torch.arange(n, device=buf.device) == slot).reshape((1, n) + (1,) * (buf.ndim - 2))
+        buf.copy_(torch.where(oh, new.to(buf.dtype), buf))
+    else:
+        slot = min(max(slot, 0), n - 1)
+        buf[:, slot : slot + 1] = new.to(buf.dtype)
+
+
 def attention_apply(
     p: Params,
     x: torch.Tensor,  # [B, S, D]
@@ -232,20 +273,11 @@ def attention_apply(
     flash = False
     if mode == "decode" and not is_cross:
         assert cache is not None and cache_index is not None
-        buf = cache.k.shape[1]
-        slot = (int(cache_index) % buf) if mask_kind == "local" else int(cache_index)
-        if cfg.masked_cache_update:
-            # one-hot masked write: a slot past the buffer writes nothing
-            oh = torch.arange(buf, device=x.device) == slot
-            ohk = oh[None, :, None, None]
-            cache.k.copy_(torch.where(ohk, k.to(cache.k.dtype), cache.k))
-            cache.v.copy_(torch.where(ohk, v.to(cache.v.dtype), cache.v))
-            cache.kpos.copy_(torch.where(oh[None, :], positions.to(cache.kpos.dtype), cache.kpos))
-        else:
-            slot = min(max(slot, 0), buf - 1)  # dynamic_update_slice clamps the start
-            cache.k[:, slot : slot + 1] = k.to(cache.k.dtype)
-            cache.v[:, slot : slot + 1] = v.to(cache.v.dtype)
-            cache.kpos[:, slot : slot + 1] = positions.to(cache.kpos.dtype)
+        slot = int(cache_index)
+        if mask_kind == "local":
+            slot %= cache.k.shape[1]
+        for buf_t, new_t in ((cache.k, k), (cache.v, v), (cache.kpos, positions)):
+            _write_step(buf_t, new_t, slot, cfg.masked_cache_update)
         new_cache = cache
         k, v = cache.k.to(COMPUTE_DTYPE), cache.v.to(COMPUTE_DTYPE)
         qpos = positions[:, :, None]  # [B, 1, 1]
@@ -279,9 +311,91 @@ def attention_apply(
     return out, new_cache
 
 
+# --------------------------------------------------------------------- MLA
+def mla_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init(gen, d, h * (nd + rd), cfg),
+        "w_dkv": dense_init(gen, d, cfg.kv_lora_rank, cfg),
+        "w_krope": dense_init(gen, d, rd, cfg),
+        "w_kup": dense_init(gen, cfg.kv_lora_rank, h * nd, cfg),
+        "w_vup": dense_init(gen, cfg.kv_lora_rank, h * vd, cfg),
+        "wo": dense_init(gen, h * vd, d, cfg),
+        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, cfg, gen.device),
+    }
+
+
+def mla_apply(
+    p: Params,
+    x: torch.Tensor,  # [B, S, D]
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # [B, S]
+    mode: str,  # "train" | "prefill" | "decode"
+    cache: Optional[MLACache] = None,
+    cache_index: Optional[int] = None,
+) -> tuple[torch.Tensor, Optional[MLACache]]:
+    """Multi-head latent attention.  ``"decode"`` writes the step's latent,
+    rope key and position into ``cache`` in place and attends in the latent
+    space (q_nope absorbed through W_kup, the context expanded once through
+    W_vup); train and prefill expand K and V per head and run causal
+    self-attention at head dim nope + rope (the flash kernel, V padded to
+    that width; ``_sdpa`` under ``attn_softmax_bf16``, with the float32
+    softmax the reference's MLA always takes)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    xc = x.to(COMPUTE_DTYPE)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rmsnorm(xc @ p["w_dkv"].to(COMPUTE_DTYPE), p["kv_norm"], cfg.norm_eps)
+    k_rope_new = rope((xc @ p["w_krope"].to(COMPUTE_DTYPE))[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0, :]
+
+    new_cache = None
+    if mode == "decode":
+        assert cache is not None and cache_index is not None
+        for buf_t, new_t in ((cache.c_kv, c_kv), (cache.k_rope, k_rope_new),
+                             (cache.kpos, positions)):
+            _write_step(buf_t, new_t, int(cache_index), cfg.masked_cache_update)
+        new_cache = cache
+        ck, cr = cache.c_kv.to(COMPUTE_DTYPE), cache.k_rope.to(COMPUTE_DTYPE)
+        w_kup = p["w_kup"].to(COMPUTE_DTYPE).reshape(-1, h, nd)  # [lora, H, nd]
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_kup)  # [B, 1, H, lora]
+        s_lat = torch.einsum("bshl,bkl->bhsk", q_lat, ck)
+        s_rope = torch.einsum("bshr,bkr->bhsk", q_rope, cr)
+        scores = (s_lat + s_rope).float() * ((nd + rd) ** -0.5)
+        kp = cache.kpos[:, None, None, :]  # [B, 1, 1, Sk]
+        qp = positions[:, None, :, None]  # [B, 1, Sq, 1]
+        scores = torch.where((kp >= 0) & (kp <= qp), scores, _NEG)
+        probs = _softmax(scores).to(COMPUTE_DTYPE)
+        ctx_lat = torch.einsum("bhsk,bkl->bshl", probs, ck)
+        w_vup = p["w_vup"].to(COMPUTE_DTYPE).reshape(-1, h, vd)
+        ctx = torch.einsum("bshl,lhv->bshv", ctx_lat, w_vup)
+    else:
+        k_nope = (c_kv @ p["w_kup"].to(COMPUTE_DTYPE)).reshape(b, s, h, nd)
+        vv = (c_kv @ p["w_vup"].to(COMPUTE_DTYPE)).reshape(b, s, h, vd)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        kk = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+        if cfg.attn_softmax_bf16:
+            ctx = _sdpa(qq, kk, vv, _causal_mask(s, s, device=x.device))
+        else:
+            if vd > nd + rd:
+                raise ValueError(f"MLA: v_head_dim {vd} exceeds the q/k head dim {nd + rd}")
+            v_pad = F.pad(vv, (0, nd + rd - vd))  # zero columns change no other column
+            ctx = ops.flash_attention(qq, kk, v_pad, causal=True)[..., :vd]
+        if mode == "prefill":
+            new_cache = MLACache(c_kv=c_kv.to(COMPUTE_DTYPE), k_rope=k_rope_new.to(COMPUTE_DTYPE),
+                                 kpos=positions.to(torch.int32))
+    out = (ctx.reshape(b, s, h * vd) @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
+    return out, new_cache
+
+
 # --------------------------------------------------------------------- MLPs
-def mlp_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
         "wg": dense_init(gen, d, ff, cfg),
         "wu": dense_init(gen, d, ff, cfg),
@@ -299,3 +413,372 @@ def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     xc = x.to(COMPUTE_DTYPE)
     h = _silu(xc @ p["wg"].to(COMPUTE_DTYPE)) * (xc @ p["wu"].to(COMPUTE_DTYPE))
     return (h @ p["wd"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``): in bf16 its ops one by one,
+    1 / (1 + exp(-x)), each rounded to bf16 as XLA expands it; in float32
+    ``torch.sigmoid``, the nearer of the two there."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+# --------------------------------------------------------------------- MoE
+def _expert_normal(gen: torch.Generator, shape: tuple, std: float, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """N(0, std) expert weights [E, ...] in the param dtype, drawn an expert
+    at a time, so the float32 draw is one expert's, not the whole tensor's."""
+    out = torch.empty(shape, dtype=_pdtype(cfg), device=gen.device)
+    for e in range(shape[0]):
+        w = torch.randn(shape[1:], generator=gen, device=gen.device, dtype=torch.float32)
+        out[e] = (w * std).to(out.dtype)
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p = {
+        "router": dense_init(gen, d, e, cfg, scale=0.1),
+        "wg": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg),
+        "wu": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg),
+        "wd": _expert_normal(gen, (e, ff, d), ff**-0.5, cfg),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def _route(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """Top-k routing of the tokens xt [T, d]: (float32 router probabilities
+    [T, E], the gates [T, k] normalized over the k, the experts [T, k])."""
+    # bf16 @ float32 promotes to a float32 product in the reference
+    probs = _softmax(xt.float() @ p["router"].float())
+    # top-k by a stable descending sort: ties take the lower expert first
+    gate_vals, expert_idx = (t[:, : cfg.top_k] for t in torch.sort(
+        probs, dim=-1, descending=True, stable=True))
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-dispatch MoE (Switch/GShard) on one device: top-k routing
+    with a capacity; tokens past an expert's capacity fall through on the
+    residual path.  Returns (out in x's dtype, the float32 load-balancing
+    aux loss).  The reference's expert-parallel route (``_moe_apply_ep``)
+    runs only under a mesh; it comes with the parallel slice."""
+    b, s, d = x.shape
+    n_tok = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(8, int(cfg.capacity_factor * n_tok * k / e))
+    xt = x.reshape(n_tok, d).to(COMPUTE_DTYPE)
+
+    probs, gate_vals, expert_idx = _route(p, xt, cfg)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean(0)
+    ce = F.one_hot(expert_idx, e).sum(1).float().mean(0) / k
+    aux = e * torch.sum(me * ce)
+
+    # position of each (token, slot) within its expert, by a one-hot cumsum;
+    # the one-hot is [E, T*k] so the scan runs along its contiguous last
+    # axis (CUDA torch scans an outer axis column by column, serially)
+    eidx = expert_idx.reshape(-1)  # [T*k]
+    onehot = F.one_hot(eidx, e).T.contiguous()
+    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(0)
+    keep = pos < cap
+    gates = (gate_vals.reshape(-1) * keep).to(COMPUTE_DTYPE)
+    token_src = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+    safe_pos = torch.where(keep, pos, cap - 1)
+
+    # dispatch into [E, cap, d]: the kept rows, each once; a dropped row goes
+    # to a scratch slot (cap) that is never read
+    buf = torch.zeros((e, cap + 1, d), dtype=COMPUTE_DTYPE, device=x.device)
+    buf.view(e * (cap + 1), d)[eidx * (cap + 1) + torch.where(keep, pos, cap)] = xt[token_src]
+    buf = buf[:, :cap]
+    h = _silu(torch.bmm(buf, p["wg"].to(COMPUTE_DTYPE))) * torch.bmm(buf, p["wu"].to(COMPUTE_DTYPE))
+    yb = torch.bmm(h, p["wd"].to(COMPUTE_DTYPE))  # [E, cap, d]
+
+    # gather back: each token's k gated contributions added in slot order
+    contrib = (yb[eidx, safe_pos] * gates[:, None]).reshape(n_tok, k, d)
+    y = torch.zeros((n_tok, d), dtype=COMPUTE_DTYPE, device=x.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+# ------------------------------------------------------------------- RG-LRU
+def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    dev = gen.device
+    return {
+        "w_in_x": dense_init(gen, d, w, cfg),  # input branch
+        "w_in_g": dense_init(gen, d, w, cfg),  # gate branch
+        "conv": (torch.randn((cfg.conv_width, w), generator=gen, device=dev) * 0.1).to(
+            _pdtype(cfg)),
+        "wa": dense_init(gen, w, w, cfg, scale=0.5),  # recurrence gate
+        "wx": dense_init(gen, w, w, cfg, scale=0.5),  # input gate
+        "lam": torch.full((w,), 2.0, dtype=_pdtype(cfg), device=dev),  # softplus^-1(a)
+        "w_out": dense_init(gen, w, d, cfg),
+    }
+
+
+@dataclasses.dataclass
+class RecState:
+    """RG-LRU decode state: h [B, W] float32, conv [B, conv_width - 1, W]
+    the conv's tail.  Stacked groups carry a leading group axis."""
+
+    h: torch.Tensor
+    conv: torch.Tensor
+
+
+def _associative_scan(combine, elems: tuple, dim: int) -> tuple:
+    """``jax.lax.associative_scan`` over ``dim`` (>= 0), by its recursion:
+    combine neighbour pairs, scan the reduced sequence, then combine each
+    scanned pair with the next even element.  The same combine tree, so the
+    same products and sums in the same order."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    at = (slice(None),) * dim
+
+    def sl(start, stop=None, step=1):
+        return at + (slice(start, stop, step),)
+
+    odd = _associative_scan(combine, combine(tuple(t[sl(0, n - 1, 2)] for t in elems),
+                                             tuple(t[sl(1, None, 2)] for t in elems)), dim)
+    head = odd if n % 2 else tuple(t[sl(0, -1)] for t in odd)
+    even = combine(head, tuple(t[sl(2, None, 2)] for t in elems))
+    out = []
+    for t, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(t)
+        r[sl(0, 1)] = t[sl(0, 1)]
+        r[sl(2, None, 2)] = ev
+        r[sl(1, None, 2)] = od
+        out.append(r)
+    return tuple(out)
+
+
+def _lru_combine(lhs: tuple, rhs: tuple) -> tuple:
+    a1, b1 = lhs
+    a2, b2 = rhs
+    return a1 * a2, b1 * a2 + b2
+
+
+def _rglru_core(u: torch.Tensor, p: Params, h0: torch.Tensor, c: float = 8.0):
+    """u [B, S, W]; returns (y [B, S, W] in u's dtype, h_final [B, W]
+    float32), by the associative scan of h_t = a_t h_{t-1} + b_t."""
+    uc = u.float()
+    r = _sigmoid(uc @ p["wa"].float())
+    i = _sigmoid(uc @ p["wx"].float())
+    lam = p["lam"].float()
+    log_a0 = -torch.logaddexp(-lam, torch.zeros_like(lam))  # log sigmoid(lam); F.softplus cuts at 20
+    a = torch.exp(c * r * log_a0[None, None, :])
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * uc)
+    a_sc, b_sc = _associative_scan(_lru_combine, (a, b), dim=1)
+    h = b_sc + a_sc * h0[:, None, :].float()
+    return h.to(u.dtype), h[:, -1, :]
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation) op by op in x's dtype
+    (``F.gelu(approximate="tanh")`` rounds once)."""
+    c = torch.tensor(0.7978845608028654, dtype=x.dtype, device=x.device)  # sqrt(2 / pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * (x * x))))))
+
+
+def rglru_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    state: Optional[RecState] = None,
+) -> tuple[torch.Tensor, Optional[RecState]]:
+    """The recurrent block: a gelu gate branch, a short causal depthwise
+    conv and the RG-LRU on the input branch.  ``"decode"`` (one token)
+    writes the new h and conv tail into ``state`` in place and returns it;
+    ``"prefill"`` returns a new state, ``"train"`` none."""
+    b, s, _ = x.shape
+    w = cfg.lru_width or cfg.d_model
+    xc = x.to(COMPUTE_DTYPE)
+    u = xc @ p["w_in_x"].to(COMPUTE_DTYPE)  # [B, S, W]
+    g = _gelu(xc @ p["w_in_g"].to(COMPUTE_DTYPE))
+    cw = cfg.conv_width
+    conv = p["conv"].to(COMPUTE_DTYPE)
+    if mode == "decode":
+        assert state is not None
+        hist = torch.cat([state.conv.to(COMPUTE_DTYPE), u], dim=1)  # [B, cw, W]
+        conv_out = torch.einsum("bcw,cw->bw", hist, conv)[:, None, :]
+        y_core, h_fin = _rglru_core(conv_out, p, state.h)
+        state.h.copy_(h_fin)
+        state.conv.copy_(hist[:, 1:, :])
+        new_state = state
+    else:
+        up = torch.cat([torch.zeros((b, cw - 1, w), dtype=COMPUTE_DTYPE, device=x.device), u],
+                       dim=1)
+        stacked = torch.stack([up[:, i : i + s, :] for i in range(cw)], dim=2)  # [B, S, cw, W]
+        conv_out = torch.einsum("bscw,cw->bsw", stacked, conv)
+        h0 = torch.zeros((b, w), dtype=torch.float32, device=x.device) if state is None else state.h
+        y_core, h_fin = _rglru_core(conv_out, p, h0)
+        new_state = (RecState(h=h_fin, conv=up[:, -(cw - 1):, :].to(COMPUTE_DTYPE))
+                     if mode == "prefill" else None)
+    y = (y_core * g) @ p["w_out"].to(COMPUTE_DTYPE)
+    return y.to(x.dtype), new_state
+
+
+# -------------------------------------------------------------------- RWKV6
+def _wkv_chunked(r, k, v, w, u, s0, chunk: int):
+    """Chunked-parallel WKV6.  Within a chunk of C steps the decay
+    factorizes per channel, exp(cl_{t-1} - cl_u) = exp(cl_{t-1}) exp(-cl_u),
+    so the chunk's own contribution is an attention-like [C, C] product and
+    the state advances once a chunk; log-space cumsums with a -60 clamp keep
+    exp(-cl_u) finite.
+
+    r, k, v, w: [B, S, H, K] (w the per-step decay in (0, 1]); u: [H, K];
+    s0: [B, H, K, V] float32.  Returns (S_final, y [B, S, H*K] bf16)."""
+    b, s, h, kd = r.shape
+    nc = s // chunk
+    clamp = -60.0
+
+    def cshape(t):
+        return t.float().reshape(b, nc, chunk, h, kd).transpose(0, 1)  # [nc, B, C, H, K]
+
+    rf, kf, vf = cshape(r), cshape(k), cshape(v)
+    lw = torch.log(torch.clamp(cshape(w), 1e-38, 1.0))
+    cl = torch.cumsum(lw, dim=2)  # inclusive within-chunk cumulative log-decay
+    r_dec = rf * torch.exp(torch.clamp(cl - lw, min=clamp))
+    k_dec = kf * torch.exp(torch.clamp(-cl, min=clamp))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=r.device),
+                     diagonal=-1)[None, None]  # strict t > u
+    uu = u[None, None]  # [1, 1, H, K]
+    state, ys = s0, []
+    for c in range(nc):
+        rd, kdec, vv, cl_c, rraw, kraw = r_dec[c], k_dec[c], vf[c], cl[c], rf[c], kf[c]
+        y_inter = torch.einsum("bchk,bhkv->bchv", rd, state)
+        att = torch.einsum("bchk,bdhk->bhcd", rd, kdec) * tri  # c = t, d = u
+        y_intra = torch.einsum("bhcd,bdhv->bchv", att, vv)
+        y_diag = torch.sum(rraw * uu * kraw, dim=-1)[..., None] * vv
+        ys.append((y_inter + y_intra + y_diag).to(COMPUTE_DTYPE))
+        total = cl_c[:, -1]  # [B, H, K]
+        k_fold = kraw * torch.exp(torch.clamp(total[:, None] - cl_c, min=clamp))
+        state = state * torch.exp(total)[..., None] + torch.einsum("bchk,bchv->bhkv", k_fold, vv)
+    return state, torch.stack(ys, dim=1).reshape(b, s, h * kd)
+
+
+def rwkv_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, hk = cfg.d_model, cfg.rwkv_head_dim
+    h = d // hk
+    dev, pd = gen.device, _pdtype(cfg)
+    lora = max(32, d // 16)
+
+    def mix(n):
+        return (torch.rand((n, d), generator=gen, device=dev) * 0.5 + 0.25).to(pd)
+
+    return {
+        # token-shift mix coefficients (static lerp + data-dependent lora)
+        "mix_rkvwg": mix(5),
+        "w_lora_a": dense_init(gen, d, lora, cfg, scale=0.1),
+        "w_lora_b": dense_init(gen, lora, d, cfg, scale=0.1),
+        "decay_base": torch.full((h, hk), -6.0, dtype=pd, device=dev),
+        "bonus_u": torch.zeros((h, hk), dtype=pd, device=dev),
+        "wr": dense_init(gen, d, d, cfg),
+        "wk": dense_init(gen, d, d, cfg),
+        "wv": dense_init(gen, d, d, cfg),
+        "wg": dense_init(gen, d, d, cfg),
+        "wo": dense_init(gen, d, d, cfg),
+        "ln_x": rmsnorm_init(d, cfg, dev),
+        # channel-mix
+        "cm_mix": mix(2),
+        "cm_k": dense_init(gen, d, cfg.d_ff, cfg),
+        "cm_v": dense_init(gen, cfg.d_ff, d, cfg),
+        "cm_r": dense_init(gen, d, d, cfg),
+    }
+
+
+@dataclasses.dataclass
+class RwkvState:
+    """RWKV decode state: wkv [B, H, K, V] float32, shift_t and shift_c
+    [B, D] the last token of the time-mix and of the channel-mix."""
+
+    wkv: torch.Tensor
+    shift_t: torch.Tensor
+    shift_c: torch.Tensor
+
+
+def rwkv_apply(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    state: Optional[RwkvState] = None,
+) -> tuple[torch.Tensor, Optional[RwkvState]]:
+    """RWKV6 (Finch) block: time-mix with a data-dependent decay, then
+    channel-mix.  The WKV runs chunked when ``cfg.rwkv_chunked`` divides S
+    and S is at least two chunks, else step by step (decode's one token).
+    ``"decode"`` writes the new state into ``state`` in place and returns
+    it; ``"prefill"`` returns a new state, ``"train"`` none."""
+    b, s, d = x.shape
+    hk = cfg.rwkv_head_dim
+    h = d // hk
+    xc = x.to(COMPUTE_DTYPE)
+    zero = torch.zeros((b, 1, d), dtype=COMPUTE_DTYPE, device=x.device)
+    prev_t = state.shift_t.to(COMPUTE_DTYPE)[:, None, :] if state is not None else zero
+    x_prev = torch.cat([prev_t, xc[:, :-1, :]], dim=1)
+    mix = p["mix_rkvwg"].to(COMPUTE_DTYPE)  # [5, D]
+
+    def lerp(i):
+        return xc + (x_prev - xc) * mix[i][None, None, :]
+
+    def proj(i, name):
+        return (lerp(i) @ p[name].to(COMPUTE_DTYPE)).reshape(b, s, h, hk)
+
+    r, kk, vv = proj(0, "wr"), proj(1, "wk"), proj(2, "wv")
+    g = _silu(lerp(4) @ p["wg"].to(COMPUTE_DTYPE))
+    # data-dependent decay (v6): w = exp(-exp(base + lora(x)))
+    dd = (lerp(3) @ p["w_lora_a"].to(COMPUTE_DTYPE)) @ p["w_lora_b"].to(COMPUTE_DTYPE)
+    decay = torch.exp(-torch.exp(torch.clamp(
+        p["decay_base"].float().reshape(1, 1, d) + dd.float(), -20.0, 2.0))).reshape(b, s, h, hk)
+    u = p["bonus_u"].float()  # [H, K]
+    s0 = state.wkv.float() if state is not None else torch.zeros(
+        (b, h, hk, hk), dtype=torch.float32, device=x.device)
+
+    chunk = cfg.rwkv_chunked
+    if chunk and s >= 2 * chunk and s % chunk == 0:
+        s_fin, y = _wkv_chunked(r, kk, vv, decay, u, s0, chunk)
+    else:
+        s_fin, ys = s0, []
+        for t in range(s):
+            kv = torch.einsum("bhk,bhv->bhkv", kk[:, t].float(), vv[:, t].float())
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                                   s_fin + u[None, :, :, None] * kv).to(COMPUTE_DTYPE))
+            s_fin = s_fin * decay[:, t].float()[..., None] + kv
+        y = torch.stack(ys, dim=1)
+    y = rmsnorm(y.reshape(b, s, d), p["ln_x"], cfg.norm_eps) * g
+    att = (y @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+    # channel-mix (with its own shift)
+    xa = xc + att.to(COMPUTE_DTYPE)
+    prev_c = state.shift_c.to(COMPUTE_DTYPE)[:, None, :] if state is not None else zero
+    xa_prev = torch.cat([prev_c, xa[:, :-1, :]], dim=1)
+    cmix = p["cm_mix"].to(COMPUTE_DTYPE)
+    xk = xa + (xa_prev - xa) * cmix[0][None, None, :]
+    xr = xa + (xa_prev - xa) * cmix[1][None, None, :]
+    kq = torch.square(torch.relu(xk @ p["cm_k"].to(COMPUTE_DTYPE)))
+    cm = _sigmoid(xr @ p["cm_r"].to(COMPUTE_DTYPE)) * (kq @ p["cm_v"].to(COMPUTE_DTYPE))
+    out = (att.to(COMPUTE_DTYPE) + cm).to(x.dtype)
+
+    new_state = None
+    if mode == "decode":
+        assert state is not None
+        state.wkv.copy_(s_fin)
+        state.shift_t.copy_(xc[:, -1, :])
+        state.shift_c.copy_(xa[:, -1, :])
+        new_state = state
+    elif mode == "prefill":
+        new_state = RwkvState(wkv=s_fin, shift_t=xc[:, -1, :], shift_c=xa[:, -1, :])
+    return out, new_state

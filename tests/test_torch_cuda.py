@@ -9,8 +9,10 @@ codec (its base fit too), the KV store, a streamed SHRKS container and the
 analytics engine on the card against the CPU; the flash-attention,
 interval-stats and ladder (pyramid quant and reconstruct) kernels against
 their plain versions, the fused segment query step against its plain
-version, and the reduced dense model and its serve
-launcher on the card against the CPU route.  Without a card every test
+version, the reduced models of every family (MLA and MoE, RG-LRU,
+RWKV, cross-attention and the encoder) and the serve launcher on the card
+against the CPU route, the flash kernel at MLA's head dim with V padded,
+and the MoE's fixed summation order (bitwise the same twice).  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -632,6 +634,89 @@ def test_dense_model_on_card_equals_cpu(card):
         torch.testing.assert_close(getattr(c1, f).float().cpu(), getattr(c0, f).float(),
                                    atol=0.05, rtol=0.02)
     assert torch.equal(c1.kpos.cpu(), c0.kpos)
+    for a, b in zip(s1, s0):
+        torch.testing.assert_close(a.float().cpu(), b.float(), atol=0.1, rtol=0.05)
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 256, 4), (1, 512, 16)])
+def test_flash_attention_at_mla_head_dim_with_padded_v(card, b, s, h):
+    """MLA's prefill shape: q and k at nope + rope = 192, V of 128 padded
+    with zeros to 192.  The kernel within 3e-2 of its plain version, the
+    padded columns zero and the first 128 those of an unpadded attention."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q, k = (torch.randn((b, s, h, 192), device=card, generator=g).bfloat16() for _ in range(2))
+    v = torch.randn((b, s, h, 128), device=card, generator=g).bfloat16()
+    v_pad = torch.nn.functional.pad(v, (0, 64))
+    got = FA.flash_attention(q, k, v_pad, True)
+    want = FA.flash_attention_plain(q, k, v_pad, True)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
+                                                           scale=192**-0.5).transpose(1, 2)
+    torch.testing.assert_close(got[..., :128].float(), ref, atol=3e-2, rtol=3e-2)
+
+
+def test_moe_apply_on_card_is_deterministic(card):
+    """The dispatch writes each kept row once and the gather adds a token's
+    k contributions in slot order, so two runs on the card are bitwise
+    equal; the card holds the CPU route within atol 2**-4, rtol 2**-7
+    (cuBLAS and the CPU sum the bf16 expert products in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import layers as PL
+
+    cfg = dataclasses.replace(reduced_config(ARCHS["deepseek-v2-lite-16b"]), n_experts=16,
+                              top_k=6, capacity_factor=1.0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    p = PL.moe_init(gen, cfg)
+    x = torch.randn((4, 256, cfg.d_model), generator=gen).bfloat16()
+    pc = _to(p, card)
+    y1, a1 = PL.moe_apply(pc, x.to(card), cfg)
+    y2, a2 = PL.moe_apply(pc, x.to(card), cfg)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    y0, a0 = PL.moe_apply(p, x, cfg)
+    torch.testing.assert_close(a1.cpu(), a0, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y1.float().cpu(), y0.float(), atol=2**-4, rtol=2**-7)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b",
+                                  "recurrentgemma-9b", "rwkv6-1.6b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_model_family_on_card_equals_cpu(card, arch):
+    """Each new family reduced, the same params on both routes: the
+    prefill's logits and 8 decode steps' at the bounds of
+    tests/test_torch_models.py; one flash launch a decoder layer (every
+    layer of these archs with causal self-attention; none for RG-LRU's
+    local layers and RWKV)."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(ARCHS[arch])
+    m = build_model(cfg)
+    params = m.init(1, device="cpu")
+    on_card = _to(params, card)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal((2, 32, cfg.d_model))).float()
+    elif cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.vision_tokens, cfg.d_model))).float()
+    out = []
+    for dev, p in (("cpu", params), (card, on_card)):
+        ops.reset_launches()
+        logits, caches = m.prefill(p, {k: v.to(dev) for k, v in batch.items()})
+        launches = ops.launches["flash_attention"]
+        dec = m.make_decode_caches(2, 40, device=dev)
+        steps = [m.decode_step(p, toks[:, i : i + 1].to(dev), dec, i)[0] for i in range(8)]
+        out.append((logits, steps, launches))
+    (l0, s0, _), (l1, s1, launches) = out
+    flash_layers = {"hybrid": 0, "ssm": 0}.get(cfg.family, cfg.n_layers)
+    assert launches == flash_layers
+    torch.testing.assert_close(l1.float().cpu(), l0.float(), atol=0.1, rtol=0.05)
     for a, b in zip(s1, s0):
         torch.testing.assert_close(a.float().cpu(), b.float(), atol=0.1, rtol=0.05)
 
