@@ -178,13 +178,47 @@ result line):
    ``serve --mode model --arch deepseek-v2-lite-16b`` at the launcher's
    defaults and each other family ``--reduced``: every request served.
    The flash row carries each path's launches and the MLA check.
+13. training at qwen3-0.6b's full width (``src/repro/configs/qwen3_0_6b.py``:
+   28 layers, d_model 1024, 16 heads over 8 KV heads of 128, d_ff 3072,
+   vocab 151,936, qk_norm, tied embeddings, float32 params):
+   (a) the flash backward pair (``csrc/flash_attention_bwd.cu``) against
+   autograd through ``flash_attention_plain`` at q [2, 2048, 16, 128] over
+   8 KV heads and at MLA's [1, 1024, 16, 192] with V padded from 128, bf16,
+   causal: each gradient within 3e-2 of its largest |value|, two launches
+   the same bits; then timed at the training shape [2, 4096, 16/8, 128]
+   (events and a CUDA graph) beside its bound (5 products over the causal
+   pairs, 3.44e11 flop at 989 TFLOP/s), its plain version and SDPA's
+   backward (forward and backward less the forward; timed, never on the
+   path).  (b) qwen3-0.6b cut to its first 2 layers at full width, batch
+   1 x 2048: every gradient finite, one ``flash_attention_bwd`` launch a
+   layer, and each leaf within 6% of its largest |gradient| of the plain
+   attention route on the card and of the CPU route.  (c) ``launch.train
+   --arch qwen3-0.6b --steps 12 --batch 2 --seq 4096 --ckpt-every 100``
+   at full depth into a temporary directory (removed after): the launch
+   counts zeroed just before and read just after, every loss finite, the
+   last 4 below the first 4; the median step, tokens/s, peak memory and
+   the flash launches a step.  The cut: train_4k's batch 256 to 2 (one
+   card).  (d) at (b)'s cut, batch 2 x 512: 10 steps through the
+   ``TrainingRunner`` (checkpoints every 3) against a crash at step 7 and
+   a resume: the params equal leaf by leaf (``torch.equal``).  (e) two
+   ``make_compressed_train_step`` steps on a one-rank NCCL DeviceMesh with
+   a "pod" dimension: ``base_fit`` launched and equal to its plain version
+   on the step's first blocks, the elements where the exchange differs
+   from the CPU route's printed, the wire bytes.  (f) a ``shrink:1e-3``
+   checkpoint of (d)'s leaves of at most 65,536 elements (the per-series
+   codec takes minutes on a leaf of 10^8) on the card and the CPU route:
+   every SHRK leaf file equal, read back within eps; a ``MetricsLogger``
+   flush of (c)'s and (d)'s losses, read back losslessly; ``cone_scan``,
+   ``rans_encode`` and ``rans_decode`` launched.  The kernels line gains
+   the ``flash_attention_bwd`` row (launches: (c)'s run).
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
 With ``--trace DIR`` phase 8 also profiles an eighth of its ingest and
 128 of its analytics queries (torch.profiler: device busy share and top
 device ops; cProfile: the host functions with the most time), phases 9
-and 12 (deepseek) a prefill and four decode steps (torch.profiler), and a last
+and 12 (deepseek) a prefill and four decode steps (torch.profiler), phase
+13 one train step of qwen3-0.6b at full depth (torch.profiler), and a last
 phase times the main path stage by stage
 (the codec's own functions, called in its order) and traces one
 compress_batch and the lossless decode of 64 series with torch.profiler:
@@ -2238,6 +2272,399 @@ def families_path(ops, FA, serve, get_config, seed: int, dev,
 
 
 
+# ---------------------------------------------------------------- phase 13
+# training at qwen3-0.6b's full width (src/repro/configs/qwen3_0_6b.py)
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 12, 2, 4096  # train_4k's length; its batch 256 cut to 2
+TRAIN_CUT = 2  # layers of the cut model of (b), (d), (e) and (f)
+GRAD_BATCH, GRAD_SEQ = 1, 2048  # (b)
+RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 2, 512, 10, 3, 7  # (d)
+COMPRESSED_STEPS = 2  # (e)
+FLASH_BWD_TOL = 3e-2  # bf16: of each gradient's largest |value| (tests/test_torch_cuda.py)
+GRAD_REL = 0.06  # of each leaf's largest |gradient| (tests/test_torch_train_step.py)
+SHRINK_CKPT_LEAF_MAX = 1 << 16  # (f): the state's leaves the per-series codec takes here
+BWD_SHAPES = {"train": ((2, 2048, 16, 128), 8, 128), "mla": ((1, 1024, 16, 192), 16, 128)}
+
+
+def flash_bwd_case(FA, shape, kvh: int, v_dim: int, seed: int, dev):
+    """bf16 q [shape], k and v [B, S, kvh, D] (v zero-padded from v_dim),
+    the forward's output and a seeded dout."""
+    b, s, h, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(shape, device=dev, generator=g).bfloat16()
+    k = torch.randn((b, s, kvh, d), device=dev, generator=g).bfloat16()
+    v = torch.nn.functional.pad(torch.randn((b, s, kvh, v_dim), device=dev, generator=g),
+                                (0, d - v_dim)).bfloat16()
+    out = FA.flash_attention_cuda(q, k, v, True)
+    dout = torch.randn(shape, device=dev, generator=g).bfloat16()
+    if v_dim < d:
+        dout[..., v_dim:] = 0  # the model cuts the padded columns off
+    return q, k, v, out, dout
+
+
+def check_flash_bwd(FA, seed: int, dev) -> dict:
+    """(a): the backward pair against autograd through the plain version at
+    the cut model's shape and MLA's (V padded), then timed at the training
+    shape beside its bound and SDPA's backward (timed only)."""
+    errs = {}
+    for name, (shape, kvh, v_dim) in BWD_SHAPES.items():
+        case = flash_bwd_case(FA, shape, kvh, v_dim, seed, dev)
+        before = FA._build.launches["flash_attention_bwd"]
+        got = FA.flash_attention_bwd_cuda(*case, True)
+        check(FA._build.launches["flash_attention_bwd"] == before + 1,
+              "flash_attention_bwd did not count its launch")
+        want = FA.flash_attention_bwd_plain(*case, True)
+        errs[name] = {}
+        for grad, x, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((x.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            errs[name][grad] = {"max_abs_err": err, "max_abs": scale}
+            check(err <= FLASH_BWD_TOL * scale,
+                  f"flash_attention_bwd {name} {grad}: max err {err} over {FLASH_BWD_TOL} x {scale}")
+        again = FA.flash_attention_bwd_cuda(*case, True)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {name}: two launches differ")
+        del case, got, want, again
+        torch.cuda.empty_cache()
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 16, 128
+    q, k, v, out, dout = flash_bwd_case(FA, (b, s, h, d), 8, d, seed + 1, dev)
+    bwd = lambda: FA.flash_attention_bwd_cuda(q, k, v, out, dout, True)
+    ms = event_ms(bwd, 5)
+    gms = graph_ms(bwd, 3)
+    plain_ms = event_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, out, dout, True), 2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        y = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(y, (qt, kt, vt), dt)
+
+    with torch.no_grad():
+        sdpa_fwd_ms = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    sdpa_ms = event_ms(sdpa_fwd_bwd, 10)
+    pairs = s * (s + 1) // 2
+    nops = 10 * b * h * d * pairs  # 5 products over the causal pairs, a multiply and an add
+    nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) * 2
+    row = kernel_row("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                     "not a TPU kernel: the gradient of src/repro/kernels/flash_attention.py:31 "
+                     "(the reference differentiates XLA ops)", {"flash_attention_bwd": 0},
+                     max(e["max_abs_err"] for e in errs["train"].values()), ms, plain_ms,
+                     nbytes, nops, BF16_OPS_PER_S, [b, s, h, d, 8])
+    row.update(graph_ms=gms, library_ms=sdpa_ms - sdpa_fwd_ms,
+               library="scaled_dot_product_attention(is_causal=True, enable_gqa=True): forward "
+               "and backward less the forward", library_fwd_bwd_ms=sdpa_ms,
+               library_fwd_ms=sdpa_fwd_ms, dtype="bfloat16", tolerance=FLASH_BWD_TOL,
+               errors=errs, fraction_of_bound=row["bound_ms"] / gms,
+               vs_library=gms / (sdpa_ms - sdpa_fwd_ms))
+    print("flash_attention_bwd: " + json.dumps({k: row[k] for k in (
+        "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms", "errors")}), flush=True)
+    return row
+
+
+def train_batch(pipe, step: int, dev) -> dict:
+    return {k: torch.from_numpy(a).to(dev) for k, a in pipe.batch_at(step).items()}
+
+
+def check_model_grads(ops, FA, TS, m, params, pipe, dev) -> dict:
+    """(b): the cut model's gradients on the card (the flash kernel pair),
+    against the plain attention route on the card and the CPU route."""
+    from repro_torch.training._tree import leaves, tree_map
+
+    batch = train_batch(pipe, 0, dev)
+    before = ops.launches["flash_attention_bwd"]
+    loss, _, grads = TS._value_and_grad(m, params, batch)
+    bwd_launches = ops.launches["flash_attention_bwd"] - before
+    check(bwd_launches == TRAIN_CUT, f"flash_attention_bwd launched {bwd_launches} times "
+          f"for {TRAIN_CUT} layers")
+    flat = leaves(grads)
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in flat),
+          "a gradient of the cut model is missing or not finite")
+    kernel_route = ops.flash_attention
+    ops.flash_attention = FA.flash_attention_plain  # the plain route on the card, this call only
+    try:
+        _, _, plain = TS._value_and_grad(m, params, batch)
+    finally:
+        ops.flash_attention = kernel_route
+    to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)
+    (_, _, cpu), cpu_s = sync_time(lambda: TS._value_and_grad(m, to_cpu(params), to_cpu(batch)))
+    worst = {"plain_route": 0.0, "cpu_route": 0.0}
+    for g, p, c in zip(flat, leaves(plain), leaves(cpu)):
+        for name, w in (("plain_route", p), ("cpu_route", c.to(dev))):
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            worst[name] = max(worst[name], rel)
+    for name, rel in worst.items():
+        check(rel <= GRAD_REL, f"cut model gradients: {name} off by {rel} of a leaf's largest")
+    return {"loss": float(loss), "leaves": len(flat), "bwd_launches": bwd_launches,
+            "worst_rel_err": worst, "tolerance": GRAD_REL, "cpu_route_s": cpu_s}
+
+
+def train_entry_point(ops, train_mod, tmp: pathlib.Path) -> dict:
+    """(c): ``launch.train`` at full width and depth, with the launch counts
+    zeroed just before and read just after."""
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", "100", "--ckpt-dir", str(tmp / "ck")]
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, wall = sync_time(lambda: train_mod.main(argv))
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(out.getvalue().strip() + "\n" + err.getvalue().strip(), flush=True)
+    check(rc == 0, f"launch.train {' '.join(argv)} exited {rc}")
+    losses = [float(x) for x in re.findall(r"^step +\d+  loss (\S+)", out.getvalue(), re.M)]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"launch.train: losses {losses}")
+    check(np.mean(losses[-4:]) < np.mean(losses[:4]), f"launch.train: loss did not fall {losses}")
+    med = re.search(r"median step ([\d.]+) s, ([\d.]+) tokens/s", err.getvalue())
+    check(med is not None, "launch.train printed no step time")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched by launch.train")
+    return {"argv": argv, "wall_s": wall, "losses": losses, "median_step_s": float(med.group(1)),
+            "tokens_per_s": float(med.group(2)), "peak_memory_gb": peak / 1e9,
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_a_step": {k: launches[k] / TRAIN_STEPS
+                                for k in ("flash_attention", "flash_attention_bwd")},
+            "cut": {"batch": "256 -> 2 (one card)"}}
+
+
+def crash_resume(TS, FT, opt_mod, m, params, pipe, tmp: pathlib.Path, dev) -> tuple[dict, dict]:
+    """(d): an uninterrupted run against a crash at RESUME_FAIL and a resume
+    from the last checkpoint: the params equal leaf by leaf."""
+    from repro_torch.training._tree import leaves
+
+    step_fn = TS.make_train_step(m, None, opt_mod.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                             decay_steps=RESUME_STEPS))
+
+    def runner_step(state, batch):
+        p, o, metrics = step_fn(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, metrics
+
+    init = {"params": params, "opt": opt_mod.adamw_init(params)}
+    data = lambda step: train_batch(pipe, step, dev)
+    r1 = FT.TrainingRunner(runner_step, data, init, str(tmp / "a"), ckpt_every=RESUME_EVERY)
+    hist = r1.run(RESUME_STEPS)
+    r2 = FT.TrainingRunner(runner_step, data, init, str(tmp / "b"), ckpt_every=RESUME_EVERY,
+                           fail_at=RESUME_FAIL)
+    try:
+        r2.run(RESUME_STEPS)
+        fail("the crash at step RESUME_FAIL did not happen")
+    except RuntimeError as e:
+        check("simulated node failure" in str(e), f"unexpected failure {e}")
+    r3 = FT.TrainingRunner(runner_step, data, init, str(tmp / "b"), ckpt_every=RESUME_EVERY)
+    resumed_from = r3.start_step
+    hist3 = r3.run(RESUME_STEPS)
+    same = [torch.equal(a, b) for a, b in zip(leaves(r1.state["params"]),
+                                             leaves(r3.state["params"]))]
+    check(all(same), f"crash and resume: {same.count(False)} param leaves differ")
+    check(hist3 == hist[resumed_from:], "crash and resume: the resumed losses differ")
+    return {"steps": RESUME_STEPS, "fail_at": RESUME_FAIL, "resumed_from": resumed_from,
+            "param_leaves_equal": len(same), "losses": [h["loss"] for h in hist]}, r1
+
+
+def compressed_steps(ops, BF, GC, TS, opt_mod, m, params, pipe, dev) -> dict:
+    """(e): ``make_compressed_train_step`` on a one-rank NCCL DeviceMesh with
+    a "pod" dimension; base_fit against its plain version on the step's own
+    blocks, the exchange against the CPU route's."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.training._tree import leaves, tree_map
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        comp_cfg = GC.GradCompressConfig()
+        step = TS.make_compressed_train_step(m, mesh, opt_mod.AdamWConfig(lr=1e-3), comp_cfg)
+        fit = Recorder(ops, "base_fit")
+        exchange = Recorder(TS, "compressed_psum_tree")
+        before = ops.launches["base_fit"]
+        opt, ef = opt_mod.adamw_init(params), TS.make_ef_state(params)
+        p = params
+        losses = []
+        for s in range(COMPRESSED_STEPS):
+            p, opt, ef, metrics = step(p, opt, ef, train_batch(pipe, s, dev))
+            losses.append(float(metrics["loss"]))
+        fit.restore()
+        exchange.restore()
+        fit_launches = ops.launches["base_fit"] - before
+    finally:
+        dist.destroy_process_group()
+    check(fit_launches > 0, "base_fit was not launched by the compressed step")
+    check(all(np.isfinite(losses)), f"compressed step losses {losses}")
+    (xb,), _ = fit.args
+    got, want = BF.base_fit_cuda(xb), BF.base_fit_plain(xb)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "base_fit differs from its plain version on the compressed step's blocks")
+    (grads, ef0, cfg), kw = exchange.args
+    card, card_ef = GC.compressed_psum_tree(grads, ef0, cfg)
+    to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)
+    (cpu, cpu_ef), cpu_s = sync_time(lambda: GC.compressed_psum_tree(to_cpu(grads),
+                                                                     to_cpu(ef0), cfg))
+    differ = sum(int((a.cpu() != b).sum()) for a, b in zip(leaves(card) + leaves(card_ef),
+                                                          leaves(cpu) + leaves(cpu_ef)))
+    total = sum(a.numel() for a in leaves(card) + leaves(card_ef))
+    comp, raw = GC.compression_wire_bytes(params, comp_cfg)
+    return {"steps": COMPRESSED_STEPS, "losses": losses, "base_fit_launches": fit_launches,
+            "base_fit_blocks": list(xb.shape), "elements_differing_from_cpu_route": differ,
+            "elements": total, "cpu_route_s": cpu_s, "wire_bytes": comp, "raw_bytes": raw,
+            "ratio": raw / comp}
+
+
+def codec_in_training(ops, CK, ML, state, losses: dict, tmp: pathlib.Path, dev) -> dict:
+    """(f): a shrink:1e-3 checkpoint of (d)'s small leaves on the card and
+    on the CPU route (SHRK leaf files equal), read back on the card; a
+    MetricsLogger flush of (c)'s and (d)'s losses and its lossless read."""
+    from repro_torch.training._tree import leaves
+
+    before = dict(ops.launches)
+    small = {f"leaf{i:03d}": x for i, x in enumerate(leaves(state))
+             if x.numel() <= SHRINK_CKPT_LEAF_MAX}
+    CK.save_checkpoint(tmp / "card", 0, small, codec="shrink:1e-3")
+    CK.save_checkpoint(tmp / "cpu", 0, {k: x.cpu() for k, x in small.items()},
+                       codec="shrink:1e-3")
+    metas = json.loads((tmp / "card" / "step_0" / "manifest.json").read_text())["leaves"]
+    shrunk = [i for i, meta in enumerate(metas) if meta["codec"] == "shrink:1e-3"]
+    check(len(shrunk) >= 2, f"only {len(shrunk)} leaves went through SHRINK")
+    for i in shrunk:
+        check((tmp / "card" / "step_0" / f"leaf_{i}.bin").read_bytes()
+              == (tmp / "cpu" / "step_0" / f"leaf_{i}.bin").read_bytes(),
+              f"shrink checkpoint leaf {i}: card bytes differ from the CPU route's")
+    back, _ = CK.load_checkpoint(tmp / "card", small)
+    for meta, a, b in zip(metas, leaves(back), leaves(small)):
+        # within eps, plus the float32 rounding of the decoded value
+        err = float((a.double() - b.double()).abs().max())
+        bound = meta.get("eps", 0.0) + float(torch.finfo(torch.float32).eps * b.abs().max())
+        check(err <= bound, f"shrink checkpoint: a leaf read back {err} off (bound {bound})")
+    log = ML.MetricsLogger(tmp / "metrics", device=dev)
+    for name, vals in losses.items():
+        for i, v in enumerate(vals):
+            log.log(i, {name: v})
+    sizes = log.flush()
+    for name, vals in losses.items():
+        want = np.round(np.asarray(vals, dtype=np.float64), log.decimals)
+        check(np.array_equal(log.read(name), want), f"MetricsLogger {name}: not lossless")
+    launches = {k: ops.launches[k] - before[k] for k in ("cone_scan", "rans_encode",
+                                                         "rans_decode")}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the codec in training")
+    return {"shrink_leaves": len(shrunk), "leaves": len(metas),
+            "leaf_max_elements": SHRINK_CKPT_LEAF_MAX, "metrics_bytes": sizes,
+            "launches": launches}
+
+
+def profile_train_step(TS, opt_mod, build_model, cfg, seed: int, dev,
+                       out_dir: pathlib.Path) -> dict:
+    """Phase 13 under ``--trace``: one train step of the full model at (c)'s
+    batch, after a warm-up step, under torch.profiler: device busy share and
+    the device time by kernel (a Chrome trace in ``out_dir``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import TokenPipeline
+
+    m = build_model(cfg)
+    params = m.init(seed, device=dev)
+    opt = opt_mod.adamw_init(params)
+    step = TS.make_train_step(m, None, opt_mod.AdamWConfig())
+    batch = train_batch(TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ), 0, dev)
+    params, opt, _ = step(params, opt, batch)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "train_step_trace.json"
+    prof.export_chrome_trace(str(path))
+    busy_ms, ops_ms = device_busy(path)
+    res = {"wall_s": wall, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / wall,
+           "device_events": sum(r["calls"] for r in ops_ms.values()),
+           "top_device_ops": dict(sorted(ops_ms.items(), key=lambda kv: -kv[1]["device_ms"])[:12])}
+    (out_dir / "train_step_trace_summary.json").write_text(json.dumps(res, indent=1))
+    return res
+
+
+def training_path(ops, FA, BF, seed: int, dev,
+                  trace: pathlib.Path | None = None) -> tuple[dict, dict]:
+    """Phase 13: training at qwen3-0.6b's full width, (a)-(f) (and, under
+    ``--trace``, a profiled step of the full model).  Returns the stats and
+    the flash_attention_bwd kernel row."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import fault_tolerance as FT
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training import metrics as ML
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as TS
+
+    stats = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        t0 = time.perf_counter()
+        row = check_flash_bwd(FA, seed, dev)
+        stats["a_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+        m = build_model(cfg)
+        params = m.init(seed, device=dev)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=GRAD_BATCH, seq_len=GRAD_SEQ)
+        (stats["grads"], stats["b_s"]) = sync_time(lambda: check_model_grads(
+            ops, FA, TS, m, params, pipe, dev))
+        print("train grads: " + json.dumps(stats["grads"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        (stats["entry_point"], stats["c_s"]) = sync_time(lambda: train_entry_point(
+            ops, train_mod, tmp))
+        row["launches"] = stats["entry_point"]["launches"].get("flash_attention_bwd", 0)
+        row["launches_a_step"] = stats["entry_point"]["launches_a_step"]["flash_attention_bwd"]
+        shutil.rmtree(tmp / "ck", ignore_errors=True)
+        print("train entry point: " + json.dumps(stats["entry_point"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if trace is not None:
+            stats["trace"] = profile_train_step(TS, opt_mod, build_model,
+                                                get_config(TRAIN_ARCH), seed, dev, trace)
+            print("train step trace: " + json.dumps(stats["trace"]), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=RESUME_BATCH, seq_len=RESUME_SEQ)
+        ((stats["crash_resume"], r1), stats["d_s"]) = sync_time(lambda: crash_resume(
+            TS, FT, opt_mod, m, params, pipe, tmp, dev))
+        print("train crash and resume: " + json.dumps(stats["crash_resume"]), flush=True)
+
+        (stats["compressed"], stats["e_s"]) = sync_time(lambda: compressed_steps(
+            ops, BF, GC, TS, opt_mod, m, params, pipe, dev))
+        print("train compressed step: " + json.dumps(stats["compressed"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        losses = {"train_loss": stats["entry_point"]["losses"],
+                  "resume_loss": stats["crash_resume"]["losses"]}
+        (stats["codec"], stats["f_s"]) = sync_time(lambda: codec_in_training(
+            ops, CK, ML, r1.state, losses, tmp, dev))
+        print("train codec: " + json.dumps(stats["codec"]), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stats, row
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--series", type=int, default=1024)
@@ -2383,6 +2810,19 @@ def main() -> None:
         f"{arch} prefill (phase 12)": st["flash_launches"] for arch, st in families.items()}
     flash_row["mla"] = mla
     print("flash_attention at the MLA shape: " + json.dumps(mla), flush=True)
+
+    torch.cuda.empty_cache()
+
+    # phase 13: training at qwen3-0.6b's full width and depth (the flash
+    # backward, the train step, checkpoints, crash and resume, the
+    # compressed exchange, the codec in training)
+    (train_stats, bwd_row), phase_s = sync_time(lambda: training_path(ops, FA, BF, args.seed,
+                                                                      dev, args.trace))
+    print(f"training: {phase_s:.3f} s", flush=True)
+    rows.append(bwd_row)
+    flash_row["launches_by_path"]["train (phase 13)"] = train_stats["entry_point"][
+        "launches"]["flash_attention"]
+    torch.cuda.empty_cache()
 
     if args.trace is not None:
         trace = trace_main_path(P, values, stats["codec"], dev, args.trace)

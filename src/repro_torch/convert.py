@@ -19,7 +19,9 @@ never a ``repro`` object, so this module imports nothing of ``repro``:
   :func:`decode_caches_from_reference` a whole cache tree of them and of
   the other cache dataclasses (``MLACache``, ``RecState``, ``RwkvState``);
 * :func:`model_params_from_reference` takes a reference params pytree as
-  nested dicts and lists of numpy arrays.
+  nested dicts and lists of numpy arrays, and
+  :func:`opt_state_from_reference` a reference AdamW state (its m and v
+  trees and its step) the same way.
 
 bf16 arrays come as numpy's ``bfloat16`` extension type (what
 ``np.asarray`` makes of a bf16 JAX array) or as float32 arrays holding
@@ -47,6 +49,7 @@ __all__ = [
     "decode_caches_from_reference",
     "knowledge_base_from_reference",
     "model_params_from_reference",
+    "opt_state_from_reference",
     "series_from_reference",
 ]
 
@@ -141,6 +144,18 @@ def model_params_from_reference(tree, device=None):
     if a.dtype.name == "bfloat16":
         return _bf16(a, device)
     return torch.from_numpy(a).to(device)
+
+
+def opt_state_from_reference(state, device=None) -> dict:
+    """The port's AdamW state of a reference ``adamw_init`` / ``adamw_update``
+    state given as ``{"m": tree, "v": tree, "step": scalar}`` of numpy
+    arrays: float32 moments and an int32 step."""
+    device = resolve_device(device)
+    return {
+        "m": model_params_from_reference(state["m"], device),
+        "v": model_params_from_reference(state["v"], device),
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }
 
 
 # the fields of each reference cache dataclass -> the port's class

@@ -1,7 +1,7 @@
 """Data for the port, counterpart of ``repro.data``: the synthetic series
 and the ragged gateway traffic (``synthetic``, a numpy copy of the
-reference's).  ``ShardStore`` and ``TokenPipeline`` come with the
-training slice (ROADMAP queue 1 item 4)."""
+reference's), the token pipeline and the SHRINK shard store
+(``pipeline``)."""
 from .synthetic import (  # noqa: F401
     DATASETS,
     DatasetSpec,
@@ -9,3 +9,4 @@ from .synthetic import (  # noqa: F401
     load,
     ragged_sensor_traffic,
 )
+from .pipeline import ShardStore, TokenPipeline  # noqa: F401

@@ -29,7 +29,7 @@ __all__ = ["KERNELS", "build_all", "check", "function", "launches", "reset_launc
 
 KERNELS = (
     "cone_scan", "rans", "residual_quant", "dequant", "base_fit", "segment_agg", "flash_attention",
-    "interval_stats", "pyramid_quant", "pyramid_reconstruct",
+    "interval_stats", "pyramid_quant", "pyramid_reconstruct", "flash_attention_bwd",
 )
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 launches: dict[str, int] = {
     "cone_scan": 0, "rans_encode": 0, "rans_decode": 0, "residual_quant": 0, "dequant": 0,
     "base_fit": 0, "segment_agg": 0, "segment_query": 0, "flash_attention": 0,
-    "interval_stats": 0, "pyramid_quant": 0, "pyramid_reconstruct": 0,
+    "interval_stats": 0, "pyramid_quant": 0, "pyramid_reconstruct": 0, "flash_attention_bwd": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -22,6 +22,18 @@ pointers.
 float32 takes the scalar kernel (CUDA cores, float32 products), within
 2e-5.  ``flash_attention_plain`` is the oracle's arithmetic (float32
 scores, -1e30 masking, a float32 softmax and float32 ``p @ v``).
+
+The gradient (training) is the kernel pair of ``csrc/flash_attention_bwd.cu``
+behind a ``torch.autograd.Function``: its forward launches the forward
+kernel and saves q, k, v and the output, its backward launches the pair
+(``flash_attention_bwd_cuda``), which recomputes each row's softmax
+statistics and writes dq, dk and dv with no atomics (one summation order,
+the same bits every run).  The wrapper goes through that Function for a
+CUDA tensor; on the CPU the plain version is differentiable as it is.
+``flash_attention_cuda`` itself records nothing for autograd, so it
+raises for an input that requires grad while grad mode is on.
+``flash_attention_bwd_plain`` (autograd through the plain version) is the
+backward kernel's oracle.
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_plain", "flash_attention_cuda", "flash_attention_plain"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
@@ -55,9 +68,7 @@ _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_i
                                                         ctypes.c_void_p]
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True):
-    """Launch ``csrc/flash_attention.cu``; same contract as
-    :func:`flash_attention_plain`."""
+def _check(q, k, v) -> None:
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bf16 q, k, v; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -72,6 +83,18 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention takes an even head dim up to {MAX_HEAD_DIM}, got {d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True):
+    """Launch ``csrc/flash_attention.cu``; same contract as
+    :func:`flash_attention_plain`.  No gradient: an input that requires
+    grad raises while grad mode is on (the wrapper's Function carries it)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_cuda records no gradient: call flash_attention "
+                           "(its autograd Function) for inputs that require grad")
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -87,11 +110,81 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
     return out
 
 
+def flash_attention_bwd_plain(q, k, v, out, dout, causal: bool = True):
+    """(dq, dk, dv) in the inputs' dtype: autograd through
+    :func:`flash_attention_plain` (``out`` is not needed there)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        y = flash_attention_plain(*leaves, causal)
+        return torch.autograd.grad(y, leaves, dout)
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                           ctypes.c_void_p]
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True):
+    """Launch the pair of ``csrc/flash_attention_bwd.cu`` (dq over query
+    tiles, then dk and dv over key tiles); same contract as
+    :func:`flash_attention_bwd_plain`."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
+            or dout.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: out and dout must be q's shape and dtype")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if sk == 0:
+        return dq.zero_(), dk, dv
+    if b * sq * h == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _build.function("flash_attention_bwd", f"flash_attention_bwd_{_SUFFIX[q.dtype]}",
+                         _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            b, sq, sk, h, kvh, d, d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "flash_attention_bwd")
+    _build.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True):
+    """The backward wrapper: the kernel pair for a CUDA tensor, autograd
+    through the plain version for a CPU tensor."""
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    return flash_attention_bwd_plain(q, k, v, out, dout, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention_cuda(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = True):
-    """The wrapper: the kernel for a CUDA tensor, the plain version for a
+    """The wrapper: the kernel (through its autograd Function, whose
+    backward is the kernel pair) for a CUDA tensor, the plain version for a
     CPU tensor.  Returns [B, Sq, H, D] in q's dtype."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal)
+        return _FlashAttention.apply(q, k, v, causal)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     return flash_attention_plain(q, k, v, causal)

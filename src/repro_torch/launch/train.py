@@ -1,0 +1,108 @@
+"""Training launcher of the port, counterpart of ``repro.launch.train``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --steps 100 --batch 8 --seq 256 --ckpt-dir DIR [--reduced] [--device cpu]
+
+Trains the config (``--reduced``: the same family cut small) on one device
+(``--device``, default ``cuda``; ``cpu`` runs the kernels' plain versions)
+from params drawn from seed 0, on ``TokenPipeline`` batches.  It resumes
+from the newest checkpoint in ``--ckpt-dir``; data is a pure function of
+the step index, so a restart lands on the same bits (``--ckpt-dir``
+defaults to ``repro_train_ckpt`` in the temporary directory).  ``--ckpt-codec``
+defaults to the best exact codec that imports (``zstd``, else ``none``).
+``--production`` (the reference's 16 x 16 mesh) comes with the mesh port
+(ROADMAP queue 1 item 5) and raises ``ConfigError``.
+
+Standard output carries the reference's lines; standard error one more,
+the median time of a step (from one step's start to the next's, which
+takes in the runner's read-back of the step's metrics) and the tokens a
+second it gives.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+import torch
+
+from ..configs import get_config, reduced_config
+from ..core.device import resolve_device
+from ..core.errors import ConfigError
+from ..data.pipeline import TokenPipeline
+from ..models import build_model
+from ..training._tree import leaves
+from ..training.checkpoint import default_codec
+from ..training.fault_tolerance import TrainingRunner
+from ..training.optimizer import AdamWConfig, adamw_init
+from ..training.train_step import make_train_step
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-codec", default=None,
+                    help="none | zstd | shrink:<frac> (default: zstd where it imports, else none)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--production", action="store_true",
+                    help="16x16 production mesh (not ported: ROADMAP queue 1 item 5)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.production:
+        raise ConfigError("--production needs the mesh port (ROADMAP queue 1 item 5)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    model = build_model(cfg)
+    mesh = {"data": 1, "model": 1}
+
+    params = model.init(0, device=dev)
+    n = sum(p.numel() for p in leaves(params))
+    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={mesh}")
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
+                          decay_steps=args.steps)
+    step_fn = make_train_step(model, None, opt_cfg)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=args.batch, seq_len=args.seq)
+
+    starts: list[float] = []
+
+    def runner_step(state, batch):
+        starts.append(time.perf_counter())
+        p, o, metrics = step_fn(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, metrics
+
+    def data_fn(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+    runner = TrainingRunner(
+        runner_step, data_fn, {"params": params, "opt": adamw_init(params)},
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        codec=args.ckpt_codec if args.ckpt_codec is not None else default_codec(),
+    )
+    hist = runner.run(args.steps)
+    for h in hist[:: max(1, len(hist) // 12)]:
+        print(f"step {h['step']:5d}  loss {h['loss']:.4f}  gnorm {h['grad_norm']:.3f}")
+    if hist:  # a resume at or past --steps runs nothing
+        print(f"final loss {hist[-1]['loss']:.4f}")
+    if len(starts) > 1:
+        med = statistics.median(b - a for a, b in zip(starts, starts[1:]))
+        print(f"train: {len(hist)} steps on {dev}, median step {med:.4f} s, "
+              f"{args.batch * args.seq / med:.1f} tokens/s", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,6 +14,16 @@ layout, and decode writes into them in place.
 
 Modes: ``"train"`` (no caches), ``"prefill"`` (emit caches and states),
 ``"decode"`` (one token step against caches and states).
+
+In ``"train"`` mode each stack's groups come from one ``torch.unbind`` (its
+backward writes the stack's gradient once, where a ``tree[g]`` a group
+would write a full-size zero tensor a group), and ``cfg.remat`` recomputes
+each group position's block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
+scan body in ``jax.checkpoint``: the ``"nothing"`` policy (keep only the
+block's input).  The ``"dots"`` policy (keep the matmul outputs) is not
+ported: no config uses it, and it raises ``ConfigError`` (ROADMAP queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -21,8 +31,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.errors import ConfigError
 from .layers import (
     COMPUTE_DTYPE,
     AttnCache,
@@ -247,6 +259,42 @@ def _at(tree, g: int):
     return tree[g]
 
 
+def _unbind(tree: dict, n: int) -> list[dict]:
+    """The n groups of a stacked params tree, one ``torch.unbind`` a stack."""
+    per = {k: _unbind(v, n) if isinstance(v, dict) else torch.unbind(v) for k, v in tree.items()}
+    return [{k: per[k][g] for k in tree} for g in range(n)]
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether ``"train"`` mode recomputes each block in the backward pass."""
+    if cfg.remat and cfg.remat_policy != "nothing":
+        raise ConfigError(f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
+                          "(ROADMAP queue 1 item 5); the port recomputes whole blocks "
+                          "(\"nothing\")")
+    return cfg.remat
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
+def _train_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, positions,
+                 cross_source, encoder: bool = False):
+    """One block in ``"train"`` mode: (x, aux), recomputed in the backward
+    pass under ``cfg.remat`` when autograd records it."""
+    def fn(p, x):
+        y, _, aux = block_apply(p, x, cfg, kind, mode="train", positions=positions,
+                                cross_source=cross_source, encoder=encoder)
+        return y, aux
+
+    graph = torch.is_grad_enabled() and (x.requires_grad or _requires_grad(p))
+    if graph and _remat(cfg):
+        return checkpoint(fn, p, x, use_reentrant=False, preserve_rng_state=False)
+    return fn(p, x)
+
+
 def make_decode_caches(cfg: ModelConfig, batch: int, max_seq: int, cross_len: int = 0,
                        device=None) -> dict:
     """Cache tree: prefix list + stacked groups (one entry a group position)
@@ -343,7 +391,14 @@ def apply_stack(
     new_prefix = [run(pp, _block_kind(cfg, i), caches["prefix"][i] if caches else None)
                   for i, pp in enumerate(params["prefix"])]
     new_groups: dict = {}
-    if "groups" in params:
+    if "groups" in params and mode == "train":
+        n_groups = params["groups"]["pos0"]["ln1"].shape[0]
+        stacks = [_unbind(params["groups"][f"pos{p}"], n_groups) for p in range(len(group))]
+        for g in range(n_groups):
+            for p, kind in enumerate(group):
+                x, aux = _train_block(stacks[p][g], x, cfg, kind, positions, cross_source)
+                aux_total = aux_total + aux
+    elif "groups" in params:
         n_groups = params["groups"]["pos0"]["ln1"].shape[0]
         emitted: dict = {f"pos{p}": [] for p in range(len(group))}
         for g in range(n_groups):
@@ -371,9 +426,8 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     b, s = frames.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device)[None].expand(b, s)
     enc = params["encoder"]
-    for g in range(enc["ln1"].shape[0]):
-        x, _, _ = block_apply(_at(enc, g), x, cfg, "attn", mode="train", positions=positions,
-                              encoder=True)
+    for p in _unbind(enc, enc["ln1"].shape[0]):
+        x, _ = _train_block(p, x, cfg, "attn", positions, None, encoder=True)
     return rmsnorm(x, params["enc_ln_f"], cfg.norm_eps)
 
 

@@ -12,7 +12,11 @@ their plain versions, the fused segment query step against its plain
 version, the reduced models of every family (MLA and MoE, RG-LRU,
 RWKV, cross-attention and the encoder) and the serve launcher on the card
 against the CPU route, the flash kernel at MLA's head dim with V padded,
-and the MoE's fixed summation order (bitwise the same twice).  Without a card every test
+and the MoE's fixed summation order (bitwise the same twice); for
+training, the flash backward kernel pair against autograd through the
+plain version (and the same bits twice), the raw forward kernel raising on
+an input that requires grad, and the train step's gradients on the card
+(the same bits twice, near the CPU route's).  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -818,3 +822,76 @@ def test_four_shard_fleet_on_card_equals_cpu(card):
     for name in ("cone_scan", "rans_encode", "rans_decode", "segment_query"):
         assert ops.launches[name] > 0, name
     assert got == _fleet_run("cpu")
+
+
+# ------------------------------------------- training: the flash backward
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of the largest |gradient|
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 130, 130, 4, 2, 64, True), (1, 200, 77, 2, 2, 128, False), (1, 96, 96, 4, 1, 16, True),
+    (1, 70, 70, 2, 1, 192, True), (1, 65, 100, 2, 2, 256, False), (2, 256, 256, 16, 8, 128, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_equals_plain(card, b, sq, sk, h, kv, d, causal, dtype):
+    """dq, dk, dv of the kernel pair against autograd through the plain
+    version: float32 within 1e-4 and bf16 within 3e-2 of each gradient's
+    largest |value| (float32 sums in other orders; in bf16 also delta from
+    the bf16 output); two launches give the same bits."""
+    g = torch.Generator(device=card).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), device=card, generator=g).to(dtype)
+    k, v = (torch.randn((b, sk, kv, d), device=card, generator=g).to(dtype) for _ in range(2))
+    dout = torch.randn((b, sq, h, d), device=card, generator=g).to(dtype)
+    out = FA.flash_attention_cuda(q, k, v, causal)
+    before = ops.launches["flash_attention_bwd"]
+    got = FA.flash_attention_bwd(q, k, v, out, dout, causal)
+    assert ops.launches["flash_attention_bwd"] == before + 1
+    want = FA.flash_attention_bwd_plain(q, k, v, out, dout, causal)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        err = (x.float() - w.float()).abs().max().item()
+        assert err <= FLASH_BWD_TOL[dtype] * w.float().abs().max().item(), err
+    again = FA.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_attention_autograd_on_card_and_the_raw_kernel_raises(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((1, 64, 2, 32), device=card, generator=g).bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        FA.flash_attention_cuda(q, k, v, True)
+    with torch.no_grad():
+        FA.flash_attention_cuda(q, k, v, True)  # nothing to record
+    before = dict(ops.launches)
+    y = ops.flash_attention(q, k, v, causal=True)
+    dout = torch.randn_like(y)
+    grads = torch.autograd.grad(y, (q, k, v), dout)
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert ops.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = FA.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), y.detach(), dout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_train_step_on_card_is_deterministic_and_near_cpu(card):
+    """Reduced qwen3-0.6b: the card's gradients are the same bits twice (no
+    atomics on the path) and within 6% of each leaf's largest |gradient| of
+    the CPU route's (tests/test_torch_train_step.py's bound)."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.training._tree import leaves, tree_map
+    from repro_torch.training.train_step import _value_and_grad
+
+    cfg = reduced_config(ARCHS["qwen3-0.6b"])
+    m = build_model(cfg)
+    params = m.init(0, device="cpu")
+    batch = {k: torch.from_numpy(a) for k, a in
+             TokenPipeline(vocab_size=cfg.vocab_size, batch=2, seq_len=128).batch_at(0).items()}
+    to = lambda t: tree_map(lambda x: x.to(card), t)
+    _, _, g1 = _value_and_grad(m, to(params), to(batch))
+    _, _, g2 = _value_and_grad(m, to(params), to(batch))
+    _, _, gc = _value_and_grad(m, params, batch)
+    for a, b, c in zip(leaves(g1), leaves(g2), leaves(gc)):
+        assert torch.equal(a, b)
+        assert (a.cpu() - c).abs().max() <= 0.06 * c.abs().max()

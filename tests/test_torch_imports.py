@@ -30,6 +30,11 @@ def test_fresh_import_leaves_jax_and_repro_out():
         "import repro_torch.testing.chaos, repro_torch.parallel, repro_torch.parallel.fleet\n"
         "import repro_torch.serving.ragged, repro_torch.serving.kbstore\n"
         "import repro_torch.serving.gateway, repro_torch.serving.fleet\n"
+        "import repro_torch.training, repro_torch.training.optimizer\n"
+        "import repro_torch.training.train_step, repro_torch.training.grad_compress\n"
+        "import repro_torch.training.checkpoint, repro_torch.training.fault_tolerance\n"
+        "import repro_torch.training.metrics, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n"

@@ -32,16 +32,18 @@ import repro_torch.core as P
 from repro_torch.kernels import ops
 
 PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops", "data", "testing",
-          "parallel"]
+          "parallel", "training", "training.optimizer", "training.train_step",
+          "training.grad_compress", "training.checkpoint", "training.fault_tolerance",
+          "training.metrics", "data.pipeline"]
 
 WAIVERS = {
     "core": {
         # the TPU cone scan's Pallas entry; the port's batch scan is the kernel route
         "extract_semantics_batch_pallas": "Pallas only (the cone scan is csrc/cone_scan.cu)",
     },
-    "data": {
-        name: "ROADMAP queue 1 item 4 (training and data: data/pipeline.py)"
-        for name in ("ShardStore", "TokenPipeline")
+    "training.train_step": {
+        name: "ROADMAP queue 1 item 5 (parallel: the GSPMD spec maps come with the mesh port)"
+        for name in ("batch_specs", "cache_specs", "train_state_specs")
     },
     "parallel": {
         name: "ROADMAP queue 1 item 5 (parallel: sharding.py, partition.py)"
@@ -53,6 +55,16 @@ WAIVERS = {
     },
 }
 
+
+# public functions outside the reference module's ``__all__`` that a later
+# item brings: the reference has them, the port does not yet.  Two more
+# item-5 gaps are behaviours, pinned by their own tests: ``remat_policy=
+# "dots"`` raises ConfigError (tests/test_torch_train_step.py) and so does
+# ``launch.train --production`` (tests/test_torch_launch_train.py).
+LATER_NAMES = {
+    ("training.grad_compress", "make_crosspod_exchange"):
+        "ROADMAP queue 1 item 5 (parallel: a manual shard_map over the whole mesh)",
+}
 
 ROUTE_SWITCHES = {"force_ref", "route", "block_t", "use_kernel"}
 
@@ -80,6 +92,12 @@ def test_every_reference_name_exists_in_the_port(pkg):
     assert missing == []
     # a waiver names a name the reference has and the port still lacks
     assert all(n in _public(ref) and not hasattr(port, n) for n in waived)
+
+
+@pytest.mark.parametrize("mod,name", sorted(LATER_NAMES))
+def test_later_names_are_the_references_and_not_yet_the_ports(mod, name):
+    assert hasattr(importlib.import_module(f"repro.{mod}"), name)
+    assert not hasattr(importlib.import_module(f"repro_torch.{mod}"), name)
 
 
 def _params(fn):
