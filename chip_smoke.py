@@ -181,23 +181,30 @@ result line):
 13. training at qwen3-0.6b's full width (``src/repro/configs/qwen3_0_6b.py``:
    28 layers, d_model 1024, 16 heads over 8 KV heads of 128, d_ff 3072,
    vocab 151,936, qk_norm, tied embeddings, float32 params):
-   (a) the flash backward pair (``csrc/flash_attention_bwd.cu``) against
-   autograd through ``flash_attention_plain`` at q [2, 2048, 16, 128] over
-   8 KV heads and at MLA's [1, 1024, 16, 192] with V padded from 128, bf16,
-   causal: each gradient within 3e-2 of its largest |value|, two launches
-   the same bits; then timed at the training shape [2, 4096, 16/8, 128]
-   (events and a CUDA graph) beside its bound (5 products over the causal
-   pairs, 3.44e11 flop at 989 TFLOP/s), its plain version and SDPA's
-   backward (forward and backward less the forward; timed, never on the
-   path).  (b) qwen3-0.6b cut to its first 2 layers at full width, batch
-   1 x 2048: every gradient finite, one ``flash_attention_bwd`` launch a
+   (a) the flash backward pair (``csrc/flash_attention_bwd.cu``), given
+   the forward's lse, against autograd through ``flash_attention_plain``
+   at q [2, 2048, 16, 128] over 8 KV heads and at MLA's [1, 1024, 16, 192]
+   with V padded from 128, bf16, causal (each gradient within 3e-2 of its
+   largest |value|), and at a small float32 shape on the scalar route
+   (1e-4); two launches the same bits; each case's route printed (the
+   bf16 shapes must take the tensor cores, float32 the scalar pair);
+   then timed at the training shape [2, 4096, 16/8, 128] (events and a
+   CUDA graph) beside the scalar pair's, its bound (5 products over the
+   causal pairs, 3.44e11 flop at 989 TFLOP/s) and the pair's 7-product
+   floor (both as fractions), its plain version and SDPA's backward
+   (forward and backward less the forward; timed, never on the path).
+   (b) qwen3-0.6b cut to its first 2 layers at full width, batch 1 x
+   2048: every gradient finite, one ``flash_attention_bwd`` launch a
    layer, and each leaf within 6% of its largest |gradient| of the plain
-   attention route on the card and of the CPU route.  (c) ``launch.train
+   attention route on the card and of the CPU route (the worst printed
+   beside the scalar pair's).  (c) ``launch.train
    --arch qwen3-0.6b --steps 12 --batch 2 --seq 4096 --ckpt-every 100``
    at full depth into a temporary directory (removed after): the launch
    counts zeroed just before and read just after, every loss finite, the
-   last 4 below the first 4; the median step, tokens/s, peak memory and
-   the flash launches a step.  The cut: train_4k's batch 256 to 2 (one
+   last 4 below the first 4; the median step, tokens/s (both beside the
+   scalar pair's), each step's time, peak memory and the flash launches a
+   step.
+   The cut: train_4k's batch 256 to 2 (one
    card).  (d) at (b)'s cut, batch 2 x 512: 10 steps through the
    ``TrainingRunner`` (checkpoints every 3) against a crash at step 7 and
    a resume: the params equal leaf by leaf (``torch.equal``).  (e) two
@@ -2283,53 +2290,75 @@ COMPRESSED_STEPS = 2  # (e)
 FLASH_BWD_TOL = 3e-2  # bf16: of each gradient's largest |value| (tests/test_torch_cuda.py)
 GRAD_REL = 0.06  # of each leaf's largest |gradient| (tests/test_torch_train_step.py)
 SHRINK_CKPT_LEAF_MAX = 1 << 16  # (f): the state's leaves the per-series codec takes here
-BWD_SHAPES = {"train": ((2, 2048, 16, 128), 8, 128), "mla": ((1, 1024, 16, 192), 16, 128)}
+# name -> (q shape, KV heads, V's width before its zero padding, dtype):
+# the cut model's shape and MLA's on the bf16 tensor-core route, a small
+# float32 case on the scalar one
+BWD_SHAPES = {"train": ((2, 2048, 16, 128), 8, 128, torch.bfloat16),
+              "mla": ((1, 1024, 16, 192), 16, 128, torch.bfloat16),
+              "f32": ((1, 384, 4, 64), 2, 64, torch.float32)}
+FLASH_BWD_F32_TOL = 1e-4  # float32 (tests/test_torch_cuda.py)
+# the numbers with the scalar backward pair, before the tensor-core one
+# (PERF.md sections 5 and 6; H100 80GB HBM3, 700 W): the pair at [2, 4096,
+# 16/8, 128] in two runs, the cut model's worst leaf against the CPU route,
+# and launch.train's median step
+FLASH_BWD_PREV = {"scalar pair": {"ms": [38.37, 38.37], "graph_ms": [38.31, 38.31]}}
+GRAD_CPU_REL_PREV = {"scalar pair": 0.0065}
+TRAIN_STEP_PREV = {"scalar pair": {"median_step_s": [1.4387, 1.4506],
+                                   "tokens_per_s": [5647.4, 5693.8]}}
 
 
-def flash_bwd_case(FA, shape, kvh: int, v_dim: int, seed: int, dev):
-    """bf16 q [shape], k and v [B, S, kvh, D] (v zero-padded from v_dim),
-    the forward's output and a seeded dout."""
+def flash_bwd_case(FA, shape, kvh: int, v_dim: int, seed: int, dev, dtype=torch.bfloat16):
+    """q [shape], k and v [B, S, kvh, D] (v zero-padded from v_dim), the
+    forward's output and lse, and a seeded dout."""
     b, s, h, d = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(shape, device=dev, generator=g).bfloat16()
-    k = torch.randn((b, s, kvh, d), device=dev, generator=g).bfloat16()
+    q = torch.randn(shape, device=dev, generator=g).to(dtype)
+    k = torch.randn((b, s, kvh, d), device=dev, generator=g).to(dtype)
     v = torch.nn.functional.pad(torch.randn((b, s, kvh, v_dim), device=dev, generator=g),
-                                (0, d - v_dim)).bfloat16()
-    out = FA.flash_attention_cuda(q, k, v, True)
-    dout = torch.randn(shape, device=dev, generator=g).bfloat16()
+                                (0, d - v_dim)).to(dtype)
+    out, lse = FA._flash_attention_fwd_cuda(q, k, v, True)
+    dout = torch.randn(shape, device=dev, generator=g).to(dtype)
     if v_dim < d:
         dout[..., v_dim:] = 0  # the model cuts the padded columns off
-    return q, k, v, out, dout
+    return q, k, v, out, dout, lse
 
 
 def check_flash_bwd(FA, seed: int, dev) -> dict:
     """(a): the backward pair against autograd through the plain version at
-    the cut model's shape and MLA's (V padded), then timed at the training
-    shape beside its bound and SDPA's backward (timed only)."""
-    errs = {}
-    for name, (shape, kvh, v_dim) in BWD_SHAPES.items():
-        case = flash_bwd_case(FA, shape, kvh, v_dim, seed, dev)
+    the cut model's shape and MLA's (V padded) in bf16 and a small float32
+    one, each with its route, then timed at the training shape beside its
+    bound, its 7-product floor and SDPA's backward (timed only)."""
+    errs, routes = {}, {}
+    for name, (shape, kvh, v_dim, dtype) in BWD_SHAPES.items():
+        q, k, v, out, dout, lse = flash_bwd_case(FA, shape, kvh, v_dim, seed, dev, dtype)
+        tol = FLASH_BWD_TOL if dtype == torch.bfloat16 else FLASH_BWD_F32_TOL
         before = FA._build.launches["flash_attention_bwd"]
-        got = FA.flash_attention_bwd_cuda(*case, True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse=lse)
         check(FA._build.launches["flash_attention_bwd"] == before + 1,
               "flash_attention_bwd did not count its launch")
-        want = FA.flash_attention_bwd_plain(*case, True)
+        routes[name] = FA.last_route["flash_attention_bwd"]
+        want = FA.flash_attention_bwd_plain(q, k, v, out, dout, True)
         errs[name] = {}
         for grad, x, w in zip(("dq", "dk", "dv"), got, want):
             err = float((x.float() - w.float()).abs().max())
             scale = float(w.float().abs().max())
             errs[name][grad] = {"max_abs_err": err, "max_abs": scale}
-            check(err <= FLASH_BWD_TOL * scale,
-                  f"flash_attention_bwd {name} {grad}: max err {err} over {FLASH_BWD_TOL} x {scale}")
-        again = FA.flash_attention_bwd_cuda(*case, True)
+            check(err <= tol * scale,
+                  f"flash_attention_bwd {name} {grad}: max err {err} over {tol} x {scale}")
+        again = FA.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse=lse)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd {name}: two launches differ")
-        del case, got, want, again
+        print(f"flash_attention_bwd {name} {list(shape)} kv {kvh} {dtype}: route {routes[name]}, "
+              + json.dumps(errs[name]), flush=True)
+        del q, k, v, out, dout, lse, got, want, again
         torch.cuda.empty_cache()
+    check(routes["train"] == routes["mla"] == "tensor cores" and routes["f32"] == "scalar",
+          f"flash_attention_bwd routes {routes}")
     b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 16, 128
-    q, k, v, out, dout = flash_bwd_case(FA, (b, s, h, d), 8, d, seed + 1, dev)
-    bwd = lambda: FA.flash_attention_bwd_cuda(q, k, v, out, dout, True)
+    q, k, v, out, dout, lse = flash_bwd_case(FA, (b, s, h, d), 8, d, seed + 1, dev)
+    bwd = lambda: FA.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse=lse)
     ms = event_ms(bwd, 5)
+    route = FA.last_route["flash_attention_bwd"]
     gms = graph_ms(bwd, 3)
     plain_ms = event_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, out, dout, True), 2)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
@@ -2355,10 +2384,16 @@ def check_flash_bwd(FA, seed: int, dev) -> dict:
                library="scaled_dot_product_attention(is_causal=True, enable_gqa=True): forward "
                "and backward less the forward", library_fwd_bwd_ms=sdpa_ms,
                library_fwd_ms=sdpa_fwd_ms, dtype="bfloat16", tolerance=FLASH_BWD_TOL,
-               errors=errs, fraction_of_bound=row["bound_ms"] / gms,
+               errors=errs, route=route, routes=routes,
+               floor_7_products_ms=row["bound_ms"] * 7 / 5,
+               fraction_of_bound=row["bound_ms"] / gms,
+               fraction_of_7_product_floor=row["bound_ms"] * 7 / 5 / gms,
                vs_library=gms / (sdpa_ms - sdpa_fwd_ms))
-    print("flash_attention_bwd: " + json.dumps({k: row[k] for k in (
-        "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms", "errors")}), flush=True)
+    # the previous times go on this line only, never into the kernels line
+    print("flash_attention_bwd: " + json.dumps({**{k: row[k] for k in (
+        "route", "ms", "graph_ms", "plain_ms", "bound_ms", "floor_7_products_ms",
+        "fraction_of_bound", "fraction_of_7_product_floor", "library_ms")},
+        "previous": FLASH_BWD_PREV}), flush=True)
     return row
 
 
@@ -2396,7 +2431,8 @@ def check_model_grads(ops, FA, TS, m, params, pipe, dev) -> dict:
     for name, rel in worst.items():
         check(rel <= GRAD_REL, f"cut model gradients: {name} off by {rel} of a leaf's largest")
     return {"loss": float(loss), "leaves": len(flat), "bwd_launches": bwd_launches,
-            "worst_rel_err": worst, "tolerance": GRAD_REL, "cpu_route_s": cpu_s}
+            "worst_rel_err": worst, "tolerance": GRAD_REL, "cpu_route_s": cpu_s,
+            "previous_cpu_route_rel_err": GRAD_CPU_REL_PREV}
 
 
 def train_entry_point(ops, train_mod, tmp: pathlib.Path) -> dict:
@@ -2419,14 +2455,16 @@ def train_entry_point(ops, train_mod, tmp: pathlib.Path) -> dict:
     check(np.mean(losses[-4:]) < np.mean(losses[:4]), f"launch.train: loss did not fall {losses}")
     med = re.search(r"median step ([\d.]+) s, ([\d.]+) tokens/s", err.getvalue())
     check(med is not None, "launch.train printed no step time")
+    times = re.search(r"step times s ([\d. ]+)$", err.getvalue(), re.M)
     for name in ("flash_attention", "flash_attention_bwd"):
         check(launches[name] > 0, f"kernel {name} was not launched by launch.train")
     return {"argv": argv, "wall_s": wall, "losses": losses, "median_step_s": float(med.group(1)),
             "tokens_per_s": float(med.group(2)), "peak_memory_gb": peak / 1e9,
+            "step_times_s": [float(t) for t in times.group(1).split()] if times else None,
             "launches": {k: v for k, v in launches.items() if v},
             "launches_a_step": {k: launches[k] / TRAIN_STEPS
                                 for k in ("flash_attention", "flash_attention_bwd")},
-            "cut": {"batch": "256 -> 2 (one card)"}}
+            "cut": {"batch": "256 -> 2 (one card)"}, "previous": TRAIN_STEP_PREV}
 
 
 def crash_resume(TS, FT, opt_mod, m, params, pipe, tmp: pathlib.Path, dev) -> tuple[dict, dict]:
@@ -2627,6 +2665,9 @@ def training_path(ops, FA, BF, seed: int, dev,
         (stats["grads"], stats["b_s"]) = sync_time(lambda: check_model_grads(
             ops, FA, TS, m, params, pipe, dev))
         print("train grads: " + json.dumps(stats["grads"]), flush=True)
+        print(f"train grads: worst leaf against the CPU route "
+              f"{stats['grads']['worst_rel_err']['cpu_route']:.4%} (scalar pair: "
+              f"{GRAD_CPU_REL_PREV['scalar pair']:.2%}; bound {GRAD_REL:.0%})", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2636,6 +2677,10 @@ def training_path(ops, FA, BF, seed: int, dev,
         row["launches_a_step"] = stats["entry_point"]["launches_a_step"]["flash_attention_bwd"]
         shutil.rmtree(tmp / "ck", ignore_errors=True)
         print("train entry point: " + json.dumps(stats["entry_point"]), flush=True)
+        ep, prev = stats["entry_point"], TRAIN_STEP_PREV["scalar pair"]
+        print(f"train entry point: median step {ep['median_step_s']} s, {ep['tokens_per_s']} "
+              f"tokens/s (scalar pair: {prev['median_step_s'][0]}-{prev['median_step_s'][1]} s, "
+              f"{prev['tokens_per_s'][0]}-{prev['tokens_per_s'][1]} tokens/s)", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         if trace is not None:

@@ -8,9 +8,11 @@ shared library with a plain C interface, and loaded with ``ctypes``:
 
 ``--fmad=false`` keeps every multiply and add separate, which the exact
 float64 paths need.  Libraries land in ``build/repro_torch_kernels/`` at
-the repository root, named by a hash of the source so an edited source is
-rebuilt.  Each C entry point returns ``cudaGetLastError()`` after its
-launch; :func:`check` raises when that is not 0.
+the repository root, named by a hash of the source, of every shared header
+``csrc/*.cuh`` (which a source may include) and of the flags, so an edited
+source or header is rebuilt.  Each C entry point returns
+``cudaGetLastError()`` after its launch; :func:`check` raises when that is
+not 0.
 
 ``launches`` counts the launches of each kernel: a wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -64,8 +66,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

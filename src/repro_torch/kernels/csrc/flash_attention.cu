@@ -12,13 +12,19 @@
 // Sk -inf; KV tiles wholly past the diagonal are skipped; the output is
 // acc / max(l, 1e-30).  Sq and Sk need not be multiples of a tile: the
 // kernel masks the tails and the host pads nothing.
+// Given an lse pointer, both kernels also write each row's log-sum-exp,
+// lse = m + log(max(l, 1e-30)) in natural log, float32 [B, H, Sq]: the
+// backward (csrc/flash_attention_bwd.cu) rebuilds p = exp(s - lse) from it.
+// A null pointer writes nothing (prefill and decode); the output's bits
+// are the same either way.
 //
 // What bounds it: 4 x B x H x D x (causal pairs) operations against
 // Q + K + V + O bytes once, some 800 operations a byte at the models'
 // shapes, so the tensor cores' bf16 rate bounds it.
 //
 // bf16 (the models' route): tensor cores, fed by the Tensor Memory
-// Accelerator.  A block owns 128 query rows of one (batch, head): two
+// Accelerator (the mbarrier, TMA and wgmma blocks are in csrc/hopper.cuh,
+// shared with the backward).  A block owns 128 query rows of one (batch, head): two
 // consumer warpgroups of 64 rows each and one producer warp (a third
 // warpgroup, whose other warps leave at once; setmaxnreg moves registers
 // from it to the consumers).  The head dim is padded to DP, a multiple of
@@ -45,7 +51,8 @@
 //   wgmmas into the same float32 accumulator: about 16 bits of p, at 1.5x
 //   the tensor work of one bf16 P (a TF32 P V would need V transposed in
 //   shared memory and runs at half the bf16 rate).
-// * The epilogue divides by max(l, 1e-30), writes bf16 into the
+// * The epilogue divides by max(l, 1e-30), converts the base-2 max to
+//   lse once (m ln 2 + log l), writes bf16 into the
 //   warpgroup's own rows of the Q tile (swizzled, no bank conflicts), and
 //   stores 16-byte chunks.
 // * Grid: one block per (q tile, head, batch), the last q tiles first, so
@@ -64,10 +71,12 @@
 // accumulator; row maxima and sums reduce over 16 lanes with shuffles;
 // scalar float32 arithmetic on the CUDA cores, products and sums kept apart
 // (--fmad=false).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace scalar {
 
@@ -97,8 +106,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, int h, int kvh, int d, float scale,
-                 int causal) {
+                 T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                 int d, float scale, int causal) {
   extern __shared__ float smem[];
   const int ld = d + 1;  // d is even, so the stride is odd
   float* qs = smem;             // [BQ][ld]
@@ -209,6 +218,7 @@ __global__ void __launch_bounds__(THREADS)
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * h + head) * sq + qpos] = m[i] + logf(den);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + 16 * j;
@@ -218,8 +228,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, int NJ>
-int run(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int h, int kvh, int d,
-        float scale, int causal, cudaStream_t stream) {
+int run(const T* q, const T* k, const T* v, T* o, float* lse, int b, int sq, int sk, int h,
+        int kvh, int d, float scale, int causal, cudaStream_t stream) {
   const size_t smem = ((size_t)(BQ + BK) * (d + 1) + (size_t)BK * d + (size_t)BQ * (BK + 1)) *
                       sizeof(float);
   // above 48 KB a block's dynamic shared memory must be asked for
@@ -227,29 +237,31 @@ int run(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int h, 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(q, k, v, o, sq, sk, h, kvh, d, scale,
-                                                       causal);
+  flash_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, sq, sk, h, kvh, d,
+                                                       scale, causal);
   return (int)cudaGetLastError();
 }
 
 // NJ = accumulator columns a thread: the head dim over 16, rounded up to
 // an instantiated width (16, 32, 64, 128, 160 and 256 are exact).
 template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int b, int sq, int sk, int h, int kvh,
-           int d, float scale, int causal, cudaStream_t stream) {
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, int b, int sq, int sk, int h,
+           int kvh, int d, float scale, int causal, cudaStream_t stream) {
   if (d <= 0 || d > 256 || d % 2 || kvh <= 0 || h % kvh) return (int)cudaErrorInvalidValue;
   const int nj = (d + 15) / 16;
-  if (nj <= 1) return run<T, 1>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (nj <= 2) return run<T, 2>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (nj <= 4) return run<T, 4>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (nj <= 8) return run<T, 8>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (nj <= 10) return run<T, 10>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  return run<T, 16>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (nj <= 1) return run<T, 1>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (nj <= 2) return run<T, 2>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (nj <= 4) return run<T, 4>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (nj <= 8) return run<T, 8>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (nj <= 10) return run<T, 10>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  return run<T, 16>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 
 }  // namespace scalar
 
 namespace tc {
+
+using namespace hopper;
 
 constexpr int BQ = 128;             // q rows a block: two consumer warpgroups of 64
 constexpr int STAGES = 2;           // K and V tiles in flight
@@ -267,154 +279,12 @@ struct Tile {
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 128 + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase after `parity` to complete.  A wait that outlasts
-// ~20 s of clock ticks traps instead of spinning forever: a TMA whose bytes
-// never arrive would otherwise hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  if (done) return;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (clock64() - t0 > (1ll << 35)) __trap();
-  } while (!done);
-}
-
-// One box [rows x 64] of a 4-D tensor map at (d, head, position, batch).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile in shared memory: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulators across the asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// S += A B^T over one k-step of 16: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-// S += A B^T over one k-step of 16: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int sq,
-                    int sk, int h, int kvh, int d, float scale_log2, int causal) {
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int sq, int sk, int h, int kvh, int d,
+                    float scale_log2, int causal) {
   using T = Tile<DP>;
   constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -595,6 +465,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[hh] = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
       l[hh] = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 2);
       l[hh] = fmaxf(l[hh], 1e-30f);
+      // lse in natural log: m is the row's largest score in base 2
+      const int row = qb + r_lo + 8 * hh;
+      if (lse != nullptr && cq == 0 && row < sq)
+        lse[((size_t)b * h + head) * sq + row] = m[hh] * 0.6931471805599453f + logf(l[hh]);
     }
     bar_sync(1 + w, 128);
     uint8_t* qgen = smem_raw + (qs - raw);
@@ -628,45 +502,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 #undef EMPTY_V
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
-
-// [B, S, heads, D] bf16 as a 4-D tensor map (innermost first), boxes of
-// [rows x 64] at one (head, batch), 128-byte swizzle, zeros outside
-bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* o,
-        int b, int sq, int sk, int h, int kvh, int d, float scale, int causal,
+        float* lse, int b, int sq, int sk, int h, int kvh, int d, float scale, int causal,
         cudaStream_t stream) {
   using T = Tile<DP>;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
@@ -679,31 +517,35 @@ int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, 
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((sq + BQ - 1) / BQ) * (unsigned)h * (unsigned)b;
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
-  flash_tc_kernel<DP><<<blocks, THREADS, T::SMEM, stream>>>(mq, mk, mv, o, sq, sk, h, kvh, d,
-                                                             scale_log2, causal);
+  flash_tc_kernel<DP><<<blocks, THREADS, T::SMEM, stream>>>(mq, mk, mv, o, lse, sq, sk, h, kvh,
+                                                             d, scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace tc
 
+// lse [B, H, Sq] float32 (natural log) is written when not null; *route
+// (when not null) is set to 1 for the tensor-core kernel, 0 for the scalar one.
 extern "C" {
-int flash_attention_f32(const float* q, const float* k, const float* v, float* o, int b, int sq,
-                        int sk, int h, int kvh, int d, float scale, int causal,
-                        cudaStream_t stream) {
-  return scalar::launch<float>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+int flash_attention_f32(const float* q, const float* k, const float* v, float* o, float* lse,
+                        int b, int sq, int sk, int h, int kvh, int d, float scale, int causal,
+                        cudaStream_t stream, int* route) {
+  if (route != nullptr) *route = 0;
+  return scalar::launch<float>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                         __nv_bfloat16* o, int b, int sq, int sk, int h, int kvh, int d,
-                         float scale, int causal, cudaStream_t stream) {
+                         __nv_bfloat16* o, float* lse, int b, int sq, int sk, int h, int kvh, int d,
+                         float scale, int causal, cudaStream_t stream, int* route) {
   if (d <= 0 || d > 256 || d % 2 || kvh <= 0 || h % kvh) return (int)cudaErrorInvalidValue;
-  if (d % 8 || sk == 0 || !tc::aligned16(q) || !tc::aligned16(k) || !tc::aligned16(v) ||
-      !tc::aligned16(o))
-    return scalar::launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (d <= 64) return tc::run<64>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (d <= 128) return tc::run<128>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  if (d <= 192) return tc::run<192>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
-  return tc::run<256>(q, k, v, o, b, sq, sk, h, kvh, d, scale, causal, stream);
+  const bool tensor_cores = d % 8 == 0 && sk > 0 && hopper::aligned16(q) &&
+                            hopper::aligned16(k) && hopper::aligned16(v) && hopper::aligned16(o);
+  if (route != nullptr) *route = tensor_cores;
+  if (!tensor_cores)
+    return scalar::launch<__nv_bfloat16>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal,
+                                         stream);
+  if (d <= 64) return tc::run<64>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 128) return tc::run<128>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  if (d <= 192) return tc::run<192>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
+  return tc::run<256>(q, k, v, o, lse, b, sq, sk, h, kvh, d, scale, causal, stream);
 }
 }

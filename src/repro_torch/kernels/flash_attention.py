@@ -23,17 +23,27 @@ float32 takes the scalar kernel (CUDA cores, float32 products), within
 2e-5.  ``flash_attention_plain`` is the oracle's arithmetic (float32
 scores, -1e30 masking, a float32 softmax and float32 ``p @ v``).
 
+Both forward kernels can also write each row's log-sum-exp, lse [B, H, Sq]
+float32 in natural log: ``_flash_attention_fwd_cuda`` returns (out, lse),
+``flash_attention_cuda`` asks for none, nor does the wrapper's Function
+when no input requires grad (prefill, decode), and the output's bits are
+the same either way.  ``flash_attention_lse_plain`` is its oracle
+(``torch.logsumexp`` of the plain version's scaled, masked scores).
+
 The gradient (training) is the kernel pair of ``csrc/flash_attention_bwd.cu``
 behind a ``torch.autograd.Function``: its forward launches the forward
-kernel and saves q, k, v and the output, its backward launches the pair
-(``flash_attention_bwd_cuda``), which recomputes each row's softmax
-statistics and writes dq, dk and dv with no atomics (one summation order,
-the same bits every run).  The wrapper goes through that Function for a
-CUDA tensor; on the CPU the plain version is differentiable as it is.
-``flash_attention_cuda`` itself records nothing for autograd, so it
-raises for an input that requires grad while grad mode is on.
-``flash_attention_bwd_plain`` (autograd through the plain version) is the
-backward kernel's oracle.
+kernel and saves q, k, v, the output and lse, its backward launches the
+pair (``flash_attention_bwd_cuda``), which rebuilds p = exp(s - lse) from
+the saved lse and writes dq, dk and dv with no atomics (one summation
+order, the same bits every run).  bf16 with D % 8 == 0, D <= 192 and
+aligned pointers takes the tensor-core pair (wgmma, TMA); float32 and
+every other bf16 shape the scalar pair, chosen in the C entry point.
+``last_route`` names the route each kernel's last launch took.  The
+wrapper goes through that Function for a CUDA tensor; on the CPU the
+plain version is differentiable as it is.  ``flash_attention_cuda``
+itself records nothing for autograd, so it raises for an input that
+requires grad while grad mode is on.  ``flash_attention_bwd_plain``
+(autograd through the plain version) is the backward kernel's oracle.
 """
 from __future__ import annotations
 
@@ -44,13 +54,19 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_cuda",
-           "flash_attention_bwd_plain", "flash_attention_cuda", "flash_attention_plain"]
+           "flash_attention_bwd_plain", "flash_attention_cuda", "flash_attention_lse_plain",
+           "flash_attention_plain", "last_route"]
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_ROUTES = ("scalar", "tensor cores")  # the C entry points' *route
 MAX_HEAD_DIM = 256
 
+# the route ("tensor cores" or "scalar") of each kernel's last launch
+last_route: dict[str, str] = {}
 
-def flash_attention_plain(q, k, v, causal: bool = True):
+
+def _scores(q, k, causal: bool):
+    """float32 [B, KV, H / KV, Sq, Sk]: q k^T * D**-0.5, -1e30 where masked."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, kvh, h // kvh, d)
@@ -59,13 +75,25 @@ def flash_attention_plain(q, k, v, causal: bool = True):
         qpos = torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
         s = torch.where(kpos <= qpos, s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    b, sq, h, d = q.shape
+    p = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                        ctypes.c_void_p]
+def flash_attention_lse_plain(q, k, causal: bool = True):
+    """lse [B, H, Sq] float32: ``torch.logsumexp`` over the keys of the
+    plain version's scaled, masked scores (the forward kernel's lse)."""
+    b, sq, h, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(b, h, sq)
+
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def _check(q, k, v) -> None:
@@ -85,29 +113,41 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True):
-    """Launch ``csrc/flash_attention.cu``; same contract as
-    :func:`flash_attention_plain`.  No gradient: an input that requires
-    grad raises while grad mode is on (the wrapper's Function carries it)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_attention_cuda records no gradient: call flash_attention "
-                           "(its autograd Function) for inputs that require grad")
+def _flash_attention_fwd_cuda(q, k, v, causal: bool = True, with_lse: bool = True):
+    """Launch ``csrc/flash_attention.cu``: (out, lse), out as
+    :func:`flash_attention_plain`, lse [B, H, Sq] float32 as
+    :func:`flash_attention_lse_plain` (None unless ``with_lse``).  Records
+    no gradient."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = _build.function("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGS)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh, d,
-            d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, h, kvh, d, d**-0.5, int(causal),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(route),
         )
     _build.check(rc, "flash_attention")
     _build.launches["flash_attention"] += 1
-    return out
+    last_route["flash_attention"] = _ROUTES[route.value]
+    return out, lse
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True):
+    """Launch ``csrc/flash_attention.cu`` without lse; same contract as
+    :func:`flash_attention_plain`.  No gradient: an input that requires
+    grad raises while grad mode is on (the wrapper's Function carries it)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_cuda records no gradient: call flash_attention "
+                           "(its autograd Function) for inputs that require grad")
+    return _flash_attention_fwd_cuda(q, k, v, causal, with_lse=False)[0]
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, causal: bool = True):
@@ -119,13 +159,14 @@ def flash_attention_bwd_plain(q, k, v, out, dout, causal: bool = True):
         return torch.autograd.grad(y, leaves, dout)
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                           ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
-def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True):
+def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True, *, lse):
     """Launch the pair of ``csrc/flash_attention_bwd.cu`` (dq over query
-    tiles, then dk and dv over key tiles); same contract as
+    tiles, then dk and dv over key tiles) given the forward's ``lse``
+    (:func:`_flash_attention_fwd_cuda`); same contract as
     :func:`flash_attention_bwd_plain`."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
@@ -133,32 +174,40 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True):
         raise ValueError("flash_attention_bwd: out and dout must be q's shape and dtype")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    if lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        got = None if lse is None else (lse.dtype, tuple(lse.shape), lse.device)
+        raise ValueError(f"flash_attention_bwd: lse must be the forward's float32 {(b, h, sq)} "
+                         f"on q's device, got {got}")
+    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if sk == 0:
         return dq.zero_(), dk, dv
     if b * sq * h == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)  # scratch: the dq launch writes it for the dkdv launch
     fn = _build.function("flash_attention_bwd", f"flash_attention_bwd_{_SUFFIX[q.dtype]}",
                          _BWD_ARGS)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             b, sq, sk, h, kvh, d, d**-0.5, int(causal), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(route),
         )
     _build.check(rc, "flash_attention_bwd")
     _build.launches["flash_attention_bwd"] += 1
+    last_route["flash_attention_bwd"] = _ROUTES[route.value]
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, out, dout, causal: bool = True):
-    """The backward wrapper: the kernel pair for a CUDA tensor, autograd
-    through the plain version for a CPU tensor."""
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, *, lse=None):
+    """The backward wrapper: the kernel pair for a CUDA tensor (given the
+    forward's ``lse``, as :func:`flash_attention_bwd_cuda`), autograd
+    through the plain version for a CPU tensor (``lse`` unused)."""
     if q.is_cuda:
-        return flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+        return flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse=lse)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     return flash_attention_bwd_plain(q, k, v, out, dout, causal)
@@ -167,22 +216,24 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = flash_attention_cuda(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+        # lse only when a gradient may be asked for (not at prefill or decode)
+        out, lse = _flash_attention_fwd_cuda(q, k, v, causal, any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, ctx.causal, lse=lse)
         return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """The wrapper: the kernel (through its autograd Function, whose
-    backward is the kernel pair) for a CUDA tensor, the plain version for a
-    CPU tensor.  Returns [B, Sq, H, D] in q's dtype."""
+    forward saves lse when an input requires grad and whose backward is the
+    kernel pair) for a CUDA tensor, the plain version for a CPU tensor.
+    Returns [B, Sq, H, D] in q's dtype."""
     if q.is_cuda:
         return _FlashAttention.apply(q, k, v, causal)
     if q.device.type != "cpu":

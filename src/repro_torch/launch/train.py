@@ -13,10 +13,10 @@ defaults to the best exact codec that imports (``zstd``, else ``none``).
 ``--production`` (the reference's 16 x 16 mesh) comes with the mesh port
 (ROADMAP queue 1 item 5) and raises ``ConfigError``.
 
-Standard output carries the reference's lines; standard error one more,
+Standard output carries the reference's lines; standard error two more:
 the median time of a step (from one step's start to the next's, which
-takes in the runner's read-back of the step's metrics) and the tokens a
-second it gives.
+takes in the runner's read-back of the step's metrics) with the tokens a
+second it gives, and each of those step times.
 """
 from __future__ import annotations
 
@@ -101,6 +101,8 @@ def main(argv=None) -> int:
         med = statistics.median(b - a for a, b in zip(starts, starts[1:]))
         print(f"train: {len(hist)} steps on {dev}, median step {med:.4f} s, "
               f"{args.batch * args.seq / med:.1f} tokens/s", file=sys.stderr)
+        print("train: step times s " + " ".join(f"{b - a:.4f}" for a, b in zip(starts, starts[1:])),
+              file=sys.stderr)
     return 0
 
 

@@ -13,9 +13,10 @@ version, the reduced models of every family (MLA and MoE, RG-LRU,
 RWKV, cross-attention and the encoder) and the serve launcher on the card
 against the CPU route, the flash kernel at MLA's head dim with V padded,
 and the MoE's fixed summation order (bitwise the same twice); for
-training, the flash backward kernel pair against autograd through the
-plain version (and the same bits twice), the raw forward kernel raising on
-an input that requires grad, and the train step's gradients on the card
+training, the forward's lse against torch.logsumexp (and the output's bits
+with and without it), the flash backward kernel pair against autograd
+through the plain version on both routes (and the same bits twice), the
+raw forward kernel raising on an input that requires grad, and the train step's gradients on the card
 (the same bits twice, near the CPU route's).  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -828,31 +829,106 @@ def test_four_shard_fleet_on_card_equals_cpu(card):
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of the largest |gradient|
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
-    (2, 130, 130, 4, 2, 64, True), (1, 200, 77, 2, 2, 128, False), (1, 96, 96, 4, 1, 16, True),
-    (1, 70, 70, 2, 1, 192, True), (1, 65, 100, 2, 2, 256, False), (2, 256, 256, 16, 8, 128, True),
+def _bwd_route(dtype, d: int) -> str:
+    """The route csrc/flash_attention_bwd.cu's header gives an aligned call."""
+    return "tensor cores" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 192 else "scalar"
+
+
+# the last field is V's width before its zero padding to d (MLA's shape)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,vd", [
+    (2, 130, 130, 4, 2, 64, True, 64), (1, 200, 77, 2, 2, 128, False, 128),
+    (1, 96, 96, 4, 1, 16, True, 16), (1, 70, 70, 2, 1, 192, True, 192),
+    (1, 65, 100, 2, 2, 256, False, 256), (2, 256, 256, 16, 8, 128, True, 128),
+    # lengths that are not multiples of the tensor-core tiles (64 and 128)
+    (1, 4097, 4097, 2, 1, 128, True, 128), (1, 4097, 200, 2, 2, 128, True, 128),
+    # non-causal with Sq != Sk
+    (2, 200, 4097, 4, 2, 64, False, 64), (1, 333, 520, 8, 8, 64, False, 64),
+    # GQA groups of 1, 2 and 8
+    (1, 256, 256, 8, 8, 128, True, 128), (1, 300, 300, 8, 4, 64, True, 64),
+    (1, 300, 300, 8, 1, 128, True, 128),
+    # MLA: q and k at 192, V of 128 padded with zeros to 192
+    (1, 512, 512, 16, 16, 192, True, 128),
+    # D % 8 != 0: the scalar route in bf16 too
+    (1, 96, 96, 2, 2, 20, True, 20),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_kernel_equals_plain(card, b, sq, sk, h, kv, d, causal, dtype):
-    """dq, dk, dv of the kernel pair against autograd through the plain
-    version: float32 within 1e-4 and bf16 within 3e-2 of each gradient's
-    largest |value| (float32 sums in other orders; in bf16 also delta from
-    the bf16 output); two launches give the same bits."""
+def test_flash_attention_bwd_kernel_equals_plain(card, b, sq, sk, h, kv, d, causal, vd, dtype):
+    """dq, dk, dv of the kernel pair, given the forward's lse, against
+    autograd through the plain version: float32 within 1e-4 and bf16 within
+    3e-2 of each gradient's largest |value| (float32 sums in other orders;
+    in bf16 also delta from the bf16 output and P and dS as bf16 terms of
+    the tensor-core products); two launches give the same bits; the route
+    is the one the kernel's header names."""
     g = torch.Generator(device=card).manual_seed(sq + sk + d)
     q = torch.randn((b, sq, h, d), device=card, generator=g).to(dtype)
-    k, v = (torch.randn((b, sk, kv, d), device=card, generator=g).to(dtype) for _ in range(2))
+    k = torch.randn((b, sk, kv, d), device=card, generator=g).to(dtype)
+    v = torch.nn.functional.pad(torch.randn((b, sk, kv, vd), device=card, generator=g),
+                                (0, d - vd)).to(dtype)
     dout = torch.randn((b, sq, h, d), device=card, generator=g).to(dtype)
-    out = FA.flash_attention_cuda(q, k, v, causal)
+    dout[..., vd:] = 0  # the model cuts V's padded columns off
+    out, lse = FA._flash_attention_fwd_cuda(q, k, v, causal)
     before = ops.launches["flash_attention_bwd"]
-    got = FA.flash_attention_bwd(q, k, v, out, dout, causal)
+    got = FA.flash_attention_bwd(q, k, v, out, dout, causal, lse=lse)
     assert ops.launches["flash_attention_bwd"] == before + 1
+    assert FA.last_route["flash_attention_bwd"] == _bwd_route(dtype, d)
     want = FA.flash_attention_bwd_plain(q, k, v, out, dout, causal)
     for x, w in zip(got, want):
         assert x.dtype == dtype and x.shape == w.shape
         err = (x.float() - w.float()).abs().max().item()
         assert err <= FLASH_BWD_TOL[dtype] * w.float().abs().max().item(), err
-    again = FA.flash_attention_bwd_cuda(q, k, v, out, dout, causal)
+    again = FA.flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse=lse)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _unaligned(shape, g, dev) -> torch.Tensor:
+    """A contiguous bf16 tensor whose base is 2 bytes off 16."""
+    n = int(np.prod(shape))
+    return torch.randn(n + 1, device=dev, generator=g).bfloat16()[1:].view(shape)
+
+
+def test_flash_attention_bwd_unaligned_input_takes_the_scalar_route(card):
+    g = torch.Generator(device=card).manual_seed(11)
+    q, dout = (_unaligned((1, 100, 4, 64), g, card) for _ in range(2))
+    k, v = (torch.randn((1, 100, 2, 64), device=card, generator=g).bfloat16() for _ in range(2))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    out, lse = FA._flash_attention_fwd_cuda(q, k, v, True)
+    assert FA.last_route["flash_attention"] == "scalar"
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, True, lse=lse)
+    assert FA.last_route["flash_attention_bwd"] == "scalar"
+    want = FA.flash_attention_bwd_plain(q, k, v, out, dout, True)
+    for x, w in zip(got, want):
+        assert (x.float() - w.float()).abs().max() <= 3e-2 * w.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 64), (torch.bfloat16, 20),
+                                     (torch.bfloat16, 192)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_forward_lse_equals_logsumexp(card, dtype, d, causal):
+    """The forward's lse, from the tensor-core route (bf16, D % 8 == 0) and
+    the scalar one, is torch.logsumexp of the plain version's scaled,
+    masked scores within 1e-5 relative (and 1e-5 absolute near 0)."""
+    g = torch.Generator(device=card).manual_seed(d + causal)
+    sk = 300 if causal else 170
+    q = torch.randn((2, 300, 4, d), device=card, generator=g).to(dtype)
+    k, v = (torch.randn((2, sk, 2, d), device=card, generator=g).to(dtype) for _ in range(2))
+    out, lse = FA._flash_attention_fwd_cuda(q, k, v, causal)
+    want_route = "tensor cores" if dtype == torch.bfloat16 and d % 8 == 0 else "scalar"
+    assert FA.last_route["flash_attention"] == want_route
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 300)
+    torch.testing.assert_close(lse, FA.flash_attention_lse_plain(q, k, causal), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 128),
+                                     (torch.bfloat16, 20), (torch.bfloat16, 192)])
+def test_flash_attention_output_bits_do_not_depend_on_lse(card, dtype, d):
+    g = torch.Generator(device=card).manual_seed(d)
+    q = torch.randn((2, 333, 8, d), device=card, generator=g).to(dtype)
+    k, v = (torch.randn((2, 333, 2, d), device=card, generator=g).to(dtype) for _ in range(2))
+    out, lse = FA._flash_attention_fwd_cuda(q, k, v, True)
+    assert lse is not None
+    assert torch.equal(out, FA.flash_attention_cuda(q, k, v, True))
 
 
 def test_flash_attention_autograd_on_card_and_the_raw_kernel_raises(card):
@@ -869,7 +945,12 @@ def test_flash_attention_autograd_on_card_and_the_raw_kernel_raises(card):
     grads = torch.autograd.grad(y, (q, k, v), dout)
     assert ops.launches["flash_attention"] == before["flash_attention"] + 1
     assert ops.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-    want = FA.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), y.detach(), dout)
+    # the Function saved the forward's lse: the same launch by hand gives the same bits
+    with torch.no_grad():
+        out, lse = FA._flash_attention_fwd_cuda(q, k, v, True)
+    assert torch.equal(out, y)
+    want = FA.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), y.detach(), dout,
+                                       lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
 
 
