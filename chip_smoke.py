@@ -218,6 +218,31 @@ result line):
    flush of (c)'s and (d)'s losses, read back losslessly; ``cone_scan``,
    ``rans_encode`` and ``rans_decode`` launched.  The kernels line gains
    the ``flash_attention_bwd`` row (launches: (c)'s run).
+14. the parallel layer on a DeviceMesh, on one-rank NCCL meshes on the card
+   (the multi-rank part on gloo processes on the CPU): (a) qwen3-0.6b at
+   full width and depth, 3 data-parallel steps (``make_train_step`` over a
+   ("data", "model") = (1, 1) mesh) at [2, 4096] against the one-device
+   step from the same params: every state leaf bit-equal, each run's
+   median step; (e) (a)'s state saved and restored through
+   ``param_shardings`` onto a new ("pod", "data", "model") mesh, every
+   leaf equal, and training resumed from it: one data-parallel step on
+   that mesh from the restored DTensors bit-equal to the one-device step
+   from (a)'s state; (d) ``make_crosspod_exchange`` at qwen3-0.6b's leaves
+   (seeded gradients) on a (1, 1, 1) mesh, plain and compressed, a leaf
+   at a time and flat: one pod's plain mean equal to its gradient, the
+   compressed one within 5% of each leaf's largest |gradient|
+   (``base_fit`` launched), the wire bytes against float32; (f) one train
+   step with ``remat_policy="dots"`` and one with ``"nothing"`` at (a)'s
+   batch: every leaf equal, the peak memory of each; (b)
+   deepseek-v2-lite-16b at full width and depth, prefill of 4 x 2048 with
+   ``moe_ep`` under the (1, 1) mesh's rules (26 expert-parallel MoE
+   layers, 27 flash launches) against the dense path: within (0.02,
+   0.02), the bits and the max |diff| printed; (c) one MoE layer at
+   deepseek's full expert width on 4 gloo processes (16 experts a rank,
+   2048 tokens) against the dense ``moe_apply`` within (0.02, 0.02).  The
+   ``flash_attention``, ``flash_attention_bwd`` and ``base_fit`` rows
+   gain ``launches_by_path["parallel (phase 14)"]`` ((a) and (b), (a),
+   (d)).
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -2710,6 +2735,378 @@ def training_path(ops, FA, BF, seed: int, dev,
         shutil.rmtree(tmp, ignore_errors=True)
     return stats, row
 
+# ---------------------------------------------------------------- phase 14
+# the parallel layer on a DeviceMesh: one card, so one-rank NCCL meshes on
+# the card and the multi-rank part on gloo processes on the CPU
+PAR_ARCH, EP_ARCH = "qwen3-0.6b", "deepseek-v2-lite-16b"
+PAR_STEPS = 3  # (a), at phase 13's TRAIN_BATCH x TRAIN_SEQ
+EP_BATCH, EP_LEN = 4, 2048  # (b), phase 12's prefill
+EP_RANKS, EP_TOKENS, EP_THREADS = 4, 2048, 2  # (c): 4 gloo ranks of 2 cores each
+EP_TOL = (0.02, 0.02)  # atol, rtol (tests/test_torch_moe_ep.py, the reference's test)
+EXCHANGE_REL = 0.05  # (d): of each leaf's largest |gradient| (tests/test_sharding.py)
+EP_TIMEOUT = 300  # seconds for (c)'s ranks
+EP_WORKER = r"""
+import json, sys, time
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+d, rank, world, arch, tokens, threads = sys.argv[1:7]
+rank, world, tokens = int(rank), int(world), int(tokens)
+torch.set_num_threads(int(threads))
+dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
+                        world_size=world)
+try:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import axis_rules, make_rules
+    cfg = dataclasses.replace(get_config(arch), moe_ep=True)
+    gen = torch.Generator().manual_seed(0)
+    p = L.moe_init(gen, cfg)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen).to(L.COMPUTE_DTYPE)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+    count = cfg.n_experts // world
+    local = {k: (v[rank * count:(rank + 1) * count].clone() if k in ("wg", "wu", "wd") else v)
+             for k, v in p.items()}
+    with torch.inference_mode(), axis_rules(make_rules(mesh, cfg)):
+        t0 = time.perf_counter()
+        y, aux = L.moe_apply(local, x, cfg)
+        ep_s = time.perf_counter() - t0
+    out = {"rank": rank, "ep_s": ep_s,
+           "expert_bytes": sum(local[k].numel() * local[k].element_size()
+                               for k in ("wg", "wu", "wd"))}
+    if rank == 0:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            y_d, aux_d = L.moe_apply(p, x, dataclasses.replace(cfg, moe_ep=False))
+            dense_s = time.perf_counter() - t0
+        diff = (y.float() - y_d.float()).abs()
+        out.update(max_abs_diff=float(diff.max()), aux=float(aux), aux_diff=float(
+            (aux - aux_d).abs()), dense_s=dense_s,
+            within=bool(torch.allclose(y.float(), y_d.float(), atol=float(sys.argv[7]),
+                                       rtol=float(sys.argv[8]))),
+            finite=bool(torch.isfinite(y.float()).all()))
+    print("EP " + json.dumps(out), flush=True)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def one_rank_group(dev):
+    """A one-rank process group for the card's meshes (gloo on the CPU)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if dev.type == "cuda":
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0,
+                                world_size=1)
+
+
+def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict]:
+    """(a): PAR_STEPS data-parallel steps on ``mesh`` (launches counted)
+    against the one-device step from the same params; returns the stats and
+    the mesh run's state."""
+    from repro_torch.training._tree import leaves
+
+    batches = [train_batch(pipe, s, dev) for s in range(PAR_STEPS)]
+    runs, launches = {}, {}
+    for name, mesh_arg in (("mesh", mesh), ("one_device", None)):
+        step = TS.make_train_step(m, mesh_arg, opt_mod.AdamWConfig())
+        state = (params, opt_mod.adamw_init(params))
+        times, losses = [], []
+        if name == "mesh":
+            ops.reset_launches()
+        for b in batches:
+            (p, o, metrics), s = sync_time(lambda: step(*state, b))
+            state = (p, o)
+            times.append(s)
+            losses.append(float(metrics["loss"]))
+        if name == "mesh":
+            launches = dict(ops.launches)
+        runs[name] = (state, times, losses)
+    (got, t_mesh, l_mesh), (want, t_one, l_one) = runs["mesh"], runs["one_device"]
+    pairs = list(zip(leaves(got), leaves(want)))
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    check(equal == len(pairs), f"(a) data-parallel step: {len(pairs) - equal} of {len(pairs)} "
+          "state leaves differ from the one-device step's")
+    check(l_mesh == l_one and all(np.isfinite(l_mesh)), f"(a) losses {l_mesh} vs {l_one}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"(a) the data-parallel step launched no {name}")
+    stats = {"steps": PAR_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ], "mesh": {"data": 1, "model": 1},
+             "state_leaves_equal": equal, "state_leaves": len(pairs), "losses": l_mesh,
+             "median_step_s": {"mesh": float(np.median(t_mesh)),
+                               "one_device": float(np.median(t_one))},
+             "step_times_s": {"mesh": t_mesh, "one_device": t_one},
+             "launches": {k: v for k, v in launches.items() if v}}
+    return stats, {"params": got[0], "opt": got[1]}
+
+
+def mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe, tmp: pathlib.Path, dev) -> dict:
+    """(e): (a)'s state saved, then restored through ``param_shardings``
+    onto a new ("pod", "data", "model") mesh: every leaf equal; one
+    data-parallel step on that mesh from the restored state equal to the
+    one-device step from (a)'s, leaf for leaf."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.training._tree import leaves
+
+    (_, save_s) = sync_time(lambda: CK.save_checkpoint(tmp / "par", PAR_STEPS - 1, state,
+                                                       codec="none"))
+    mesh = init_device_mesh(dev.type, (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    ps = PP.param_shardings(state["params"], m.cfg, mesh)
+    shardings = {"params": ps, "opt": {"m": ps, "v": ps, "step": None}}
+    (got, step), load_s = sync_time(lambda: CK.load_checkpoint(tmp / "par", state,
+                                                               shardings=shardings))
+    pairs = list(zip(leaves(got), leaves(state)))
+    on_mesh = sum(hasattr(a, "device_mesh") for a, _ in pairs)
+    equal = sum(torch.equal(a.to_local() if hasattr(a, "device_mesh") else a, b)
+                for a, b in pairs)
+    check(step == PAR_STEPS - 1 and equal == len(pairs) and on_mesh == 3 * len(leaves(
+        state["params"])), f"(e) mesh checkpoint: {equal} of {len(pairs)} leaves equal, "
+          f"{on_mesh} on the mesh")
+    batch, opt_cfg = train_batch(pipe, PAR_STEPS, dev), opt_mod.AdamWConfig()
+    resumed, resume_s = sync_time(lambda: TS.make_train_step(m, mesh, opt_cfg)(
+        got["params"], got["opt"], batch))
+    del got
+    plain = TS.make_train_step(m, None, opt_cfg)(state["params"], state["opt"], batch)
+    step_pairs = list(zip(leaves(resumed), leaves(plain)))
+    step_equal = sum(torch.equal(a, b) for a, b in step_pairs)
+    check(step_equal == len(step_pairs), f"(e) the step resumed on the mesh: "
+          f"{len(step_pairs) - step_equal} of {len(step_pairs)} leaves and metrics differ from "
+          f"the one-device step's")
+    nbytes = sum(f.stat().st_size for f in (tmp / "par").rglob("leaf_*.bin"))
+    return {"step": step, "leaves": len(pairs), "leaves_on_mesh": on_mesh, "leaves_equal": equal,
+            "bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "mesh": {"pod": 1, "data": 1, "model": 1},
+            "resumed_step": {"leaves_equal": step_equal, "leaves": len(step_pairs),
+                             "loss": float(resumed[2]["loss"]), "step_s": resume_s}}
+
+
+def crosspod_exchange(ops, GC, PP, cfg, params, dev) -> tuple[dict, int]:
+    """(d): the exchange stage at the model's leaves on a one-rank (pod,
+    data, model) mesh, plain and compressed, a leaf at a time and flat:
+    the wire bytes against float32 and the worst error of one pod's mean
+    against its gradient.  Returns the stats and the base_fit launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.training._tree import leaves, tree_map
+
+    mesh = init_device_mesh(dev.type, (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    specs = PP.param_specs(params, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev) * 1e-3, params)
+    stacked = tree_map(lambda g: g[None], grads)
+    ef = tree_map(torch.zeros_like, grads)
+    comp = GC.GradCompressConfig()
+    out, fit_launches = {}, 0
+    for name, cc, flat in (("plain", None, False), ("plain_flat", None, True),
+                           ("compressed", comp, False), ("compressed_flat", comp, True)):
+        fn = GC.make_crosspod_exchange(mesh, cc, specs, flat=flat)
+        ops.reset_launches()
+        (mean, new_ef), wall = sync_time(lambda: fn(stacked, ef))
+        launched = ops.launches["base_fit"]
+        fit_launches += launched
+        worst = max(float((a.to_local() - g).abs().max()) / float(g.abs().max())
+                    for a, g in zip(leaves(mean), leaves(grads)))
+        if cc is None:
+            check(worst == 0.0, f"(d) {name}: one pod's plain mean differs from its gradient")
+        else:
+            check(launched > 0, f"(d) {name}: base_fit was not launched")
+            check(worst <= EXCHANGE_REL, f"(d) {name}: off by {worst} of a leaf's largest")
+        out[name] = {"wall_s": wall, "base_fit_launches": launched, "worst_rel_err": worst}
+        del mean, new_ef
+    wire, raw = GC.compression_wire_bytes(params, comp)
+    out.update(leaves=len(leaves(params)), elements=sum(p.numel() for p in leaves(params)),
+               wire_bytes=wire, raw_bytes=raw, ratio=raw / wire, tolerance=EXCHANGE_REL)
+    return out, fit_launches
+
+
+def ep_prefill(ops, L, TS, get_config, build_model, mesh, seed: int, dev) -> tuple[dict, int]:
+    """(b): deepseek-v2-lite-16b at full width and depth, prefill of
+    EP_BATCH x EP_LEN with ``moe_ep`` under the mesh's rules (every MoE
+    layer through the expert-parallel route; launches counted) against the
+    dense path.  Returns the stats and the flash launches."""
+    cfg = get_config(EP_ARCH)
+    m_ep = build_model(dataclasses.replace(cfg, moe_ep=True))
+    params = m_ep.init(seed, device=dev)
+    batch = family_batch(cfg, EP_BATCH, EP_LEN, seed, dev)
+    ep_calls = []
+    orig = L._moe_apply_ep
+    L._moe_apply_ep = lambda *a: ep_calls.append(1) or orig(*a)
+    try:
+        with torch.inference_mode():
+            prefill = TS.make_prefill_step(m_ep, mesh)
+            prefill(params, {k: v[:1, :128] for k, v in batch.items()})  # warm-up
+            ep_calls.clear()
+            ops.reset_launches()
+            (logits, _), ep_s = sync_time(lambda: prefill(params, batch))
+            launches = dict(ops.launches)
+            dense = TS.make_prefill_step(build_model(cfg), None)
+            (want, _), dense_s = sync_time(lambda: dense(params, batch))
+    finally:
+        L._moe_apply_ep = orig
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    diff = float((logits.float() - want.float()).abs().max())
+    close = bool(torch.allclose(logits.float(), want.float(), atol=EP_TOL[0], rtol=EP_TOL[1]))
+    check(len(ep_calls) == moe_layers, f"(b) {len(ep_calls)} expert-parallel MoE calls, not "
+          f"one a MoE layer ({moe_layers})")
+    check(launches["flash_attention"] == cfg.n_layers, f"(b) flash_attention launched "
+          f"{launches['flash_attention']} times for {cfg.n_layers} layers")
+    check(close and bool(torch.isfinite(logits.float()).all()),
+          f"(b) EP prefill logits off the dense path's by {diff}")
+    agree = float((logits.float().argmax(-1) == want.float().argmax(-1)).float().mean())
+    del params
+    return {"batch": [EP_BATCH, EP_LEN], "ep_layers": len(ep_calls), "prefill_s": ep_s,
+            "dense_prefill_s": dense_s, "bits_equal_to_dense": bool(torch.equal(logits, want)),
+            "max_abs_diff": diff, "top1_agreement": agree, "tolerance": list(EP_TOL),
+            "launches": {k: v for k, v in launches.items() if v}}, launches["flash_attention"]
+
+
+def ep_gloo_ranks(tmp: pathlib.Path) -> dict:
+    """(c): one MoE layer of deepseek-v2-lite-16b at full expert width (64
+    experts of 2048 x 1408, top-6, two shared) on EP_RANKS gloo processes
+    on the CPU, 16 experts a rank, EP_TOKENS tokens, against the dense
+    ``moe_apply`` on rank 0."""
+    import os
+
+    run = tmp / "ep"
+    run.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    args = [EP_RANKS, EP_ARCH, EP_TOKENS, EP_THREADS, *EP_TOL]
+    procs = [subprocess.Popen([sys.executable, "-c", EP_WORKER, str(run), str(r)]
+                              + [str(a) for a in args], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(EP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=EP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(all(p.returncode == 0 for p in procs), "(c) an EP rank failed:\n" + "\n".join(logs))
+    outs = [json.loads(line[3:]) for log in logs for line in log.splitlines()
+            if line.startswith("EP ")]
+    first = next(o for o in outs if o["rank"] == 0)
+    check(first["within"] and first["finite"], f"(c) EP on {EP_RANKS} ranks off the dense path "
+          f"by {first['max_abs_diff']} (tolerance {EP_TOL})")
+    return {"ranks": EP_RANKS, "tokens": EP_TOKENS, "threads_a_rank": EP_THREADS,
+            "max_abs_diff": first["max_abs_diff"], "aux": first["aux"],
+            "aux_diff": first["aux_diff"], "tolerance": list(EP_TOL),
+            "expert_bytes_a_rank": first["expert_bytes"], "dense_s": first["dense_s"],
+            "ep_s": [o["ep_s"] for o in sorted(outs, key=lambda o: o["rank"])]}
+
+
+def dots_remat(TS, opt_mod, build_model, cfg, params, pipe, dev) -> dict:
+    """(f): one train step with ``remat_policy="dots"`` and one with
+    ``"nothing"`` from the same state: every leaf equal; the peak memory of
+    each."""
+    from repro_torch.training._tree import leaves
+
+    batch = train_batch(pipe, 0, dev)
+    out, states = {}, {}
+    for policy in ("nothing", "dots"):
+        m = build_model(dataclasses.replace(cfg, remat=True, remat_policy=policy))
+        step = TS.make_train_step(m, None, opt_mod.AdamWConfig())
+        opt = opt_mod.adamw_init(params)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (p, o, _), wall = sync_time(lambda: step(params, opt, batch))
+        peak = torch.cuda.max_memory_allocated()
+        states[policy] = (p, o)
+        out[policy] = {"wall_s": wall, "peak_memory_gb": peak / 1e9,
+                       "peak_above_start_gb": (peak - start) / 1e9}
+        del opt
+    pairs = list(zip(leaves(states["dots"]), leaves(states["nothing"])))
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    check(equal == len(pairs), f"(f) dots: {len(pairs) - equal} of {len(pairs)} leaves differ "
+          "from nothing's")
+    out.update(leaves_equal=equal, leaves=len(pairs), batch=[TRAIN_BATCH, TRAIN_SEQ],
+               layers=cfg.n_layers)
+    return out
+
+
+def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict]:
+    """Phase 14: (a)-(f).  Returns the stats and the phase's launches of
+    its path's kernels ((a)'s mesh steps, (b)'s EP prefill, (d)'s
+    exchanges), each counted from 0 just before and read just after."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import partition as PP
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as TS
+
+    stats, tmp = {}, pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    one_rank_group(dev)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config(PAR_ARCH)
+        m = build_model(cfg)
+        params = m.init(seed, device=dev)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        (stats["a"], state), a_s = sync_time(lambda: dp_steps(ops, TS, opt_mod, m, params, pipe,
+                                                                mesh, dev))
+        stats["a"]["phase_s"] = a_s
+        print("parallel (a) data-parallel step: " + json.dumps(stats["a"]), flush=True)
+        stats["e"], e_s = sync_time(lambda: mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe,
+                                                            tmp, dev))
+        stats["e"]["phase_s"] = e_s
+        print("parallel (e) mesh checkpoint: " + json.dumps(stats["e"]), flush=True)
+        del state
+        shutil.rmtree(tmp / "par", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        (stats["d"], fit_launches), d_s = sync_time(lambda: crosspod_exchange(
+            ops, GC, PP, cfg, params, dev))
+        stats["d"]["phase_s"] = d_s
+        print("parallel (d) cross-pod exchange: " + json.dumps(stats["d"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["f"], f_s = sync_time(lambda: dots_remat(TS, opt_mod, build_model, cfg, params,
+                                                       pipe, dev))
+        stats["f"]["phase_s"] = f_s
+        print("parallel (f) dots remat: " + json.dumps(stats["f"]), flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        (stats["b"], ep_flash), b_s = sync_time(lambda: ep_prefill(
+            ops, L, TS, get_config, build_model, mesh, seed, dev))
+        stats["b"]["phase_s"] = b_s
+        print("parallel (b) EP prefill: " + json.dumps(stats["b"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    stats["c"], c_s = sync_time(lambda: ep_gloo_ranks(tmp))
+    stats["c"]["phase_s"] = c_s
+    print(f"parallel (c) expert parallelism on {EP_RANKS} gloo ranks: " + json.dumps(stats["c"]),
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"flash_attention": stats["a"]["launches"]["flash_attention"] + ep_flash,
+                "flash_attention_bwd": stats["a"]["launches"]["flash_attention_bwd"],
+                "base_fit": fit_launches}
+    return stats, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--series", type=int, default=1024)
@@ -2867,6 +3264,18 @@ def main() -> None:
     rows.append(bwd_row)
     flash_row["launches_by_path"]["train (phase 13)"] = train_stats["entry_point"][
         "launches"]["flash_attention"]
+    torch.cuda.empty_cache()
+
+    # phase 14: the parallel layer on a DeviceMesh (data- and expert-parallel
+    # steps, the cross-pod exchange, mesh checkpoints, dots remat)
+    (_, par_launches), phase_s = sync_time(lambda: parallel_path(ops, get_config, args.seed,
+                                                                  dev))
+    print(f"parallel: {phase_s:.3f} s, launches " + json.dumps(par_launches), flush=True)
+    for row in rows:
+        if row["name"] in par_launches:
+            check(par_launches[row["name"]] > 0, f"phase 14 launched no {row['name']}")
+            row.setdefault("launches_by_path", {})["parallel (phase 14)"] = par_launches[
+                row["name"]]
     torch.cuda.empty_cache()
 
     if args.trace is not None:

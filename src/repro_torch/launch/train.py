@@ -10,8 +10,17 @@ from the newest checkpoint in ``--ckpt-dir``; data is a pure function of
 the step index, so a restart lands on the same bits (``--ckpt-dir``
 defaults to ``repro_train_ckpt`` in the temporary directory).  ``--ckpt-codec``
 defaults to the best exact codec that imports (``zstd``, else ``none``).
-``--production`` (the reference's 16 x 16 mesh) comes with the mesh port
-(ROADMAP queue 1 item 5) and raises ``ConfigError``.
+
+``--production`` trains on the reference's 16 x 16 ("data", "model") mesh,
+one rank a card under ``torchrun --nproc-per-node 8 --nnodes 32 ...``: the
+data-parallel step (``training.train_step``), each rank on its slice of
+the global ``--batch``.  Every rank holds the same state, so rank 0 alone
+writes the checkpoints into ``--ckpt-dir`` (a directory every rank can
+read) and every rank resumes from it.  It raises ``ConfigError`` up front
+for a config the step cannot run there: ``moe_ep`` (expert parallelism
+runs in prefill and decode only) or a state (params, gradients, float32
+AdamW moments) larger than one card; and in a world of another size,
+naming the 256 ranks it needs.
 
 Standard output carries the reference's lines; standard error two more:
 the median time of a step (from one step's start to the next's, which
@@ -28,17 +37,36 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, reduced_config
 from ..core.device import resolve_device
 from ..core.errors import ConfigError
 from ..data.pipeline import TokenPipeline
+from ..parallel.sharding import mesh_axes
 from ..models import build_model
 from ..training._tree import leaves
 from ..training.checkpoint import default_codec
 from ..training.fault_tolerance import TrainingRunner
 from ..training.optimizer import AdamWConfig, adamw_init
 from ..training.train_step import make_train_step
+from .mesh import HW, make_production_mesh
+
+
+def _refuse_for_production(cfg) -> None:
+    """Raise ``ConfigError`` for a config that the data-parallel step,
+    which keeps the whole state on every card, cannot run."""
+    if cfg.moe_ep:
+        raise ConfigError(f"--production: {cfg.name} sets moe_ep, and the data-parallel step "
+                          f"keeps every expert on each rank (expert parallelism runs in "
+                          f"prefill and decode only)")
+    pbytes = 2 if cfg.param_dtype == "bfloat16" else 4
+    need = cfg.param_count() * (2 * pbytes + 8)  # params, gradients, two float32 moments
+    if need > HW.HBM_BYTES:
+        raise ConfigError(f"--production: {cfg.name}'s params, gradients and AdamW moments "
+                          f"take {need / 2**30:.1f} GiB, more than one card's "
+                          f"{HW.HBM_BYTES / 2**30:.0f} GiB, and the data-parallel step keeps "
+                          f"the whole state on every rank")
 
 
 def main(argv=None) -> int:
@@ -55,26 +83,30 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--production", action="store_true",
-                    help="16x16 production mesh (not ported: ROADMAP queue 1 item 5)")
+                    help="16x16 production mesh (256 ranks under torchrun)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production:
-        raise ConfigError("--production needs the mesh port (ROADMAP queue 1 item 5)")
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    mesh = None
+    if args.production:
+        _refuse_for_production(cfg)
+        mesh = make_production_mesh()
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = resolve_device(args.device)
     model = build_model(cfg)
-    mesh = {"data": 1, "model": 1}
 
     params = model.init(0, device=dev)
     n = sum(p.numel() for p in leaves(params))
-    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={mesh}")
+    axes = mesh_axes(mesh) if mesh is not None else {"data": 1, "model": 1}
+    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={axes}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           decay_steps=args.steps)
-    step_fn = make_train_step(model, None, opt_cfg)
+    step_fn = make_train_step(model, mesh, opt_cfg)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=args.batch, seq_len=args.seq)
 
     starts: list[float] = []
@@ -91,6 +123,7 @@ def main(argv=None) -> int:
         runner_step, data_fn, {"params": params, "opt": adamw_init(params)},
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         codec=args.ckpt_codec if args.ckpt_codec is not None else default_codec(),
+        writes=mesh is None or dist.get_rank() == 0,
     )
     hist = runner.run(args.steps)
     for h in hist[:: max(1, len(hist) // 12)]:

@@ -28,7 +28,11 @@ sort, so ties take the lower expert as ``lax.top_k`` does; a capacity in
 Python floats; positions from a one-hot cumsum; an ``[E, cap, d]`` buffer),
 writes only the kept rows of that buffer and adds each token's k
 contributions in slot order in bf16, so the card's sum has one order
-(``index_add_`` on the card adds by atomics, in no fixed order).  The
+(``index_add_`` on the card adds by atomics, in no fixed order).  Under
+the rules of a mesh with a ``"model"`` axis, a ``moe_ep`` config takes the
+reference's expert-parallel route: each model rank dispatches every token
+to its own experts only, and one all_reduce over the model group sums the
+ranks' outputs (bit-equal to the single-device MoE on one rank).  The
 RG-LRU scan is ``lax.associative_scan``'s recursion (pair neighbours, scan
 the pairs, fill in the even elements), so its products and sums are the
 reference's, bit for bit.  Decode writes recurrent and RWKV states in
@@ -40,10 +44,13 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel.sharding import current_rules, mesh_axes
 
 __all__ = [
     "AttnCache",
@@ -461,49 +468,119 @@ def _route(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> tuple:
     return probs, gate_vals, expert_idx
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter-dispatch MoE (Switch/GShard) on one device: top-k routing
-    with a capacity; tokens past an expert's capacity fall through on the
-    residual path.  Returns (out in x's dtype, the float32 load-balancing
-    aux loss).  The reference's expert-parallel route (``_moe_apply_ep``)
-    runs only under a mesh; it comes with the parallel slice."""
-    b, s, d = x.shape
-    n_tok = b * s
+def _local_experts(w: torch.Tensor, first: int, count: int) -> torch.Tensor:
+    """Experts first .. first + count - 1 of an expert-stacked weight: a
+    DTensor's local piece, or a slice of the whole weight."""
+    if isinstance(w, DTensor):
+        w = w.redistribute(w.device_mesh, [Shard(0) if n == "model" else Replicate()
+                                           for n in w.device_mesh.mesh_dim_names]).to_local()
+        if w.shape[0] != count:
+            raise ValueError(f"expert-parallel weight: {w.shape[0]} local experts, not {count}")
+        return w
+    return w if w.shape[0] == count else w.narrow(0, first, count)
+
+
+def _moe_experts(p: Params, xt: torch.Tensor, cfg: ModelConfig, expert_idx: torch.Tensor,
+                 gate_vals: torch.Tensor, first: int, count: int) -> torch.Tensor:
+    """Experts first .. first + count - 1 on the tokens xt [T, d]: the
+    capacity dispatch into [count, cap, d], the expert matmuls, each token's
+    k gated contributions (zero from the other experts) added in slot order
+    in bf16.  All experts (first 0, count E) is the single-device MoE."""
+    n_tok, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(8, int(cfg.capacity_factor * n_tok * k / e))
-    xt = x.reshape(n_tok, d).to(COMPUTE_DTYPE)
-
-    probs, gate_vals, expert_idx = _route(p, xt, cfg)
-
-    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
-    me = probs.mean(0)
-    ce = F.one_hot(expert_idx, e).sum(1).float().mean(0) / k
-    aux = e * torch.sum(me * ce)
 
     # position of each (token, slot) within its expert, by a one-hot cumsum;
-    # the one-hot is [E, T*k] so the scan runs along its contiguous last
+    # the one-hot is [count, T*k] so the scan runs along its contiguous last
     # axis (CUDA torch scans an outer axis column by column, serially)
-    eidx = expert_idx.reshape(-1)  # [T*k]
-    onehot = F.one_hot(eidx, e).T.contiguous()
+    eidx = expert_idx.reshape(-1) - first  # [T*k], in [0, count) iff this rank's
+    if count == e:
+        mine = None
+        onehot = F.one_hot(eidx, e).T.contiguous()
+    else:
+        mine = (eidx >= 0) & (eidx < count)
+        eidx = torch.clamp(eidx, 0, count - 1)
+        onehot = (F.one_hot(eidx, count) * mine[:, None]).T.contiguous()
     pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(0)
-    keep = pos < cap
+    keep = pos < cap if mine is None else mine & (pos < cap)
     gates = (gate_vals.reshape(-1) * keep).to(COMPUTE_DTYPE)
-    token_src = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+    token_src = torch.arange(n_tok, device=xt.device).repeat_interleave(k)
     safe_pos = torch.where(keep, pos, cap - 1)
 
-    # dispatch into [E, cap, d]: the kept rows, each once; a dropped row goes
-    # to a scratch slot (cap) that is never read
-    buf = torch.zeros((e, cap + 1, d), dtype=COMPUTE_DTYPE, device=x.device)
-    buf.view(e * (cap + 1), d)[eidx * (cap + 1) + torch.where(keep, pos, cap)] = xt[token_src]
+    # dispatch into [count, cap, d]: the kept rows, each once; a dropped row
+    # goes to a scratch slot (cap) that is never read
+    buf = torch.zeros((count, cap + 1, d), dtype=COMPUTE_DTYPE, device=xt.device)
+    buf.view(count * (cap + 1), d)[eidx * (cap + 1) + torch.where(keep, pos, cap)] = xt[token_src]
     buf = buf[:, :cap]
-    h = _silu(torch.bmm(buf, p["wg"].to(COMPUTE_DTYPE))) * torch.bmm(buf, p["wu"].to(COMPUTE_DTYPE))
-    yb = torch.bmm(h, p["wd"].to(COMPUTE_DTYPE))  # [E, cap, d]
+    wg, wu, wd = (_local_experts(p[n], first, count).to(COMPUTE_DTYPE) for n in ("wg", "wu", "wd"))
+    h = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    yb = torch.bmm(h, wd)  # [count, cap, d]
 
     # gather back: each token's k gated contributions added in slot order
     contrib = (yb[eidx, safe_pos] * gates[:, None]).reshape(n_tok, k, d)
-    y = torch.zeros((n_tok, d), dtype=COMPUTE_DTYPE, device=x.device)
+    y = torch.zeros((n_tok, d), dtype=COMPUTE_DTYPE, device=xt.device)
     for j in range(k):
         y = y + contrib[:, j]
+    return y
+
+
+def _moe_apply_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, rules) -> tuple:
+    """Expert-parallel MoE (the reference's replicated-dispatch
+    ``_moe_apply_ep``): the tokens are replicated over the ``"model"`` axis,
+    so each model rank routes every token, runs the tokens routed to its
+    E / msize experts (its capacity the single device's), and one bf16
+    all_reduce over the model group sums the ranks' [T, d] partial outputs.
+    Expert weights are a DTensor split over ``"model"`` on dim 0 or the
+    whole [E, ...] weight (each rank reads its experts).  Over more than
+    one model rank it runs forward only (prefill, decode): the all_reduce
+    is outside autograd, so it raises where a gradient is being recorded."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    msize = mesh_axes(rules.mesh).get("model", 1)
+    count = e // msize
+    mrank = 0
+    if msize > 1:
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in p.values() if isinstance(t, torch.Tensor))):
+            raise ValueError("expert-parallel MoE over a model axis > 1 runs forward only; "
+                             "call it under torch.no_grad() or torch.inference_mode()")
+        mrank = rules.mesh.get_coordinate()[rules.mesh.mesh_dim_names.index("model")]
+    xt = x.reshape(b * s, d).to(COMPUTE_DTYPE)
+    probs, gate_vals, expert_idx = _route(p, xt, cfg)
+    aux = _moe_aux(probs, expert_idx, cfg)
+    if msize == 1:
+        y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, 0, count)
+    else:
+        y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, mrank * count, count)
+        dist.all_reduce(y, group=rules.mesh.get_group("model"))
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_aux(probs: torch.Tensor, expert_idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing aux loss (Switch): E * sum_e f_e * p_e."""
+    e, k = cfg.n_experts, cfg.top_k
+    me = probs.mean(0)
+    ce = F.one_hot(expert_idx, e).sum(1).float().mean(0) / k
+    return e * torch.sum(me * ce)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-dispatch MoE (Switch/GShard): top-k routing with a capacity;
+    tokens past an expert's capacity fall through on the residual path.
+    Returns (out in x's dtype, the float32 load-balancing aux loss).  Under
+    rules with a ``"model"`` axis that divides the experts, a ``moe_ep``
+    config takes the expert-parallel route."""
+    rules = current_rules()
+    if cfg.moe_ep and rules is not None and "model" in mesh_axes(rules.mesh) \
+            and cfg.n_experts % mesh_axes(rules.mesh)["model"] == 0:
+        return _moe_apply_ep(p, x, cfg, rules)
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d).to(COMPUTE_DTYPE)
+    probs, gate_vals, expert_idx = _route(p, xt, cfg)
+    aux = _moe_aux(probs, expert_idx, cfg)
+    y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, 0, cfg.n_experts)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
     return y.reshape(b, s, d).to(x.dtype), aux

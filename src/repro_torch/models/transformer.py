@@ -20,10 +20,12 @@ backward writes the stack's gradient once, where a ``tree[g]`` a group
 would write a full-size zero tensor a group), and ``cfg.remat`` recomputes
 each group position's block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
-scan body in ``jax.checkpoint``: the ``"nothing"`` policy (keep only the
-block's input).  The ``"dots"`` policy (keep the matmul outputs) is not
-ported: no config uses it, and it raises ``ConfigError`` (ROADMAP queue 1
-item 5).
+scan body in ``jax.checkpoint``.  ``remat_policy="nothing"`` keeps only
+the block's input; ``"dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``) also keeps the outputs of the 2-D
+projection matmuls (``aten.mm`` and ``aten.addmm``, a selective-checkpoint
+policy) and recomputes everything else, the batched matmuls and the
+attention kernel included.  Both give the same gradients, bit for bit.
 """
 from __future__ import annotations
 
@@ -31,7 +33,12 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
@@ -265,13 +272,22 @@ def _unbind(tree: dict, n: int) -> list[dict]:
     return [{k: per[k][g] for k in tree} for g in range(n)]
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether ``"train"`` mode recomputes each block in the backward pass."""
-    if cfg.remat and cfg.remat_policy != "nothing":
-        raise ConfigError(f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
-                          "(ROADMAP queue 1 item 5); the port recomputes whole blocks "
-                          "(\"nothing\")")
-    return cfg.remat
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts(cfg: ModelConfig):
+    """The checkpoint's ``context_fn`` for ``cfg.remat_policy``."""
+    if cfg.remat_policy == "dots":
+        return lambda: create_selective_checkpoint_contexts(_save_dots)
+    if cfg.remat_policy == "nothing":
+        return noop_context_fn
+    raise ConfigError(f"{cfg.name}: unknown remat_policy {cfg.remat_policy!r} "
+                      "(\"nothing\" or \"dots\")")
 
 
 def _requires_grad(tree) -> bool:
@@ -290,8 +306,9 @@ def _train_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, positi
         return y, aux
 
     graph = torch.is_grad_enabled() and (x.requires_grad or _requires_grad(p))
-    if graph and _remat(cfg):
-        return checkpoint(fn, p, x, use_reentrant=False, preserve_rng_state=False)
+    if graph and cfg.remat:
+        return checkpoint(fn, p, x, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=_remat_contexts(cfg))
     return fn(p, x)
 
 

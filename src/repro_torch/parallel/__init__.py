@@ -1,5 +1,7 @@
-"""Distribution for the port, counterpart of ``repro.parallel``: the
-serving fleet's series->shard placement (``fleet``).  The logical-axis
-sharding and parameter partitioning (``sharding``, ``partition``) come
-with ROADMAP queue 1 item 5."""
+"""Distribution for the port, counterpart of ``repro.parallel``:
+logical-axis rules and partition specs over a torch DeviceMesh
+(``sharding``, ``partition``) and the serving fleet's series->shard
+placement (``fleet``)."""
+from .sharding import AxisRules, axis_rules, make_rules, shard  # noqa: F401
+from .partition import param_specs, param_shardings, fsdp_axes_for  # noqa: F401
 from .fleet import FleetPlan, plan_fleet, shard_of  # noqa: F401

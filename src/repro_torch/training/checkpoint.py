@@ -21,10 +21,17 @@ written from their int16 view and read back as int16 viewed as bf16 (no
 or of zero range to ``zstd`` and ``zstandard`` does not import, the leaf
 is written raw with codec ``none`` (the reference raises there).
 
-``load_checkpoint``'s ``shardings`` is a tree of ``torch.device``s (or
-None: each leaf lands on its ``like`` leaf's device); placements over a
-DeviceMesh come with the mesh port (ROADMAP queue 1 item 5).  A save
-copies the leaves to the host first and can write in a background thread.
+``load_checkpoint``'s ``shardings`` is a tree whose leaves are None (the
+leaf lands where its ``like`` leaf is: its device, or a DTensor's mesh and
+placements), a ``torch.device``, or a ``parallel.partition.MeshSharding``
+(``param_shardings``' leaves: a DeviceMesh and its placements), which
+restores the leaf as a DTensor on that mesh, each rank keeping its own
+piece; the mesh may differ from the one that saved (an elastic restart:
+``make_train_step`` takes such a state, gathering each leaf whole on
+every rank when a step starts).
+A save copies the leaves to the host first (a DTensor whole, which is a
+collective: every rank saves) and can write in a background thread.  The
+bytes on disk do not depend on where a leaf lived.
 """
 from __future__ import annotations
 
@@ -42,7 +49,11 @@ try:
 except Exception:  # pragma: no cover
     _zstd = None
 
+from torch.distributed.tensor import DTensor
+
 from ..core.shrink import ShrinkCodec, cs_from_bytes, cs_to_bytes
+from ..parallel.partition import MeshSharding
+from ..parallel.sharding import place
 from ._tree import leaves, unflatten
 
 __all__ = [
@@ -62,6 +73,8 @@ def default_codec() -> str:
 
 def _host(x: torch.Tensor) -> np.ndarray:
     """The leaf's bytes on the host: bf16 as its int16 view."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     x = x.detach().cpu().contiguous()
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy()
@@ -184,8 +197,8 @@ def load_checkpoint(
     shardings: Any = None,
 ) -> tuple[Any, int]:
     """Restore into the structure of `like`.  `shardings` (optional tree of
-    ``torch.device``s, or None) places each leaf; by default each leaf lands
-    on its ``like`` leaf's device."""
+    ``torch.device``s and ``MeshSharding``s, or None) places each leaf; by
+    default each leaf lands where its ``like`` leaf is."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -198,12 +211,39 @@ def load_checkpoint(
     n = len(like_leaves)
     if n != len(leaves_meta):
         raise ValueError(f"leaf count mismatch: {n} vs {len(leaves_meta)}")
-    targets = leaves(shardings) if shardings is not None else [None] * n
+    targets = _targets(shardings, like)
     out = []
     for i, meta in enumerate(leaves_meta):
-        dev = targets[i] if targets[i] is not None else like_leaves[i].device
-        out.append(_decode_leaf((d / f"leaf_{i}.bin").read_bytes(), meta, torch.device(dev)))
+        target, like_leaf = targets[i], like_leaves[i]
+        if target is None and isinstance(like_leaf, DTensor):
+            target = MeshSharding(like_leaf.device_mesh, like_leaf.placements)
+        blob = (d / f"leaf_{i}.bin").read_bytes()
+        if isinstance(target, MeshSharding):
+            out.append(place(_decode_leaf(blob, meta, _mesh_device(target.mesh)), *target))
+        else:
+            dev = target if target is not None else like_leaf.device
+            out.append(_decode_leaf(blob, meta, torch.device(dev)))
     return unflatten(like, out), step
+
+
+def _targets(shardings, like) -> list:
+    """One target a leaf of ``like``, in its leaf order: ``shardings``
+    follows ``like``'s structure, and None there (a subtree's or a leaf's)
+    places nothing."""
+    if shardings is None:
+        return [None] * len(leaves(like))
+    if isinstance(like, dict):
+        return [t for k in sorted(like) for t in _targets(shardings[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [t for s, x in zip(shardings, like, strict=True) for t in _targets(s, x)]
+    return [] if like is None else [shardings]
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: the current card of a cuda mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 class CheckpointManager:

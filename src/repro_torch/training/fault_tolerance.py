@@ -90,7 +90,9 @@ class TrainingRunner:
 
     step_fn(state, batch) -> (state, metrics);  data_fn(step) -> batch must
     be a pure function of the step index (``data.pipeline`` is).  The
-    history holds each step's metrics as Python floats.
+    history holds each step's metrics as Python floats.  ``writes=False``
+    resumes from ``ckpt_dir`` but writes nothing there: the data-parallel
+    ranks other than the one that saves, all holding the same state.
     """
 
     def __init__(
@@ -103,12 +105,14 @@ class TrainingRunner:
         keep_n: int = 3,
         codec: str | None = None,  # None = best available (zstd or none)
         fail_at: Optional[int] = None,  # test hook: simulated crash
+        writes: bool = True,
     ):
         self.step_fn = step_fn
         self.data_fn = data_fn
         self.manager = CheckpointManager(ckpt_dir, keep_n=keep_n, codec=codec)
         self.ckpt_every = ckpt_every
         self.fail_at = fail_at
+        self.writes = writes
         self.state = init_state
         self.start_step = 0
         if latest_step(self.manager.dir) is not None:
@@ -124,8 +128,9 @@ class TrainingRunner:
             batch = self.data_fn(step)
             self.state, metrics = self.step_fn(self.state, batch)
             history.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
-            if step % self.ckpt_every == 0:
+            if self.writes and step % self.ckpt_every == 0:
                 self.manager.save(step, self.state, asynchronous=True)
         self.manager.wait()
-        self.manager.save(n_steps - 1, self.state, asynchronous=False)
+        if self.writes:
+            self.manager.save(n_steps - 1, self.state, asynchronous=False)
         return history

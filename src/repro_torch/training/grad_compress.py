@@ -20,8 +20,13 @@ contracts them into fused multiply-adds.  The reference's ``pmax``,
 ``torch.distributed``'s ``all_reduce(MAX)``, ``all_gather_into_tensor``
 and ``all_reduce(SUM)`` over the pod group (``group``: None is the
 default group, or a world of one where ``torch.distributed`` is not
-initialized).  ``make_crosspod_exchange`` (a manual shard_map over the
-whole mesh) comes with the mesh port (ROADMAP queue 1 item 5).
+initialized).
+
+``make_crosspod_exchange`` is the stand-alone exchange stage over a
+DeviceMesh with a ``"pod"`` dimension: each rank exchanges its own shard
+of every leaf (``parallel.sharding.shard_map_compat`` over the whole
+mesh), plain (the float32 mean) or compressed, a leaf at a time or as one
+flat bucket.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch.distributed as dist
 
 from ..core.tensorshrink import linear_base_fit
 from ..kernels.base_fit import _fma32
-from ._tree import leaves, unflatten
+from ..parallel.sharding import P, shard_map_compat, tree_map_with_path
+from ._tree import leaves, tree_map, unflatten
 
 __all__ = ["GradCompressConfig", "compressed_psum_tree", "compression_wire_bytes"]
 
@@ -142,6 +148,60 @@ def compressed_psum_tree(grads, ef_tree, cfg: GradCompressConfig, group=None):
 
     outs = [one(g, e) for g, e in zip(leaves(grads), leaves(ef_tree))]
     return unflatten(grads, [o[0] for o in outs]), unflatten(grads, [o[1] for o in outs])
+
+
+def _concat(tree) -> tuple[torch.Tensor, list]:
+    """The leaves as one float32 vector, and their shapes."""
+    flat = leaves(tree)
+    return torch.cat([x.to(torch.float32).reshape(-1) for x in flat]), [x.shape for x in flat]
+
+
+def _split(vec: torch.Tensor, like, shapes: list):
+    outs, off = [], 0
+    for shape in shapes:
+        n = shape.numel()
+        outs.append(vec[off:off + n].reshape(shape))
+        off += n
+    return unflatten(like, outs)
+
+
+def make_crosspod_exchange(mesh, comp_cfg: GradCompressConfig | None, param_spec_tree,
+                           flat: bool = False):
+    """The cross-pod gradient exchange stage: ``exchange(grads_stacked,
+    ef)`` with every leaf of ``grads_stacked`` carrying a leading pod dim
+    (a DTensor over the mesh, or the whole tensor that every rank holds);
+    returns (the pods' mean gradient, the new error feedback) as DTensors
+    placed by ``param_spec_tree``.
+
+    Each rank exchanges exactly its own shard of each leaf (all mesh axes
+    manual).  ``comp_cfg=None``: the float32 mean over ``"pod"`` (the
+    baseline wire).  ``flat``: one exchange of all leaves concatenated
+    instead of one a leaf (the compressed one then ignores
+    ``min_leaf_size``, as the reference's does)."""
+    axis = comp_cfg.axis if comp_cfg else "pod"
+    group = mesh.get_group(axis)
+    n = torch.tensor(float(_world(group)))
+
+    def exchange(grads_stacked, ef):
+        local = tree_map(lambda x: x[0], grads_stacked)
+        if comp_cfg is None:
+            if flat:
+                vec, shapes = _concat(local)
+                s = _all_reduce(vec, dist.ReduceOp.SUM, group)
+                return _split(torch.div(s, n.to(s.device)), local, shapes), ef
+            return tree_map(lambda g: torch.div(
+                _all_reduce(g.to(torch.float32).clone(), dist.ReduceOp.SUM, group),
+                n.to(g.device)), local), ef
+        if flat:
+            # all leaves in one exchange: 4 collectives a step instead of ~4 a leaf
+            vec, shapes = _concat(local)
+            g_sum, new_e = _compress_leaf(vec, _concat(ef)[0], comp_cfg, group)
+            return _split(g_sum, local, shapes), _split(new_e, local, shapes)
+        return compressed_psum_tree(local, ef, comp_cfg, group=group)
+
+    stacked = tree_map_with_path(lambda _, s: P(axis, *s), param_spec_tree)
+    return shard_map_compat(exchange, mesh=mesh, in_specs=(stacked, param_spec_tree),
+                            out_specs=(param_spec_tree, param_spec_tree), check_vma=False)
 
 
 def compression_wire_bytes(params, cfg: GradCompressConfig) -> tuple[int, int]:

@@ -17,7 +17,11 @@ training, the forward's lse against torch.logsumexp (and the output's bits
 with and without it), the flash backward kernel pair against autograd
 through the plain version on both routes (and the same bits twice), the
 raw forward kernel raising on an input that requires grad, and the train step's gradients on the card
-(the same bits twice, near the CPU route's).  Without a card every test
+(the same bits twice, near the CPU route's); for the parallel layer, on a
+one-rank NCCL mesh, the data-parallel step bit-equal to the one-device
+step, the expert-parallel prefill bit-equal to the dense one, the
+cross-pod exchange bit-equal to ``compressed_psum_tree`` and a checkpoint
+restored onto the mesh.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -976,3 +980,96 @@ def test_train_step_on_card_is_deterministic_and_near_cpu(card):
     for a, b, c in zip(leaves(g1), leaves(g2), leaves(gc)):
         assert torch.equal(a, b)
         assert (a.cpu() - c).abs().max() <= 0.06 * c.abs().max()
+
+
+# ------------------------------------------------ the parallel layer (mesh)
+@pytest.fixture
+def nccl_rank(card, tmp_path):
+    """A one-rank NCCL group on a FileStore in the test's directory (no
+    port, no environment variable), destroyed at teardown."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+def test_data_parallel_step_on_a_one_rank_nccl_mesh_is_the_one_device_step(nccl_rank):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.training._tree import leaves
+
+    cfg = reduced_config(ARCHS["qwen3-0.6b"])
+    m = build_model(cfg)
+    params = m.init(0, device=nccl_rank)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=4, seq_len=128)
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    states = []
+    for mesh_arg in (mesh, None):
+        step, state = make_train_step(m, mesh_arg, AdamWConfig()), (params, adamw_init(params))
+        ops.reset_launches()
+        for s in range(2):
+            batch = {k: torch.from_numpy(a).to(nccl_rank) for k, a in pipe.batch_at(s).items()}
+            state = step(*state, batch)[:2]
+        assert ops.launches["flash_attention_bwd"] > 0
+        states.append(state)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(states[0]), leaves(states[1])))
+
+
+def test_ep_prefill_on_a_one_rank_nccl_mesh_equals_the_dense_path(nccl_rank):
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.training import make_prefill_step
+
+    cfg = dataclasses.replace(reduced_config(ARCHS["deepseek-v2-lite-16b"]), capacity_factor=1.25)
+    m_ep = build_model(dataclasses.replace(cfg, moe_ep=True))
+    params = m_ep.init(0, device=nccl_rank)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=nccl_rank,
+                           generator=torch.Generator(device=nccl_rank).manual_seed(1))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    with torch.inference_mode():
+        got, _ = make_prefill_step(m_ep, mesh)(params, {"tokens": tokens})
+        want, _ = make_prefill_step(build_model(cfg), None)(params, {"tokens": tokens})
+    assert torch.equal(got, want)
+
+
+def test_crosspod_exchange_and_mesh_checkpoint_on_a_one_rank_nccl_mesh(nccl_rank, tmp_path):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import param_shardings, param_specs
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training import load_checkpoint, save_checkpoint
+    from repro_torch.training._tree import leaves, tree_map
+
+    cfg = reduced_config(ARCHS["qwen3-0.6b"])
+    params = build_model(cfg).init(0, device=nccl_rank)
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    gen = torch.Generator(device=nccl_rank).manual_seed(3)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=nccl_rank), params)
+    ef = tree_map(torch.zeros_like, grads)
+    cc = GC.GradCompressConfig(min_leaf_size=1024)
+    before = ops.launches["base_fit"]
+    got, got_ef = GC.make_crosspod_exchange(mesh, cc, param_specs(params, cfg, mesh))(
+        tree_map(lambda g: g[None], grads), ef)
+    assert ops.launches["base_fit"] > before
+    want, want_ef = GC.compressed_psum_tree(grads, ef, cc, group=mesh.get_group("pod"))
+    assert all(torch.equal(a.to_local(), b) for a, b in zip(leaves(got) + leaves(got_ef),
+                                                            leaves(want) + leaves(want_ef)))
+    save_checkpoint(tmp_path / "ck", 0, params, codec="none")
+    back, _ = load_checkpoint(tmp_path / "ck", params,
+                              shardings=param_shardings(params, cfg, mesh))
+    assert all(a.device_mesh is mesh and a.to_local().is_cuda and torch.equal(a.to_local(), b)
+               for a, b in zip(leaves(back), leaves(params)))

@@ -126,3 +126,25 @@ def test_crash_resume_bit_identical(tmp_path):
     assert h3 == h1[5:]
     for a, b in zip(leaves(r1.state), leaves(r3.state)):
         assert torch.equal(a, b)
+
+
+def _files(directory):
+    return {p.relative_to(directory): p.read_bytes() for p in directory.rglob("*") if p.is_file()}
+
+
+def test_runner_that_does_not_write_resumes_from_the_writers_directory(tmp_path):
+    """``writes=False`` (the data-parallel ranks other than the one that
+    saves): it resumes from the writer's checkpoint, runs the same steps
+    to the same state as the writer resumed there, and writes nothing."""
+    _toy(tmp_path / "ck", PF, torch.from_numpy).run(7)
+    before = _files(tmp_path / "ck")
+    reader = _toy(tmp_path / "ck", PF, torch.from_numpy, writes=False)
+    assert reader.start_step == 7
+    history = reader.run(10)
+    assert _files(tmp_path / "ck") == before
+    writer = _toy(tmp_path / "ck", PF, torch.from_numpy)
+    assert writer.run(10) == history and torch.equal(writer.state["w"], reader.state["w"])
+    assert (tmp_path / "ck" / "LATEST").read_text() == "9"
+    _toy(tmp_path / "fresh", PF, torch.from_numpy, writes=False).run(4)
+    assert not list((tmp_path / "fresh").glob("*step_*")) and not (tmp_path / "fresh" /
+                                                                   "LATEST").exists()

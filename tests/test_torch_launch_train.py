@@ -1,8 +1,10 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) on
 the CPU: a reduced qwen3-0.6b trains, exits 0 with the reference's printed
 lines, and a second call resumes from its checkpoint directory; a resumed
-run takes only the steps after the checkpoint.  ``--production`` (the mesh
-port, ROADMAP queue 1 item 5) raises ``ConfigError``."""
+run takes only the steps after the checkpoint.  ``--production`` (the
+16 x 16 mesh) in a world of one raises ``ConfigError`` naming the 256
+ranks it needs; before that, for a config its data-parallel step cannot
+run (``moe_ep``, or a state larger than one card), naming the reason."""
 import os
 import pathlib
 import re
@@ -10,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.core.errors import ConfigError
 from repro_torch.launch import train
@@ -49,5 +52,18 @@ def test_module_entry_point_exits_zero(tmp_path):
 
 
 def test_production_raises_config_error():
-    with pytest.raises(ConfigError, match="item 5"):
+    """In a world of one, ``--production`` raises naming the 256 ranks its
+    16 x 16 mesh needs, before any process group exists."""
+    with pytest.raises(ConfigError, match="needs a world of 256 ranks.*this world has 1"):
         train.main(ARGS + ["--production"])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("arch,reason", [
+    ("deepseek-v2-lite-16b", "sets moe_ep"),
+    ("llama3-8b", r"take 89\.\d GiB, more than one card's 80 GiB"),
+])
+def test_production_refuses_what_the_step_cannot_run(arch, reason):
+    with pytest.raises(ConfigError, match=reason):
+        train.main(["--arch", arch, "--production"])
+    assert not torch.distributed.is_initialized()

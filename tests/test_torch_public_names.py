@@ -5,8 +5,8 @@ and the names repaired here hold the reference's outputs bit for bit
 
 A package's public names are its ``__all__`` where it has one, else every
 name without a leading underscore that is not a submodule.  The waivers
-below are the only names allowed to be missing, each with the ROADMAP
-item that brings it.
+below are the only names allowed to be missing, each with the reason
+(ROADMAP queue 1 item 6 brings the last gaps: ``LATER``).
 
 For every public function, and every public method (and ``__init__``) of
 every public class, the reference's parameters must open the port's, with
@@ -15,7 +15,10 @@ arguments in the port; the port may add parameters with defaults after
 them.  Methods keep the reference's kind (function, property, static or
 class method).  Waived: the route switches the port's rules forbid
 (``force_ref``, ``route``, ``block_t``, ``use_kernel``) and the gaps that
-ROADMAP names as a later slice's, each with its item.
+ROADMAP names as a later slice's, each with its item.  Item 5 (the mesh:
+``parallel.sharding``, ``parallel.partition``, ``launch.mesh``, the spec
+maps of ``training.train_step`` and ``grad_compress.make_crosspod_exchange``)
+is ported and has no waiver left.
 """
 import dataclasses
 import importlib
@@ -32,7 +35,8 @@ import repro_torch.core as P
 from repro_torch.kernels import ops
 
 PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops", "data", "testing",
-          "parallel", "training", "training.optimizer", "training.train_step",
+          "parallel", "parallel.sharding", "parallel.partition", "launch.mesh",
+          "training", "training.optimizer", "training.train_step",
           "training.grad_compress", "training.checkpoint", "training.fault_tolerance",
           "training.metrics", "data.pipeline"]
 
@@ -41,30 +45,11 @@ WAIVERS = {
         # the TPU cone scan's Pallas entry; the port's batch scan is the kernel route
         "extract_semantics_batch_pallas": "Pallas only (the cone scan is csrc/cone_scan.cu)",
     },
-    "training.train_step": {
-        name: "ROADMAP queue 1 item 5 (parallel: the GSPMD spec maps come with the mesh port)"
-        for name in ("batch_specs", "cache_specs", "train_state_specs")
-    },
-    "parallel": {
-        name: "ROADMAP queue 1 item 5 (parallel: sharding.py, partition.py)"
-        for name in ("AxisRules", "axis_rules", "make_rules", "shard", "param_specs",
-                     "param_shardings", "fsdp_axes_for")
-    },
     "kernels.ops": {
         "use_interpret": "Pallas interpret mode has no CUDA counterpart",
     },
 }
 
-
-# public functions outside the reference module's ``__all__`` that a later
-# item brings: the reference has them, the port does not yet.  Two more
-# item-5 gaps are behaviours, pinned by their own tests: ``remat_policy=
-# "dots"`` raises ConfigError (tests/test_torch_train_step.py) and so does
-# ``launch.train --production`` (tests/test_torch_launch_train.py).
-LATER_NAMES = {
-    ("training.grad_compress", "make_crosspod_exchange"):
-        "ROADMAP queue 1 item 5 (parallel: a manual shard_map over the whole mesh)",
-}
 
 ROUTE_SWITCHES = {"force_ref", "route", "block_t", "use_kernel"}
 
@@ -92,12 +77,6 @@ def test_every_reference_name_exists_in_the_port(pkg):
     assert missing == []
     # a waiver names a name the reference has and the port still lacks
     assert all(n in _public(ref) and not hasattr(port, n) for n in waived)
-
-
-@pytest.mark.parametrize("mod,name", sorted(LATER_NAMES))
-def test_later_names_are_the_references_and_not_yet_the_ports(mod, name):
-    assert hasattr(importlib.import_module(f"repro.{mod}"), name)
-    assert not hasattr(importlib.import_module(f"repro_torch.{mod}"), name)
 
 
 def _params(fn):

@@ -4,10 +4,11 @@ reference, on the CPU, with params converted from the reference's
 (``convert.model_params_from_reference``) and batches from the ported
 ``TokenPipeline``.
 
-The reference's ``make_train_step`` cannot run under this JAX (its mesh
-rules raise at ``shard()``, ROADMAP queue 3), so the port is held against
-``jax.value_and_grad(model.loss)``, ``clip_by_global_norm`` and
-``adamw_update`` called directly.
+The reference's ``make_train_step`` cannot run on ``jax.make_mesh``'s
+default Explicit axes (its mesh rules raise at ``shard()``, ROADMAP queue
+3; ``tests/test_torch_mesh.py`` runs it on Auto axes), so here the port
+is held against ``jax.value_and_grad(model.loss)``,
+``clip_by_global_norm`` and ``adamw_update`` called directly.
 
 Tolerances and why:
 
@@ -134,11 +135,27 @@ def test_remat_on_and_off_give_equal_gradients():
 
 
 def test_dots_remat_policy_raises_config_error():
-    _, pc = _configs("lm-tiny")
-    m = build_model(dataclasses.replace(pc, remat_policy="dots"))
-    params = m.init(0, device="cpu")
-    batch = _torch_batch(TokenPipeline(vocab_size=pc.vocab_size, batch=1, seq_len=8).batch_at(0))
-    with pytest.raises(ConfigError, match="item 5"):
+    """``remat_policy="dots"`` (save the 2-D matmuls, recompute the rest)
+    gives the loss, the gradients and one step's params of ``"nothing"``
+    bit for bit, on lm-tiny and on reduced qwen3; a policy of neither name
+    raises ``ConfigError``."""
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=10)
+    for name in ("lm-tiny", "qwen3-0.6b"):
+        _, pc = _configs(name)
+        m_dots = build_model(dataclasses.replace(pc, remat=True, remat_policy="dots"))
+        m_none = build_model(dataclasses.replace(pc, remat=True, remat_policy="nothing"))
+        params = m_dots.init(0, device="cpu")
+        batch = _torch_batch(TokenPipeline(vocab_size=pc.vocab_size, batch=2,
+                                           seq_len=32).batch_at(1))
+        l1, p1, g1 = _value_and_grad(m_dots, params, batch)
+        l2, p2, g2 = _value_and_grad(m_none, params, batch)
+        assert torch.equal(l1, l2) and all(torch.equal(p1[k], p2[k]) for k in p2)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2)))
+        s1 = make_train_step(m_dots, None, opt)(params, adamw_init(params), batch)
+        s2 = make_train_step(m_none, None, opt)(params, adamw_init(params), batch)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(s1[:2]), leaves(s2[:2])))
+    m = build_model(dataclasses.replace(pc, remat=True, remat_policy="everything"))
+    with pytest.raises(ConfigError, match="remat_policy"):
         _value_and_grad(m, params, batch)
     with torch.no_grad():  # the forward alone has nothing to recompute
         m.loss(params, batch)
