@@ -243,6 +243,28 @@ result line):
    ``flash_attention``, ``flash_attention_bwd`` and ``base_fit`` rows
    gain ``launches_by_path["parallel (phase 14)"]`` ((a) and (b), (a),
    (d)).
+15. the dry run and the paper's baselines: (b) qwen3-0.6b's train step at
+   [2, 4096] (phase 13's cut) and llama3-8b's prefill at [4, 2048] (phase
+   9's), each counted by ``launch.cost_analysis.analyze_step`` on the card
+   and on meta tensors: flops, bytes, matmul count and kernels equal (the
+   differing ops printed otherwise); the median of 5 steps (CUDA events)
+   beside the count's eager-traffic bound max(flops / 989e12, bytes /
+   3.35e12) (the bytes every eager op moves, unfused, which is more than
+   the step's function needs), the step's share of that bound and its
+   model-flops share model_flops_total / (step_s x 989e12); (c)
+   ``gateway_batch(4, 65536)`` through every registry entry of
+   ``repro_torch.baselines`` on the card: lossy at 1e-2 and 1e-3 of each
+   row's range within the reference test's bound, lossless bit-exact (GD at
+   the gateway's decimals), every blob equal to the CPU route's, the first
+   row's decodes equal to the CPU route's; each method's ratio and seconds
+   beside SHRINK's ratio on the same rows; TRC's ``rans_encode`` and
+   ``rans_decode`` launches; (a) then ``python -m repro_torch.launch.dryrun
+   --all``, ``--all --multi-pod`` and the ``--compressed`` qwen3-0.6b cell,
+   each a subprocess on the host's CPU (no card), all three at once and
+   after every timed phase: every cell written, no ``FAILED__`` file, each
+   cell's dominant term and fit.  The flash rows gain
+   ``launches_by_path["dry-run check (phase 15)"]``, the rANS rows
+   ``"baselines (phase 15)"``.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -265,14 +287,18 @@ The last two lines are the kernels line and the result line:
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import io
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3107,6 +3133,251 @@ def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict]:
     return stats, launches
 
 
+# ---------------------------------------------------------------- phase 15
+# (b): two steps counted on the card and on meta; (c): the paper's
+# baselines on the gateway's rows; (a): the dry-run sweeps on the host's
+# CPU, started after (c), so no timed phase shares the host with them
+DRYRUN_SWEEPS = {
+    "single-pod": ["--all"],
+    "multi-pod": ["--all", "--multi-pod"],
+    "compressed": ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod", "--compressed"],
+}
+DRYRUN_TIMEOUT = 300  # seconds from its start a sweep may take
+COUNT_CELLS = (("qwen3-0.6b", "train", TRAIN_BATCH, TRAIN_SEQ),  # phase 13's cut
+               (LM_ARCH, "prefill", 4, 2048))  # phase 9's
+COUNT_STEPS = 5  # (b): timed steps, median
+BASELINE_SERIES, BASELINE_SAMPLES = 4, 65536
+BASELINE_EPS = (1e-2, 1e-3)  # of each row's range
+BASELINE_CPU_DECODE_ROWS = 1  # rows whose decodes are also compared with the CPU route's
+_children: list[subprocess.Popen] = []
+
+
+@atexit.register
+def _stop_children() -> None:
+    for p in _children:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_dryruns(tmp: pathlib.Path) -> dict:
+    """(a): ``python -m repro_torch.launch.dryrun`` for each sweep, one
+    subprocess each, all at once, with no card (``CUDA_VISIBLE_DEVICES``
+    empty); output in ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    jobs = {}
+    for name, args in DRYRUN_SWEEPS.items():
+        out = tmp / name
+        out.mkdir(parents=True)
+        log = open(tmp / f"{name}.log", "w")
+        p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                              "--out", str(out)], env=env, stdout=log, stderr=subprocess.STDOUT)
+        _children.append(p)
+        jobs[name] = (out, tmp / f"{name}.log", time.perf_counter(), p)
+    return jobs
+
+
+def finish_dryruns(jobs: dict) -> dict:
+    """(a): every sweep exits 0 within its time, every cell is written and
+    no ``FAILED__`` file appears; each cell's dominant term and fit."""
+    stats = {}
+    for name, (out, log, t0, p) in jobs.items():
+        try:
+            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            fail(f"dry run {name}: no end within {DRYRUN_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        failed = sorted(f.name for f in out.glob("FAILED__*"))
+        check(p.returncode == 0 and not failed,
+              f"dry run {name}: exit {p.returncode}, failed {failed}\n" + log.read_text()[-3000:])
+        cells = {f.stem: json.loads(f.read_text()) for f in sorted(out.glob("*.json"))}
+        want = 1 if name == "compressed" else 32
+        check(len(cells) == want, f"dry run {name}: {len(cells)} cells, not {want}")
+        stats[name] = {"cells": len(cells), "wall_s": wall, "cells_s": {
+            k: c["seconds"]["trace"] for k, c in cells.items()}, "cell": {
+            k: {"dominant": c["roofline"]["dominant"], "fits": c.get("memory", {}).get("fits"),
+                "compute_s": c["roofline"]["compute_s"], "memory_s": c["roofline"]["memory_s"],
+                "collective_s": c["roofline"]["collective_s"]} for k, c in cells.items()}}
+        if name == "compressed":
+            (c,) = cells.values()
+            stats[name]["exchange_bytes"] = {k: v["collective_bytes"]
+                                             for k, v in c["exchange"].items()}
+    return stats
+
+
+def _count_key(c) -> tuple:
+    return c.flops, c.bytes, c.dot_count, c.kernels
+
+
+def count_step(CA, DR, TS, opt_mod, build_model, cfg, kind: str, b: int, s: int, seed: int,
+               dev) -> tuple[dict, dict]:
+    """(b): one step counted on meta, then on the card from random params
+    (the counts must be equal), then timed.  Returns the stats and the
+    step's launches of the flash kernels (counted and timed runs)."""
+    import gc
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+
+    m = build_model(cfg)
+    shape = ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
+    train = kind == "train"
+    grad = contextlib.nullcontext() if train else torch.no_grad()
+    step = TS.make_train_step(m) if train else TS.make_prefill_step(m)
+
+    def args(params, batch):
+        return (params, opt_mod.adamw_init(params), batch) if train else (params, batch)
+
+    meta_params = m.init_shapes(seed)
+    with grad:
+        (_, meta), meta_s = sync_time(lambda: CA.analyze_step(step, *args(
+            meta_params, m.input_specs(shape))))
+    params = m.init(seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=g, device=dev,
+                              dtype=v.dtype) for k, v in m.input_specs(shape).items()}
+    before = dict(ops.launches)
+    with grad:
+        _, card = CA.analyze_step(step, *args(params, batch))
+    if _count_key(card) != _count_key(meta):
+        diff = {op: (meta.by_op.get(op), card.by_op.get(op))
+                for op in set(meta.by_op) | set(card.by_op)
+                if meta.by_op.get(op) != card.by_op.get(op)}
+        print("count differences by op (meta, card): " + json.dumps(diff), flush=True)
+        fail(f"(b) {cfg.name} {kind}: the card's count {_count_key(card)} differs from "
+             f"meta's {_count_key(meta)}")
+    state = args(params, batch)
+    times = []
+    with grad:
+        for _ in range(COUNT_STEPS):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*state)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop) / 1e3)
+            if train:
+                state = (out[0], out[1], batch)
+            del out
+    launches = {k: ops.launches[k] - before[k] for k in ("flash_attention",
+                                                         "flash_attention_bwd")}
+    del state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = float(np.median(times))
+    compute_s, memory_s = card.flops / 989e12, card.bytes / HBM_BYTES_PER_S
+    bound_s = max(compute_s, memory_s)
+    mft = DR.model_flops_total(cfg, shape)
+    return {"arch": cfg.name, "kind": kind, "batch": [b, s], "layers": cfg.n_layers,
+            "flops": card.flops, "bytes": card.bytes, "dot_count": card.dot_count,
+            "kernels": card.kernels, "counts_equal_meta": True,
+            "peak_live_bytes": {"meta": meta.peak_live_bytes, "card": card.peak_live_bytes},
+            "meta_count_s": meta_s, "step_s": times, "median_step_s": step_s,
+            "compute_s": compute_s, "memory_s": memory_s, "bound_s": bound_s,
+            "bound_by": "operations" if compute_s >= memory_s else "bytes",
+            "share_of_eager_traffic_bound": bound_s / step_s, "model_flops_total": mft,
+            "model_flops_share": mft / (step_s * 989e12),
+            "top_ops_by_bytes": dict(sorted(card.by_op.items(),
+                                            key=lambda kv: -kv[1][2])[:6])}, launches
+
+
+def baselines_on_card(P, B, ops, seed: int, dev) -> tuple[dict, dict]:
+    """(c): ``gateway_batch(4, 65536)`` through every registry entry on the
+    card: lossy at BASELINE_EPS of each row's range (within the reference
+    test's bound), lossless at the gateway's decimals (bit-exact; GD equal
+    at its decimals); every blob equal to the CPU route's, and the first
+    row's decodes equal to the CPU route's bit for bit.  Each method's
+    ratio (16 B a row, the paper's) and seconds beside SHRINK's on the
+    same rows.  Returns the stats and the rANS launches (TRC)."""
+    values = gateway_batch(BASELINE_SERIES, BASELINE_SAMPLES, seed)
+    codec = P.ShrinkCodec.from_fraction(values, frac=0.05, device=dev)
+    n = values.size
+    cases = [(f"{name} eps {frac}", B.LOSSY[name], B.LOSSY_D[name], frac)
+             for frac in BASELINE_EPS for name in B.LOSSY]
+    cases += [(f"{name} lossless", B.LOSSLESS[name], B.LOSSLESS_D[name], None)
+              for name in B.LOSSLESS]
+    stats = {k: {"bytes": 0, "compress_s": 0.0, "decompress_s": 0.0} for k, *_ in cases}
+    shrink = {f"eps {frac}": 0 for frac in BASELINE_EPS} | {"lossless": 0}
+    before = dict(ops.launches)
+    for i, row in enumerate(values):
+        v = torch.as_tensor(row, device=dev)
+        vc = torch.from_numpy(row)
+        span = float(row.max() - row.min())
+        for key, enc, dec, frac in cases:
+            arg = DECIMALS if frac is None else frac * span
+            blob, t_c = sync_time(lambda: enc(v, arg))
+            out, t_d = sync_time(lambda: dec(blob, device=dev))
+            check(blob == enc(vc, arg), f"(c) {key} row {i}: the CPU route's bytes differ")
+            check(out.device == v.device and out.dtype == torch.float64 and out.shape == v.shape,
+                  f"(c) {key}: decode {out.dtype} {tuple(out.shape)} on {out.device}")
+            if frac is not None:
+                err = float((out - v).abs().max())
+                check(err <= frac * span * (1 + 1e-3) + 1e-9, f"(c) {key} row {i}: error {err}")
+            elif key.startswith("GD "):
+                check(torch.equal(torch.round(out, decimals=DECIMALS), v),
+                      f"(c) {key} row {i}: differs at {DECIMALS} decimals")
+            else:
+                check(same_bits(out, v), f"(c) {key} row {i}: not bit-exact")
+            if i < BASELINE_CPU_DECODE_ROWS:
+                check(same_bits(out.cpu(), dec(blob, device="cpu")),
+                      f"(c) {key}: the card's decode differs from the CPU route's")
+            s = stats[key]
+            s["bytes"] += len(blob)
+            s["compress_s"] += t_c
+            s["decompress_s"] += t_d
+        for frac in BASELINE_EPS:
+            shrink[f"eps {frac}"] += len(P.cs_to_bytes(codec.compress(v, [frac * span],
+                                                                      decimals=DECIMALS)))
+        shrink["lossless"] += len(P.cs_to_bytes(codec.compress(v, [0.0], decimals=DECIMALS)))
+    launches = {k: ops.launches[k] - before[k] for k in ("rans_encode", "rans_decode")}
+    for s in stats.values():
+        s["ratio"] = P.BYTES_PER_ROW * n / s["bytes"]
+    return {"rows": [BASELINE_SERIES, BASELINE_SAMPLES], "methods": stats,
+            "shrink_ratio": {k: P.BYTES_PER_ROW * n / b for k, b in shrink.items()},
+            "trc_rans_launches": launches}, launches
+
+
+def dryrun_path(P, ops, get_config, seed: int, dev) -> tuple[dict, dict]:
+    """Phase 15: (b) the two steps counted on the card and on meta, (c) the
+    baselines on the card, then (a) the dry-run sweeps, all three at once
+    and alone on the host.  Returns the stats and the launches of (b)'s
+    flash kernels and (c)'s rANS ones."""
+    import repro_torch.baselines as B
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as TS
+
+    stats, launches = {"b": {}}, {}
+    for arch, kind, b, s in COUNT_CELLS:
+        (st, fl), wall = sync_time(lambda: count_step(CA, DR, TS, opt_mod, build_model,
+                                                      get_config(arch), kind, b, s, seed, dev))
+        st["phase_s"] = wall
+        stats["b"][f"{arch} {kind}"] = st
+        for k, v in fl.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"dry-run check (b) {arch} {kind}: " + json.dumps(st), flush=True)
+    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+          f"(b) launched no flash kernel: {launches}")
+    (stats["c"], rans), wall = sync_time(lambda: baselines_on_card(P, B, ops, seed, dev))
+    stats["c"]["phase_s"] = wall
+    print("baselines (c): " + json.dumps(stats["c"]), flush=True)
+    # TRC's byte planes take the rANS coder where zstd does not import (the card machine)
+    check(B.standard._zstd is not None or all(rans.values()),
+          f"(c) TRC launched no rANS kernel: {rans}")
+    launches |= rans
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        stats["a"], wall = sync_time(lambda: finish_dryruns(start_dryruns(tmp)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["a"]["phase_s"] = wall
+    print("dry run (a): " + json.dumps(stats["a"]), flush=True)
+    return stats, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--series", type=int, default=1024)
@@ -3155,7 +3426,6 @@ def main() -> None:
     print(smi, flush=True)
     _, build_s = sync_time(_build.build_all)
     print(f"kernels built in {build_s:.1f} s", flush=True)
-
     # phase 2: the main path, with the kernels' inputs recorded
     values = gateway_batch(args.series, args.samples, args.seed)
     recs = [Recorder(ops, "cone_scan"), Recorder(rk, "encode_rows"), Recorder(rk, "decode_rows")]
@@ -3275,6 +3545,21 @@ def main() -> None:
         if row["name"] in par_launches:
             check(par_launches[row["name"]] > 0, f"phase 14 launched no {row['name']}")
             row.setdefault("launches_by_path", {})["parallel (phase 14)"] = par_launches[
+                row["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 15: the dry run (two steps counted on the card against meta,
+    # then the sweeps on the CPU) and the paper's baselines on the card
+    (_, dry_launches), phase_s = sync_time(lambda: dryrun_path(P, ops, get_config, args.seed,
+                                                                dev))
+    print(f"dry run and baselines: {phase_s:.3f} s, launches " + json.dumps(dry_launches),
+          flush=True)
+    for row in rows:
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            row.setdefault("launches_by_path", {})["dry-run check (phase 15)"] = dry_launches[
+                row["name"]]
+        elif row["name"] in ("rans_encode", "rans_decode"):
+            row.setdefault("launches_by_path", {})["baselines (phase 15)"] = dry_launches[
                 row["name"]]
     torch.cuda.empty_cache()
 

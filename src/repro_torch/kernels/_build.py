@@ -16,6 +16,14 @@ not 0.
 
 ``launches`` counts the launches of each kernel: a wrapper adds one where
 it launches its kernel, and nowhere else.
+
+A wrapper runs its body through :func:`counted`.  Where a cost counter
+of ``launch.cost_analysis`` is on this thread's dispatch-mode stack (the
+thread that entered it, and autograd's device threads, which inherit the
+stack), :func:`counted` pauses the counter around the body and records
+the work of the kernel's function instead of the ops the body dispatches,
+so a meta tensor, the plain version on the CPU and the kernel on the card
+give one count.  Another thread's launches are not counted.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["KERNELS", "build_all", "check", "function", "launches", "reset_launches"]
+__all__ = ["KERNELS", "build_all", "check", "cost_counter", "counted", "function", "launches",
+           "reset_launches"]
 
 KERNELS = (
     "cone_scan", "rans", "residual_quant", "dequant", "base_fit", "segment_agg", "flash_attention",
@@ -54,6 +63,30 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def cost_counter():
+    """The innermost cost counter on this thread's dispatch-mode stack (a
+    mode with ``counts_kernels``), or None."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_kernels", False):
+            return mode
+    return None
+
+
+def counted(name: str, work, body, *args):
+    """``body(*args)``, a kernel wrapper's body; under a cost counter
+    (:func:`cost_counter`) its ops go uncounted and ``work(*args)``, the
+    (flops, bytes) of the kernel's function, is recorded under ``name``."""
+    counter = cost_counter()
+    if counter is None:
+        return body(*args)
+    return counter.kernel(name, work(*args), body, args)
 
 
 def _nvcc() -> str:

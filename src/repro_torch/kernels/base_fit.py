@@ -243,11 +243,28 @@ def base_fit_cuda(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return theta, slope
 
 
-def base_fit(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The wrapper: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor.  Returns (theta[M], slope[M]) float32."""
+def _work(xb: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) for the cost counter: xb read, theta and slope written."""
+    return 0, xb.numel() * xb.element_size() + 2 * xb.shape[0] * 4
+
+
+def _route(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if xb.is_cuda:
         return base_fit_cuda(xb)
+    if xb.device.type == "meta":  # the kernel's outputs, empty
+        if xb.ndim != 2 or xb.dtype != torch.float32:
+            raise TypeError(f"base_fit takes float32 xb[M, K], got {xb.dtype} "
+                            f"{tuple(xb.shape)}")
+        return (torch.empty(xb.shape[0], dtype=torch.float32, device=xb.device),
+                torch.empty(xb.shape[0], dtype=torch.float32, device=xb.device))
     if xb.device.type != "cpu":
-        raise ValueError(f"base_fit runs on cuda or cpu, got {xb.device}")
+        raise ValueError(f"base_fit runs on cuda, cpu or meta, got {xb.device}")
     return base_fit_plain(xb)
+
+
+def base_fit(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wrapper: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor, empty outputs for a meta tensor (the dry run).  Returns
+    (theta[M], slope[M]) float32.  Under a cost counter it records its
+    input's and outputs' bytes (``kernels._build.counted``)."""
+    return _build.counted("base_fit", _work, _route, xb)

@@ -508,12 +508,14 @@ int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, 
         cudaStream_t stream) {
   using T = Tile<DP>;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  cudaError_t e = current_context();
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, b, sq, h, d, BQ) || !tensor_map(&mk, k, b, sk, kvh, d, T::BK) ||
       !tensor_map(&mv, v, b, sk, kvh, d, T::BK))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  e = cudaFuncSetAttribute(flash_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((sq + BQ - 1) / BQ) * (unsigned)h * (unsigned)b;
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);

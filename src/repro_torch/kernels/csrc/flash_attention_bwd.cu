@@ -992,6 +992,8 @@ int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
         int d, float scale, int causal, cudaStream_t stream) {
   using T = Tiles<DP>;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  cudaError_t e = current_context();
+  if (e != cudaSuccess) return (int)e;
   // the dq launch's own tiles are its 128 query rows, the dkdv launch's its 128 keys
   CUtensorMap q_own, do_own, k_tile, v_tile, q_tile, do_tile, k_own, v_own;
   if (!tensor_map(&q_own, q, b, sq, h, d, ROWS) || !tensor_map(&do_own, dout, b, sq, h, d, ROWS) ||
@@ -999,8 +1001,8 @@ int run(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
       !tensor_map(&q_tile, q, b, sq, h, d, TILE) || !tensor_map(&do_tile, dout, b, sq, h, d, TILE) ||
       !tensor_map(&k_own, k, b, sk, kvh, d, ROWS) || !tensor_map(&v_own, v, b, sk, kvh, d, ROWS))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(dq_tc_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  e = cudaFuncSetAttribute(dq_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(dkdv_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            T::SMEM);

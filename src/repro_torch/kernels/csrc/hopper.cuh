@@ -186,6 +186,16 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled fails on a thread with no current context: one
+// that has made no CUDA call yet, such as autograd's device thread when a
+// kernel's backward is the first node of a backward pass.  Make the current
+// device's primary context current before encoding.
+inline cudaError_t current_context() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // [B, S, heads, D] bf16 as a 4-D tensor map (innermost first), boxes of
 // [rows x 64] at one (head, batch), 128-byte swizzle, zeros outside
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows) {

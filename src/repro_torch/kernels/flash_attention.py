@@ -38,12 +38,25 @@ the saved lse and writes dq, dk and dv with no atomics (one summation
 order, the same bits every run).  bf16 with D % 8 == 0, D <= 192 and
 aligned pointers takes the tensor-core pair (wgmma, TMA); float32 and
 every other bf16 shape the scalar pair, chosen in the C entry point.
-``last_route`` names the route each kernel's last launch took.  The
-wrapper goes through that Function for a CUDA tensor; on the CPU the
-plain version is differentiable as it is.  ``flash_attention_cuda``
+``last_route`` names the route each kernel's last launch took.
+``flash_attention_cuda``
 itself records nothing for autograd, so it raises for an input that
 requires grad while grad mode is on.  ``flash_attention_bwd_plain``
 (autograd through the plain version) is the backward kernel's oracle.
+
+The wrapper goes through that Function for every device.  On the CPU its
+forward is the plain versions of the output and lse (made contiguous, as
+the kernel writes them, so that the step's later ops and live bytes are
+the card's) and its backward autograd through the plain version.  A meta
+tensor (the dry run, ``launch.dryrun``) takes a third route through the
+Function: empty outputs of the kernels' shapes and dtypes, no launch.
+Under a cost counter (``launch.cost_analysis``) the forward and the
+backward record the work of their functions, whatever computes them (the
+plain versions' ops uncounted): the forward ``2 pairs (D_qk + D_v)`` flops
+over the query-key pairs the mask keeps, q, k, v read and the output (and
+lse) written once; the backward the five products of the textbook gradient
+over the pairs, q, k, v, the output, its gradient and lse read and dq, dk,
+dv written once.
 """
 from __future__ import annotations
 
@@ -111,6 +124,55 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention takes an even head dim up to {MAX_HEAD_DIM}, got {d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+
+
+def _pairs(q, k, causal: bool) -> int:
+    """The query-key pairs the mask keeps, over every (batch, head)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if not causal:
+        return b * h * sq * sk
+    m = min(sq, sk)  # query i keeps keys 0..i
+    return b * h * (m * (m + 1) // 2 + (sq - m) * sk)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _lse_bytes(q) -> int:
+    return q.shape[0] * q.shape[2] * q.shape[1] * 4  # [B, H, Sq] float32
+
+
+def _fwd_work(q, k, v, causal: bool, with_lse: bool) -> tuple[int, int]:
+    return (2 * _pairs(q, k, causal) * (q.shape[3] + v.shape[3]),
+            _nbytes(q, k, v) + _nbytes(q) + (_lse_bytes(q) if with_lse else 0))
+
+
+def _bwd_work(q, k, v, out, dout, causal: bool, lse) -> tuple[int, int]:
+    """The kernel pair reads lse, which the CPU's route does not need."""
+    return (10 * _pairs(q, k, causal) * q.shape[3],
+            _nbytes(q, k, v, out, dout) + _lse_bytes(q) + _nbytes(q, k, v))
+
+
+def _fwd_meta(q, k, v, causal: bool, with_lse: bool):
+    """The meta route: the forward kernel's outputs, empty."""
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device), lse
+
+
+def _fwd(q, k, v, causal: bool, with_lse: bool):
+    """The forward by device, (out, lse): the kernel, the meta route or
+    the plain versions."""
+    if q.is_cuda:
+        return _flash_attention_fwd_cuda(q, k, v, causal, with_lse)
+    if q.device.type == "meta":
+        return _fwd_meta(q, k, v, causal, with_lse)
+    # contiguous, as the kernel writes them; lse held as the card holds it
+    return (flash_attention_plain(q, k, v, causal).contiguous(),
+            flash_attention_lse_plain(q, k, causal).contiguous() if with_lse else None)
 
 
 def _flash_attention_fwd_cuda(q, k, v, causal: bool = True, with_lse: bool = True):
@@ -202,22 +264,32 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True, *, lse):
     return dq, dk, dv
 
 
+def _bwd(q, k, v, out, dout, causal: bool, lse):
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse=lse)
+    if q.device.type == "meta":  # the kernel pair's outputs, empty
+        _check(q, k, v)
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, got {q.device}")
+    return tuple(g.contiguous() for g in flash_attention_bwd_plain(q, k, v, out, dout, causal))
+
+
 def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, *, lse=None):
     """The backward wrapper: the kernel pair for a CUDA tensor (given the
     forward's ``lse``, as :func:`flash_attention_bwd_cuda`), autograd
-    through the plain version for a CPU tensor (``lse`` unused)."""
-    if q.is_cuda:
-        return flash_attention_bwd_cuda(q, k, v, out, dout, causal, lse=lse)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    return flash_attention_bwd_plain(q, k, v, out, dout, causal)
+    through the plain version for a CPU tensor (``lse`` unused), empty
+    outputs for a meta tensor."""
+    return _build.counted("flash_attention_bwd", _bwd_work, _bwd, q, k, v, out, dout, causal,
+                          lse)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         # lse only when a gradient may be asked for (not at prefill or decode)
-        out, lse = _flash_attention_fwd_cuda(q, k, v, causal, any(ctx.needs_input_grad[:3]))
+        with_lse = any(ctx.needs_input_grad[:3])
+        out, lse = _build.counted("flash_attention", _fwd_work, _fwd, q, k, v, causal, with_lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -225,17 +297,16 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, ctx.causal, lse=lse)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, ctx.causal, lse=lse)
         return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """The wrapper: the kernel (through its autograd Function, whose
     forward saves lse when an input requires grad and whose backward is the
-    kernel pair) for a CUDA tensor, the plain version for a CPU tensor.
+    kernel pair) for a CUDA tensor; through the same Function, the plain
+    version for a CPU tensor and the meta route for a meta tensor.
     Returns [B, Sq, H, D] in q's dtype."""
-    if q.is_cuda:
-        return _FlashAttention.apply(q, k, v, causal)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    return flash_attention_plain(q, k, v, causal)
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, got {q.device}")
+    return _FlashAttention.apply(q, k, v, causal)

@@ -5,8 +5,10 @@ Multi-pod:   (2, 16, 16)   axes ("pod", "data", "model") = 512 ranks
 
 One rank a card, under ``torchrun`` (which sets the world size and the
 rendezvous in the environment); ``init_device_mesh`` creates the default
-process group when none exists.  Functions, so importing this module
-touches no device and no process group.
+process group when none exists.  The dry run (``launch.dryrun``) builds
+the production meshes with ``device_type="cpu"`` over a fake world of
+256 or 512 ranks.  Functions, so importing this module touches no device
+and no process group.
 """
 from __future__ import annotations
 
@@ -26,14 +28,14 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need, world = shape[0] * shape[1] * (shape[2] if multi_pod else 1), _world_size()
     if world != need:
         raise ConfigError(f"the production mesh {dict(zip(axes, shape))} needs a world of "
                           f"{need} ranks (one a card, under torchrun); this world has {world}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):

@@ -7,8 +7,10 @@ Functional style as in the reference: ``*_init(gen, cfg)`` returns a params
 dict with the reference pytree's keys and shapes, and the apply functions
 are plain functions on tensors.  Activations are bf16, softmax and norm
 statistics float32.  Random init draws the reference's distributions from
-an explicit ``torch.Generator`` on the target device (not its numbers:
-tests convert the reference's params instead).
+an explicit ``torch.Generator`` (not its numbers: tests convert the
+reference's params instead) onto the generator's device, or onto
+``device`` where an init is given one (``"meta"``: shapes and dtypes only,
+from a CPU generator).
 
 Causal self-attention in the ``"train"`` and ``"prefill"`` modes goes
 through the flash-attention wrapper (``kernels.ops.flash_attention``), whose
@@ -85,10 +87,16 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
+def _init_device(gen: torch.Generator, device) -> torch.device:
+    """Where an init puts its params: ``device``, else the generator's."""
+    return gen.device if device is None else torch.device(device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, cfg: ModelConfig,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0, device=None) -> torch.Tensor:
     std = scale / (in_dim**0.5)
-    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device, dtype=torch.float32)
+    w = torch.randn((in_dim, out_dim), generator=gen, device=_init_device(gen, device),
+                    dtype=torch.float32)
     return (w * std).to(_pdtype(cfg))
 
 
@@ -135,18 +143,19 @@ class MLACache:
     kpos: torch.Tensor
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False) -> Params:
+def attention_init(gen: torch.Generator, cfg: ModelConfig, cross: bool = False,
+                   device=None) -> Params:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     p = {
-        "wq": dense_init(gen, d, cfg.n_heads * hd, cfg),
-        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, cfg),
-        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, cfg),
-        "wo": dense_init(gen, cfg.n_heads * hd, d, cfg),
+        "wq": dense_init(gen, d, cfg.n_heads * hd, cfg, device=device),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, cfg, device=device),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, cfg, device=device),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, cfg, device=device),
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(hd, cfg, gen.device)
-        p["k_norm"] = rmsnorm_init(hd, cfg, gen.device)
+        p["q_norm"] = rmsnorm_init(hd, cfg, _init_device(gen, device))
+        p["k_norm"] = rmsnorm_init(hd, cfg, _init_device(gen, device))
     return p
 
 
@@ -319,17 +328,17 @@ def attention_apply(
 
 
 # --------------------------------------------------------------------- MLA
-def mla_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def mla_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     d, h = cfg.d_model, cfg.n_heads
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "wq": dense_init(gen, d, h * (nd + rd), cfg),
-        "w_dkv": dense_init(gen, d, cfg.kv_lora_rank, cfg),
-        "w_krope": dense_init(gen, d, rd, cfg),
-        "w_kup": dense_init(gen, cfg.kv_lora_rank, h * nd, cfg),
-        "w_vup": dense_init(gen, cfg.kv_lora_rank, h * vd, cfg),
-        "wo": dense_init(gen, h * vd, d, cfg),
-        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, cfg, gen.device),
+        "wq": dense_init(gen, d, h * (nd + rd), cfg, device=device),
+        "w_dkv": dense_init(gen, d, cfg.kv_lora_rank, cfg, device=device),
+        "w_krope": dense_init(gen, d, rd, cfg, device=device),
+        "w_kup": dense_init(gen, cfg.kv_lora_rank, h * nd, cfg, device=device),
+        "w_vup": dense_init(gen, cfg.kv_lora_rank, h * vd, cfg, device=device),
+        "wo": dense_init(gen, h * vd, d, cfg, device=device),
+        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, cfg, _init_device(gen, device)),
     }
 
 
@@ -401,12 +410,13 @@ def mla_apply(
 
 
 # --------------------------------------------------------------------- MLPs
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None,
+             device=None) -> Params:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "wg": dense_init(gen, d, ff, cfg),
-        "wu": dense_init(gen, d, ff, cfg),
-        "wd": dense_init(gen, ff, d, cfg),
+        "wg": dense_init(gen, d, ff, cfg, device=device),
+        "wu": dense_init(gen, d, ff, cfg, device=device),
+        "wd": dense_init(gen, ff, d, cfg, device=device),
     }
 
 
@@ -432,28 +442,39 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- MoE
-def _expert_normal(gen: torch.Generator, shape: tuple, std: float, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def _expert_normal(gen: torch.Generator, shape: tuple, std: float, cfg: ModelConfig,
+                   device=None) -> torch.Tensor:
     """N(0, std) expert weights [E, ...] in the param dtype, drawn an expert
-    at a time, so the float32 draw is one expert's, not the whole tensor's."""
-    out = torch.empty(shape, dtype=_pdtype(cfg), device=gen.device)
-    for e in range(shape[0]):
-        w = torch.randn(shape[1:], generator=gen, device=gen.device, dtype=torch.float32)
+    at a time, so the float32 draw is one expert's, not the whole tensor's
+    (on meta, which holds no values, the empty tensor)."""
+    dev = _init_device(gen, device)
+    out = torch.empty(shape, dtype=_pdtype(cfg), device=dev)
+    for e in range(0 if dev.type == "meta" else shape[0]):
+        w = torch.randn(shape[1:], generator=gen, device=dev, dtype=torch.float32)
         out[e] = (w * std).to(out.dtype)
     return out
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     p = {
-        "router": dense_init(gen, d, e, cfg, scale=0.1),
-        "wg": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg),
-        "wu": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg),
-        "wd": _expert_normal(gen, (e, ff, d), ff**-0.5, cfg),
+        "router": dense_init(gen, d, e, cfg, scale=0.1, device=device),
+        "wg": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg, device),
+        "wu": _expert_normal(gen, (e, d, ff), 1.0 / (d**0.5), cfg, device),
+        "wd": _expert_normal(gen, (e, ff, d), ff**-0.5, cfg, device),
     }
     if cfg.n_shared_experts:
-        p["shared"] = mlp_init(gen, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+        p["shared"] = mlp_init(gen, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
+                               device=device)
     return p
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot rows of ``idx`` (``F.one_hot``'s values): one
+    comparison, the same ops on every device (``F.one_hot`` checks the
+    values on the host on the CPU and scatters on the card), so the dry
+    run's count on meta is the card's."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def _route(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> tuple:
@@ -496,11 +517,11 @@ def _moe_experts(p: Params, xt: torch.Tensor, cfg: ModelConfig, expert_idx: torc
     eidx = expert_idx.reshape(-1) - first  # [T*k], in [0, count) iff this rank's
     if count == e:
         mine = None
-        onehot = F.one_hot(eidx, e).T.contiguous()
+        onehot = _one_hot(eidx, e).T.contiguous()
     else:
         mine = (eidx >= 0) & (eidx < count)
         eidx = torch.clamp(eidx, 0, count - 1)
-        onehot = (F.one_hot(eidx, count) * mine[:, None]).T.contiguous()
+        onehot = (_one_hot(eidx, count) * mine[:, None]).T.contiguous()
     pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(0)
     keep = pos < cap if mine is None else mine & (pos < cap)
     gates = (gate_vals.reshape(-1) * keep).to(COMPUTE_DTYPE)
@@ -562,7 +583,7 @@ def _moe_aux(probs: torch.Tensor, expert_idx: torch.Tensor, cfg: ModelConfig) ->
     """Load-balancing aux loss (Switch): E * sum_e f_e * p_e."""
     e, k = cfg.n_experts, cfg.top_k
     me = probs.mean(0)
-    ce = F.one_hot(expert_idx, e).sum(1).float().mean(0) / k
+    ce = _one_hot(expert_idx, e).sum(1).float().mean(0) / k
     return e * torch.sum(me * ce)
 
 
@@ -587,19 +608,19 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
 
 
 # ------------------------------------------------------------------- RG-LRU
-def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def rglru_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     d = cfg.d_model
     w = cfg.lru_width or d
-    dev = gen.device
+    dev = _init_device(gen, device)
     return {
-        "w_in_x": dense_init(gen, d, w, cfg),  # input branch
-        "w_in_g": dense_init(gen, d, w, cfg),  # gate branch
+        "w_in_x": dense_init(gen, d, w, cfg, device=device),  # input branch
+        "w_in_g": dense_init(gen, d, w, cfg, device=device),  # gate branch
         "conv": (torch.randn((cfg.conv_width, w), generator=gen, device=dev) * 0.1).to(
             _pdtype(cfg)),
-        "wa": dense_init(gen, w, w, cfg, scale=0.5),  # recurrence gate
-        "wx": dense_init(gen, w, w, cfg, scale=0.5),  # input gate
+        "wa": dense_init(gen, w, w, cfg, scale=0.5, device=device),  # recurrence gate
+        "wx": dense_init(gen, w, w, cfg, scale=0.5, device=device),  # input gate
         "lam": torch.full((w,), 2.0, dtype=_pdtype(cfg), device=dev),  # softplus^-1(a)
-        "w_out": dense_init(gen, w, d, cfg),
+        "w_out": dense_init(gen, w, d, cfg, device=device),
     }
 
 
@@ -746,10 +767,10 @@ def _wkv_chunked(r, k, v, w, u, s0, chunk: int):
     return state, torch.stack(ys, dim=1).reshape(b, s, h * kd)
 
 
-def rwkv_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def rwkv_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     d, hk = cfg.d_model, cfg.rwkv_head_dim
     h = d // hk
-    dev, pd = gen.device, _pdtype(cfg)
+    dev, pd = _init_device(gen, device), _pdtype(cfg)
     lora = max(32, d // 16)
 
     def mix(n):
@@ -758,21 +779,21 @@ def rwkv_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return {
         # token-shift mix coefficients (static lerp + data-dependent lora)
         "mix_rkvwg": mix(5),
-        "w_lora_a": dense_init(gen, d, lora, cfg, scale=0.1),
-        "w_lora_b": dense_init(gen, lora, d, cfg, scale=0.1),
+        "w_lora_a": dense_init(gen, d, lora, cfg, scale=0.1, device=device),
+        "w_lora_b": dense_init(gen, lora, d, cfg, scale=0.1, device=device),
         "decay_base": torch.full((h, hk), -6.0, dtype=pd, device=dev),
         "bonus_u": torch.zeros((h, hk), dtype=pd, device=dev),
-        "wr": dense_init(gen, d, d, cfg),
-        "wk": dense_init(gen, d, d, cfg),
-        "wv": dense_init(gen, d, d, cfg),
-        "wg": dense_init(gen, d, d, cfg),
-        "wo": dense_init(gen, d, d, cfg),
+        "wr": dense_init(gen, d, d, cfg, device=device),
+        "wk": dense_init(gen, d, d, cfg, device=device),
+        "wv": dense_init(gen, d, d, cfg, device=device),
+        "wg": dense_init(gen, d, d, cfg, device=device),
+        "wo": dense_init(gen, d, d, cfg, device=device),
         "ln_x": rmsnorm_init(d, cfg, dev),
         # channel-mix
         "cm_mix": mix(2),
-        "cm_k": dense_init(gen, d, cfg.d_ff, cfg),
-        "cm_v": dense_init(gen, cfg.d_ff, d, cfg),
-        "cm_r": dense_init(gen, d, d, cfg),
+        "cm_k": dense_init(gen, d, cfg.d_ff, cfg, device=device),
+        "cm_v": dense_init(gen, cfg.d_ff, d, cfg, device=device),
+        "cm_r": dense_init(gen, d, d, cfg, device=device),
     }
 
 

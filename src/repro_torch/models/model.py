@@ -1,14 +1,16 @@
 """Top-level model facade in PyTorch, counterpart of ``repro.models.model``:
-config -> init / loss / prefill / decode for every family.
+config -> init / loss / prefill / decode for every family, and the
+shape-only stand-ins of the dry run (``init_shapes``, ``input_specs``).
 
 Batch conventions as in the reference: ``loss`` takes tokens[B, S] and
 labels[B, S] (an encoder-decoder also frames[B, Se, D] for its encoder, a
 VLM also vision[B, Nv, D], the stub frontends' embeddings); ``prefill``
 takes the same inputs and returns the last position's logits and the
 caches; ``decode_step`` takes tokens[B, 1], the caches and a cache index.
-``loss`` is the forward pass only (training is ROADMAP queue 1 item 4);
-the shape-only tools ``init_shapes`` and ``input_specs`` wait for queue 1
-item 6.
+``loss`` is the forward pass only (the train step takes its gradient).
+``init_shapes`` and ``input_specs`` return meta tensors, the port's
+``jax.ShapeDtypeStruct``: the reference's shapes and dtypes, nothing
+allocated.
 
 As in the reference, an encoder-decoder runs its encoder in ``loss`` and
 ``prefill`` but its decoder has no cross layer (its block group is
@@ -20,13 +22,14 @@ import dataclasses
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..core.device import resolve_device
 from . import transformer as T
 
 __all__ = ["Model", "build_model"]
 
 Params = dict
+_META = torch.device("meta")
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -43,6 +46,12 @@ class Model:
         a JAX PRNG key in this place; the port takes its seed."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(key))
         return T.init_params(gen, self.cfg)
+
+    def init_shapes(self, key=None) -> Params:
+        """The tree of :meth:`init` as meta tensors (shapes and dtypes, no
+        allocation): the dry run's params."""
+        gen = torch.Generator().manual_seed(0 if key is None else int(key))
+        return T.init_params(gen, self.cfg, device=_META)
 
     def _cross(self, params: Params, batch: dict):
         """The cross-attention context: the encoder over the frames (encdec)
@@ -108,6 +117,38 @@ class Model:
         if self.cfg.family == "vlm":
             return self.cfg.vision_tokens
         return 0
+
+    def input_specs(self, shape: ShapeSpec, per_device_batch: int | None = None) -> dict:
+        """Meta stand-ins for a shape cell's inputs (no allocation), the
+        reference's batch conventions: train and prefill take int32
+        tokens [B, S] (train also labels), an encoder-decoder float32
+        frames [B, Se, D] and tokens of the other S - Se positions (Se =
+        S x ``audio_frames_ratio``), a VLM float32 vision [B, Nv, D];
+        decode takes tokens [B, 1], the caches of S positions and a 0-d
+        int32 cache index."""
+        cfg = self.cfg
+        b = shape.global_batch if per_device_batch is None else per_device_batch
+        s = shape.seq_len
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=_META)
+
+        f32, i32 = torch.float32, torch.int32
+        if shape.kind == "decode":
+            caches = T.make_decode_caches(cfg, b, s, self._cross_len(s), _META)
+            return {"tokens": spec((b, 1), i32), "caches": caches,
+                    "cache_index": spec((), i32)}
+        batch = {}
+        if cfg.family == "encdec":
+            se = int(s * cfg.audio_frames_ratio)
+            batch["frames"] = spec((b, se, cfg.d_model), f32)
+            s -= se
+        batch["tokens"] = spec((b, s), i32)
+        if shape.kind == "train":
+            batch["labels"] = spec((b, s), i32)
+        if cfg.family == "vlm":
+            batch["vision"] = spec((b, cfg.vision_tokens, cfg.d_model), f32)
+        return batch
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -48,6 +48,7 @@ from .layers import (
     MLACache,
     RecState,
     RwkvState,
+    _init_device,
     attention_apply,
     attention_init,
     mla_apply,
@@ -91,24 +92,25 @@ def _block_kind(cfg: ModelConfig, layer_idx: int) -> str:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, layer_idx: int, kind: str,
-               encoder: bool = False) -> Params:
-    dev = gen.device
+               encoder: bool = False, device=None) -> Params:
+    dev = _init_device(gen, device)
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, cfg, dev),
                  "ln2": rmsnorm_init(cfg.d_model, cfg, dev)}
     if kind in ("attn", "local", "cross"):
-        p["attn"] = mla_init(gen, cfg) if (cfg.mla and not encoder) else attention_init(gen, cfg)
+        p["attn"] = (mla_init(gen, cfg, device=dev) if (cfg.mla and not encoder)
+                     else attention_init(gen, cfg, device=dev))
     elif kind == "rec":
-        p["rec"] = rglru_init(gen, cfg)
+        p["rec"] = rglru_init(gen, cfg, device=dev)
     elif kind == "rwkv":
-        p["rwkv"] = rwkv_init(gen, cfg)
+        p["rwkv"] = rwkv_init(gen, cfg, device=dev)
     if kind == "cross" and not encoder:
         p["ln_cross"] = rmsnorm_init(cfg.d_model, cfg, dev)
-        p["cross_attn"] = attention_init(gen, cfg, cross=True)
+        p["cross_attn"] = attention_init(gen, cfg, cross=True, device=dev)
     if kind != "rwkv":  # rwkv carries its own channel-mix
         if cfg.layer_uses_moe(layer_idx) and not encoder:
-            p["moe"] = moe_init(gen, cfg)
+            p["moe"] = moe_init(gen, cfg, device=dev)
         else:
-            p["mlp"] = mlp_init(gen, cfg)
+            p["mlp"] = mlp_init(gen, cfg, device=dev)
     return p
 
 
@@ -331,12 +333,14 @@ def make_decode_caches(cfg: ModelConfig, batch: int, max_seq: int, cross_len: in
 
 
 # --------------------------------------------------------------- the model
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random params on the generator's device: the reference's keys,
-    shapes, dtypes and distributions (embeddings N(0, 0.02), the head and
-    every projection N(0, 1/fan_in), norms 1)."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """Random params on ``device`` (default the generator's): the
+    reference's keys, shapes, dtypes and distributions (embeddings
+    N(0, 0.02), the head and every projection N(0, 1/fan_in), norms 1).
+    ``device="meta"`` with a CPU generator gives the shapes and dtypes
+    only, with nothing allocated."""
     _stacked_only(cfg)
-    dev = gen.device
+    dev = _init_device(gen, device)
     pd = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
     vp = cfg.padded_vocab
     params: Params = {
@@ -348,20 +352,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
                           * (cfg.d_model**-0.5)).to(pd)
     group = cfg.block_group
     n_prefix, n_groups, n_tail = _layer_split(cfg)
-    params["prefix"] = [block_init(gen, cfg, i, _block_kind(cfg, i)) for i in range(n_prefix)]
+    params["prefix"] = [block_init(gen, cfg, i, _block_kind(cfg, i), device=dev)
+                        for i in range(n_prefix)]
     if n_groups:
         params["groups"] = {
-            f"pos{p}": _stack_params([block_init(gen, cfg, n_prefix + g * len(group) + p, kind)
+            f"pos{p}": _stack_params([block_init(gen, cfg, n_prefix + g * len(group) + p, kind,
+                                                 device=dev)
                                       for g in range(n_groups)])
             for p, kind in enumerate(group)
         }
     else:
         params["groups_list"] = []
     first_tail = n_prefix + n_groups * len(group)
-    params["tail"] = [block_init(gen, cfg, first_tail + i, _block_kind(cfg, i))
+    params["tail"] = [block_init(gen, cfg, first_tail + i, _block_kind(cfg, i), device=dev)
                       for i in range(n_tail)]
     if cfg.n_enc_layers:
-        params["encoder"] = _stack_params([block_init(gen, cfg, i, "attn", encoder=True)
+        params["encoder"] = _stack_params([block_init(gen, cfg, i, "attn", encoder=True,
+                                                      device=dev)
                                            for i in range(cfg.n_enc_layers)])
         params["enc_ln_f"] = rmsnorm_init(cfg.d_model, cfg, dev)
     return params

@@ -21,7 +21,11 @@ raw forward kernel raising on an input that requires grad, and the train step's 
 one-rank NCCL mesh, the data-parallel step bit-equal to the one-device
 step, the expert-parallel prefill bit-equal to the dense one, the
 cross-pod exchange bit-equal to ``compressed_psum_tree`` and a checkpoint
-restored onto the mesh.  Without a card every test
+restored onto the mesh; for the dry run, the cost counter's count of the
+flash kernels and of a reduced train step and prefill on the card equal to
+its count on meta tensors; and the paper's baselines on the card, their
+blobs equal to the CPU route's and their decodes to the CPU route's bit for
+bit.  Without a card every test
 here skips; run them on one with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -1073,3 +1077,108 @@ def test_crosspod_exchange_and_mesh_checkpoint_on_a_one_rank_nccl_mesh(nccl_rank
                               shardings=param_shardings(params, cfg, mesh))
     assert all(a.device_mesh is mesh and a.to_local().is_cuda and torch.equal(a.to_local(), b)
                for a, b in zip(leaves(back), leaves(params)))
+
+
+_NO_CONTEXT_FLASH = """
+import threading
+import torch
+from repro_torch.kernels import flash_attention as FA, ops
+dev = torch.device("cuda")
+for d in (64, 128):
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(s, generator=g).to(dev, torch.bfloat16).requires_grad_(True)
+               for s in ((2, 300, 8, d), (2, 300, 2, d), (2, 300, 2, d)))
+    out = ops.flash_attention(q, k, v, True)
+    # leaves: the flash backward is the first node on autograd's device thread
+    torch.autograd.grad(out, (q, k, v), torch.randn_like(out))
+    torch.cuda.synchronize()
+q, k, v = (t.detach() for t in (q, k, v))
+want, got = FA.flash_attention_cuda(q, k, v, True), []
+t = threading.Thread(target=lambda: got.append(FA.flash_attention_cuda(q, k, v, True)))
+t.start()
+t.join(timeout=120)
+assert not t.is_alive() and torch.equal(got[0], want)
+print("ok")
+"""
+
+
+def test_flash_kernels_on_a_thread_without_a_current_context(card):
+    """TMA's tensor maps need a current context, which a thread that has
+    made no CUDA call lacks: autograd's device thread when the flash
+    backward is the first node of a backward pass (leaf inputs), and a
+    fresh thread.  A fresh process shows it: both raised cudaError 1 there
+    before the kernels made the device's primary context current."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run([sys.executable, "-c", _NO_CONTEXT_FLASH], capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(src)))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_cost_count_on_the_card_equals_meta(card, causal):
+    from repro_torch.launch.cost_analysis import analyze_step
+
+    counts = []
+    for dev in ("meta", card):
+        g = torch.Generator().manual_seed(0)
+        q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16).requires_grad_(True)
+                   for shape in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64)))
+        out, fwd = analyze_step(ops.flash_attention, q, k, v, causal)
+        _, bwd = analyze_step(torch.autograd.grad, out, (q, k, v), torch.ones_like(out))
+        counts.append((fwd, bwd))
+    (mf, mb), (cf, cb) = counts
+    assert mf == cf and mb.kernels == cb.kernels
+    assert (cf.dot_count, cb.dot_count) == (0, 0)
+    assert cf.kernels["flash_attention"]["calls"] == cb.kernels["flash_attention_bwd"]["calls"] == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama3-8b", "deepseek-v2-lite-16b"])
+def test_reduced_step_cost_on_the_card_equals_meta(card, arch):
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cost_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_prefill_step, make_train_step
+
+    m = build_model(reduced_config(ARCHS[arch]))
+    shape = ShapeSpec("t", 128, 2, "train")
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {k: torch.randint(0, 500, v.shape, generator=g, device=card, dtype=v.dtype)
+             for k, v in m.input_specs(shape).items()}
+    meta_p, card_p = m.init_shapes(), m.init(0, device=card)
+    _, meta = analyze_step(make_train_step(m), meta_p, adamw_init(meta_p), m.input_specs(shape))
+    _, got = analyze_step(make_train_step(m), card_p, adamw_init(card_p), batch)
+    assert (got.flops, got.bytes, got.dot_count, got.kernels) == \
+        (meta.flops, meta.bytes, meta.dot_count, meta.kernels)
+    with torch.no_grad():
+        _, meta = analyze_step(make_prefill_step(m), meta_p, {"tokens": m.input_specs(shape)[
+            "tokens"]})
+        _, got = analyze_step(make_prefill_step(m), card_p, {"tokens": batch["tokens"]})
+    assert (got.flops, got.bytes, got.dot_count, got.kernels) == \
+        (meta.flops, meta.bytes, meta.dot_count, meta.kernels)
+
+
+def test_baselines_on_the_card_equal_the_cpu_route(card):
+    import repro_torch.baselines as B
+
+    v = _walk(7, 1, 30_000)[0]
+    vc, vd = torch.from_numpy(v), torch.as_tensor(v, device=card)
+    span = float(v.max() - v.min())
+    cases = [(B.LOSSY[n], B.LOSSY_D[n], f * span) for n in B.LOSSY for f in (1e-2, 1e-3)]
+    cases += [(B.LOSSLESS[n], B.LOSSLESS_D[n], 4) for n in B.LOSSLESS]
+    before = dict(ops.launches)
+    for enc, dec, arg in cases:
+        blob = enc(vd, arg)
+        assert blob == enc(vc, arg)
+        out = dec(blob)
+        assert out.is_cuda and out.dtype == torch.float64
+        assert torch.equal(out.cpu().view(torch.int64), dec(blob, device="cpu").view(torch.int64))
+    if B.standard._zstd is None:  # TRC's byte planes through the rANS kernels
+        assert ops.launches["rans_encode"] > before["rans_encode"]
+        assert ops.launches["rans_decode"] > before["rans_decode"]

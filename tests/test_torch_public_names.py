@@ -5,8 +5,7 @@ and the names repaired here hold the reference's outputs bit for bit
 
 A package's public names are its ``__all__`` where it has one, else every
 name without a leading underscore that is not a submodule.  The waivers
-below are the only names allowed to be missing, each with the reason
-(ROADMAP queue 1 item 6 brings the last gaps: ``LATER``).
+below are the only names allowed to be missing, each with the reason.
 
 For every public function, and every public method (and ``__init__``) of
 every public class, the reference's parameters must open the port's, with
@@ -14,15 +13,20 @@ the same names, kinds and positions, so a reference call binds the same
 arguments in the port; the port may add parameters with defaults after
 them.  Methods keep the reference's kind (function, property, static or
 class method).  Waived: the route switches the port's rules forbid
-(``force_ref``, ``route``, ``block_t``, ``use_kernel``) and the gaps that
-ROADMAP names as a later slice's, each with its item.  Item 5 (the mesh:
-``parallel.sharding``, ``parallel.partition``, ``launch.mesh``, the spec
-maps of ``training.train_step`` and ``grad_compress.make_crosspod_exchange``)
-is ported and has no waiver left.
+(``force_ref``, ``route``, ``block_t``, ``use_kernel``).
+
+``repro.launch.hlo_analysis`` has no port of that name: it parses XLA's
+compiled HLO, which an eager PyTorch step does not have.  Its counterpart
+is ``repro_torch.launch.cost_analysis``, which counts the ops, kernels and
+collectives a step dispatches (``tests/test_torch_cost_analysis.py``).
+Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512 host devices) for
+the process; :func:`_reference` puts the variable back at once, before
+any JAX backend starts.
 """
 import dataclasses
 import importlib
 import inspect
+import os
 import types
 
 import numpy as np
@@ -38,7 +42,7 @@ PORTED = ["core", "analytics", "serving", "models", "configs", "kernels.ops", "d
           "parallel", "parallel.sharding", "parallel.partition", "launch.mesh",
           "training", "training.optimizer", "training.train_step",
           "training.grad_compress", "training.checkpoint", "training.fault_tolerance",
-          "training.metrics", "data.pipeline"]
+          "training.metrics", "data.pipeline", "baselines", "launch.dryrun"]
 
 WAIVERS = {
     "core": {
@@ -48,16 +52,34 @@ WAIVERS = {
     "kernels.ops": {
         "use_interpret": "Pallas interpret mode has no CUDA counterpart",
     },
+    # the reference's dry run imports these for its jit shardings and its HLO
+    "launch.dryrun": {
+        "NamedSharding": "JAX's jit input sharding: the port's steps take each rank's slice",
+        "P": "JAX's PartitionSpec for the jit shardings (the port's is parallel.sharding.P)",
+        "batch_specs": "jit input shardings: a port step slices its own batch",
+        "cache_specs": "jit input shardings: a port decode step takes this rank's caches",
+        "analyze_hlo": "XLA HLO only: the port counts with launch.cost_analysis.analyze_step",
+        "compiled_cost_dict": "XLA's compiled cost analysis: no compiled step in the port",
+        "AdamWConfig": "imported and unused by the reference's dry run",
+        "make_compressed_train_step": "imported and unused by the reference's dry run",
+    },
 }
 
 
 ROUTE_SWITCHES = {"force_ref", "route", "block_t", "use_kernel"}
 
-# (package, qualified name[, parameter]) -> the ROADMAP item that brings it
-LATER = {
-    ("models", "Model.init_shapes"): "ROADMAP queue 1 item 6 (launch tools: Model.init_shapes)",
-    ("models", "Model.input_specs"): "ROADMAP queue 1 item 6 (launch tools: Model.input_specs)",
-}
+
+def _reference(pkg: str):
+    """The reference module ``repro.<pkg>``, with ``XLA_FLAGS`` as it was
+    before the import (``repro.launch.dryrun`` sets it when imported)."""
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{pkg}")
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
 
 
 def _public(mod) -> list[str]:
@@ -70,7 +92,7 @@ def _public(mod) -> list[str]:
 
 @pytest.mark.parametrize("pkg", PORTED)
 def test_every_reference_name_exists_in_the_port(pkg):
-    ref = importlib.import_module(f"repro.{pkg}")
+    ref = _reference(pkg)
     port = importlib.import_module(f"repro_torch.{pkg}")
     waived = WAIVERS.get(pkg, {})
     missing = [n for n in _public(ref) if not hasattr(port, n) and n not in waived]
@@ -93,7 +115,7 @@ def _param_gaps(pkg: str, qual: str, ref_fn, port_fn) -> list[str]:
     ref, port = _params(ref_fn), _params(port_fn)
     if ref is None or port is None:
         return [] if ref == port else [f"{qual}: signature"]
-    ref = [p for p in ref if p.name not in ROUTE_SWITCHES and (pkg, qual, p.name) not in LATER]
+    ref = [p for p in ref if p.name not in ROUTE_SWITCHES]
     head = [(p.name, p.kind) for p in port[: len(ref)]]
     gaps = [] if head == [(p.name, p.kind) for p in ref] else [
         f"{qual}: {[p.name for p in ref]} against {[p.name for p in port]}"]
@@ -109,7 +131,7 @@ def _methods(cls) -> list[str]:
 
 @pytest.mark.parametrize("pkg", PORTED)
 def test_reference_methods_and_parameters_bind_the_same_in_the_port(pkg):
-    ref = importlib.import_module(f"repro.{pkg}")
+    ref = _reference(pkg)
     port = importlib.import_module(f"repro_torch.{pkg}")
     gaps = []
     for name in _public(ref):
@@ -122,9 +144,6 @@ def test_reference_methods_and_parameters_bind_the_same_in_the_port(pkg):
             continue
         for m in _methods(r):
             qual = f"{name}.{m}"
-            if (pkg, qual) in LATER:
-                assert not hasattr(p, m), f"{qual} is waived but the port has it"
-                continue
             if not hasattr(p, m):
                 gaps.append(f"{qual}: missing")
                 continue
