@@ -222,8 +222,8 @@ result line):
    (the multi-rank part on gloo processes on the CPU): (a) qwen3-0.6b at
    full width and depth, 3 data-parallel steps (``make_train_step`` over a
    ("data", "model") = (1, 1) mesh) at [2, 4096] against the one-device
-   step from the same params: every state leaf bit-equal, each run's
-   median step; (e) (a)'s state saved and restored through
+   step from the same params, each run after a discarded warm-up step:
+   every state leaf bit-equal, each run's median step; (e) (a)'s state saved and restored through
    ``param_shardings`` onto a new ("pod", "data", "model") mesh, every
    leaf equal, and training resumed from it: one data-parallel step on
    that mesh from the restored DTensors bit-equal to the one-device step
@@ -265,6 +265,32 @@ result line):
    cell's dominant term and fit.  The flash rows gain
    ``launches_by_path["dry-run check (phase 15)"]``, the rANS rows
    ``"baselines (phase 15)"``.
+16. sharded state and tensor parallelism: (a) qwen3-0.6b at full width and
+   depth, 3 steps of ``make_train_step`` on a one-rank NCCL ("data",
+   "model") mesh from params placed by ``param_shardings`` (DTensors; the
+   step holds each rank's ``param_specs`` shards, gathers a block at a
+   time and splits heads, ffn and vocab over "model", here groups of one)
+   at [2, 4096]: loss, grad norm and every state leaf bit-equal to phase
+   14 (a)'s one-device run from the same seed, the flash launches a step;
+   then, each from its own state on one batch after a warm-up step, 3
+   rounds of (one device, sharded, control, control, sharded, one device),
+   the control being the sharded step with torch.distributed's
+   collectives replaced by their one-rank result (a copy): the medians
+   and their ratios, every chain's losses equal; one sharded step traced
+   (collective calls, their host time, the NCCL kernels' device time, the
+   collectives' autograd Functions); (b) phase 9's llama3-8b prefill (4 x
+   2048, the same seed and tokens) through the sharded
+   ``make_prefill_step`` on that mesh: logits bit-equal to phase 9's; (c)
+   on the host's CPU after (b): ``tests/torch_tp_case.py``'s reduced dense
+   config (4 heads, 1 kv head replicated over "model" and 2 split) on 4
+   gloo processes, a 2 x 2 mesh, 3 sharded steps and a prefill against
+   the one-device step within the bounds that
+   ``tests/test_torch_tensor_parallel.py`` holds, every rank's local shard
+   shapes printed; (d) the dense configs' ``train_4k`` and
+   ``prefill_32k`` cells of phase 15 (a)'s 16x16 sweep: per-rank argument
+   and temporary bytes, fit and collective bytes.  The flash rows gain
+   ``launches_by_path["sharded (phase 16)"]`` ((a)'s 3 steps and (b)).
+   The card's name and power limit open the phase's summary line.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -1781,7 +1807,7 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
     }
     if profiled is not None:
         stats["trace"] = profiled
-    return stats, row
+    return stats, row, logits.cpu()
 
 
 def run_main(serve, argv: list[str]) -> str:
@@ -2435,14 +2461,14 @@ def check_flash_bwd(FA, seed: int, dev) -> dict:
                library="scaled_dot_product_attention(is_causal=True, enable_gqa=True): forward "
                "and backward less the forward", library_fwd_bwd_ms=sdpa_ms,
                library_fwd_ms=sdpa_fwd_ms, dtype="bfloat16", tolerance=FLASH_BWD_TOL,
-               errors=errs, route=route, routes=routes,
+               errors=errs, kernel_route=route, routes=routes,
                floor_7_products_ms=row["bound_ms"] * 7 / 5,
                fraction_of_bound=row["bound_ms"] / gms,
                fraction_of_7_product_floor=row["bound_ms"] * 7 / 5 / gms,
                vs_library=gms / (sdpa_ms - sdpa_fwd_ms))
     # the previous times go on this line only, never into the kernels line
     print("flash_attention_bwd: " + json.dumps({**{k: row[k] for k in (
-        "route", "ms", "graph_ms", "plain_ms", "bound_ms", "floor_7_products_ms",
+        "kernel_route", "ms", "graph_ms", "plain_ms", "bound_ms", "floor_7_products_ms",
         "fraction_of_bound", "fraction_of_7_product_floor", "library_ms")},
         "previous": FLASH_BWD_PREV}), flush=True)
     return row
@@ -2835,10 +2861,17 @@ def one_rank_group(dev):
                                 world_size=1)
 
 
-def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict]:
-    """(a): PAR_STEPS data-parallel steps on ``mesh`` (launches counted)
-    against the one-device step from the same params; returns the stats and
-    the mesh run's state."""
+def local(t):
+    """A DTensor's local tensor (on a one-rank mesh, the whole leaf)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict, dict]:
+    """(a): PAR_STEPS steps on ``mesh`` (launches counted) from plain params,
+    which every rank holds whole, against the one-device step from the same
+    params, each run after one warm-up step whose result is dropped
+    (NCCL's communicator, the allocator's first blocks); returns the stats, the mesh run's state (DTensors) and the
+    one-device run's state (on the host), losses, grad norms and times."""
     from repro_torch.training._tree import leaves
 
     batches = [train_batch(pipe, s, dev) for s in range(PAR_STEPS)]
@@ -2846,7 +2879,8 @@ def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict]:
     for name, mesh_arg in (("mesh", mesh), ("one_device", None)):
         step = TS.make_train_step(m, mesh_arg, opt_mod.AdamWConfig())
         state = (params, opt_mod.adamw_init(params))
-        times, losses = [], []
+        sync_time(lambda: step(*state, batches[0]))  # warm-up, discarded
+        times, losses, grad_norms = [], [], []
         if name == "mesh":
             ops.reset_launches()
         for b in batches:
@@ -2854,12 +2888,13 @@ def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict]:
             state = (p, o)
             times.append(s)
             losses.append(float(metrics["loss"]))
+            grad_norms.append(float(metrics["grad_norm"]))
         if name == "mesh":
             launches = dict(ops.launches)
         runs[name] = (state, times, losses)
     (got, t_mesh, l_mesh), (want, t_one, l_one) = runs["mesh"], runs["one_device"]
     pairs = list(zip(leaves(got), leaves(want)))
-    equal = sum(torch.equal(a, b) for a, b in pairs)
+    equal = sum(torch.equal(local(a), b) for a, b in pairs)
     check(equal == len(pairs), f"(a) data-parallel step: {len(pairs) - equal} of {len(pairs)} "
           "state leaves differ from the one-device step's")
     check(l_mesh == l_one and all(np.isfinite(l_mesh)), f"(a) losses {l_mesh} vs {l_one}")
@@ -2871,13 +2906,16 @@ def dp_steps(ops, TS, opt_mod, m, params, pipe, mesh, dev) -> tuple[dict, dict]:
                                "one_device": float(np.median(t_one))},
              "step_times_s": {"mesh": t_mesh, "one_device": t_one},
              "launches": {k: v for k, v in launches.items() if v}}
-    return stats, {"params": got[0], "opt": got[1]}
+    # phase 16 (a) holds the sharded step from placed params to this run
+    one = {"state": [t.cpu() for t in leaves(want)], "losses": l_one, "step_s": t_one,
+           "grad_norms": grad_norms}
+    return stats, {"params": got[0], "opt": got[1]}, one
 
 
 def mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe, tmp: pathlib.Path, dev) -> dict:
     """(e): (a)'s state saved, then restored through ``param_shardings``
     onto a new ("pod", "data", "model") mesh: every leaf equal; one
-    data-parallel step on that mesh from the restored state equal to the
+    sharded step on that mesh from the restored state equal to the
     one-device step from (a)'s, leaf for leaf."""
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -2892,8 +2930,7 @@ def mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe, tmp: pathlib.Path, dev)
                                                                shardings=shardings))
     pairs = list(zip(leaves(got), leaves(state)))
     on_mesh = sum(hasattr(a, "device_mesh") for a, _ in pairs)
-    equal = sum(torch.equal(a.to_local() if hasattr(a, "device_mesh") else a, b)
-                for a, b in pairs)
+    equal = sum(torch.equal(local(a), local(b)) for a, b in pairs)
     check(step == PAR_STEPS - 1 and equal == len(pairs) and on_mesh == 3 * len(leaves(
         state["params"])), f"(e) mesh checkpoint: {equal} of {len(pairs)} leaves equal, "
           f"{on_mesh} on the mesh")
@@ -2901,9 +2938,12 @@ def mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe, tmp: pathlib.Path, dev)
     resumed, resume_s = sync_time(lambda: TS.make_train_step(m, mesh, opt_cfg)(
         got["params"], got["opt"], batch))
     del got
-    plain = TS.make_train_step(m, None, opt_cfg)(state["params"], state["opt"], batch)
+    from repro_torch.training._tree import tree_map
+
+    plain_state = tree_map(local, state)
+    plain = TS.make_train_step(m, None, opt_cfg)(plain_state["params"], plain_state["opt"], batch)
     step_pairs = list(zip(leaves(resumed), leaves(plain)))
-    step_equal = sum(torch.equal(a, b) for a, b in step_pairs)
+    step_equal = sum(torch.equal(local(a), b) for a, b in step_pairs)
     check(step_equal == len(step_pairs), f"(e) the step resumed on the mesh: "
           f"{len(step_pairs) - step_equal} of {len(step_pairs)} leaves and metrics differ from "
           f"the one-device step's")
@@ -3061,10 +3101,11 @@ def dots_remat(TS, opt_mod, build_model, cfg, params, pipe, dev) -> dict:
     return out
 
 
-def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict]:
-    """Phase 14: (a)-(f).  Returns the stats and the phase's launches of
-    its path's kernels ((a)'s mesh steps, (b)'s EP prefill, (d)'s
-    exchanges), each counted from 0 just before and read just after."""
+def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict, dict]:
+    """Phase 14: (a)-(f).  Returns the stats, the phase's launches of its
+    path's kernels ((a)'s mesh steps, (b)'s EP prefill, (d)'s exchanges),
+    each counted from 0 just before and read just after, and (a)'s
+    one-device run (for phase 16)."""
     import gc
     import shutil
     import tempfile
@@ -3089,8 +3130,8 @@ def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict]:
         m = build_model(cfg)
         params = m.init(seed, device=dev)
         pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
-        (stats["a"], state), a_s = sync_time(lambda: dp_steps(ops, TS, opt_mod, m, params, pipe,
-                                                                mesh, dev))
+        (stats["a"], state, one), a_s = sync_time(lambda: dp_steps(ops, TS, opt_mod, m, params,
+                                                                     pipe, mesh, dev))
         stats["a"]["phase_s"] = a_s
         print("parallel (a) data-parallel step: " + json.dumps(stats["a"]), flush=True)
         stats["e"], e_s = sync_time(lambda: mesh_checkpoint(CK, PP, TS, opt_mod, m, state, pipe,
@@ -3130,7 +3171,8 @@ def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict]:
     launches = {"flash_attention": stats["a"]["launches"]["flash_attention"] + ep_flash,
                 "flash_attention_bwd": stats["a"]["launches"]["flash_attention_bwd"],
                 "base_fit": fit_launches}
-    return stats, launches
+    one["median_step_s"] = stats["a"]["median_step_s"]
+    return stats, launches, one
 
 
 # ---------------------------------------------------------------- phase 15
@@ -3198,7 +3240,11 @@ def finish_dryruns(jobs: dict) -> dict:
             k: c["seconds"]["trace"] for k, c in cells.items()}, "cell": {
             k: {"dominant": c["roofline"]["dominant"], "fits": c.get("memory", {}).get("fits"),
                 "compute_s": c["roofline"]["compute_s"], "memory_s": c["roofline"]["memory_s"],
-                "collective_s": c["roofline"]["collective_s"]} for k, c in cells.items()}}
+                "collective_s": c["roofline"]["collective_s"],
+                "argument_bytes": c.get("memory", {}).get("argument_bytes"),
+                "temp_bytes": c.get("memory", {}).get("temp_bytes"),
+                "collective_bytes": c.get("collectives", {}).get("by_type")}
+            for k, c in cells.items()}}
         if name == "compressed":
             (c,) = cells.values()
             stats[name]["exchange_bytes"] = {k: v["collective_bytes"]
@@ -3378,6 +3424,261 @@ def dryrun_path(P, ops, get_config, seed: int, dev) -> tuple[dict, dict]:
     return stats, launches
 
 
+# ---------------------------------------------------------------- phase 16
+# sharded state and tensor parallelism: (a) and (b) on a one-rank NCCL mesh,
+# (c) on 4 gloo ranks on the CPU, (d) the dense cells of phase 15's dry-run
+# sweep
+TP_KV = (1, 2)  # (c): kv heads replicated over "model" (1), split (2)
+SHARDED_ROUNDS = 3  # (a): rounds of one device, sharded, control, control, sharded, one device
+DENSE_ARCHS = ("qwen3-0.6b", "llama3-8b", "stablelm-12b", "command-r-35b")
+
+
+def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
+    """(c): ``tests/torch_tp_case.py``'s case (the config, worker and bounds
+    that ``tests/test_torch_tensor_parallel.py`` holds) on 4 gloo processes
+    for each kv case, against the one-device step on this host's CPU."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_tp_case as TPC
+
+    t0 = time.perf_counter()
+    stats = {"ranks": 4, "mesh": {"data": 2, "model": 2}, "steps": TPC.STEPS, "config": TPC.TINY,
+             "bounds": {"grad_rel": TPC.GRAD_REL, "param_rel": TPC.GRAD_REL,
+                        "moved_rel": TPC.MOVED_REL, "loss_rel": TPC.LOSS_REL,
+                        "gnorm_rel": TPC.GNORM_REL["bfloat16"]}}
+    for kv in TP_KV:
+        run = tmp / f"tp_kv{kv}"
+        run.mkdir(parents=True)
+        g = TPC.check_in_subprocesses(run, kv)
+        check(g["within"], f"(c) kv {kv}: the sharded step off the one-device step: "
+              + json.dumps({k: v for k, v in g.items() if k != "local_shapes"}))
+        stats[f"kv {kv}"] = g
+    stats["wall_s"] = time.perf_counter() - t0
+    return stats
+
+
+@contextlib.contextmanager
+def local_collectives():
+    """torch.distributed's collectives, as the steps call them on a
+    one-rank mesh, replaced by what they compute there (a copy, or
+    nothing): (a)'s control, which prices the collective calls."""
+    import torch.distributed as dist
+
+    names = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def copy(out, x, *args, **kwargs):
+        out.copy_(x)
+
+    dist.all_gather_into_tensor = dist.reduce_scatter_tensor = copy
+    dist.all_reduce = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def sharded_in_turns(TS, opt_mod, m, params, placed, pipe, mesh, dev) -> dict:
+    """(a)'s timing, on one batch, each from its own state: the one-device
+    step, the sharded step, and the sharded step under
+    :func:`local_collectives` (the control), one warm-up step each, then
+    SHARDED_ROUNDS rounds of (one, sharded, control, control, sharded,
+    one); every chain's losses equal.  Then one sharded step traced: its
+    collective calls, their host time and their kernels' device time, and
+    the host time of the collectives' autograd Functions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b = train_batch(pipe, 0, dev)
+    opt = opt_mod.AdamWConfig()
+    steps = {"one_device": TS.make_train_step(m, None, opt),
+             "sharded": TS.make_train_step(m, mesh, opt),
+             "local_collectives": TS.make_train_step(m, mesh, opt)}
+    states = {"one_device": (params, opt_mod.adamw_init(params)),
+              "sharded": (placed, opt_mod.adamw_init(placed)),
+              "local_collectives": (placed, opt_mod.adamw_init(placed))}
+    times = {k: [] for k in steps}
+    losses = {k: [] for k in steps}
+
+    def run(name):
+        ctx = local_collectives() if name == "local_collectives" else contextlib.nullcontext()
+        with ctx:
+            (p, o, metrics), t = sync_time(lambda: steps[name](*states[name], b))
+        states[name] = (p, o)
+        losses[name].append(float(metrics["loss"]))
+        return t
+
+    for name in steps:
+        run(name)
+    for _ in range(SHARDED_ROUNDS):
+        for name in ("one_device", "sharded", "local_collectives", "local_collectives",
+                     "sharded", "one_device"):
+            times[name].append(run(name))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run("sharded")
+    check(losses["sharded"][:-1] == losses["local_collectives"] == losses["one_device"],
+          f"(a) the timed chains' losses differ: {losses}")
+    ka = prof.key_averages()
+    comm = [e for e in ka if e.key == "record_param_comms"]
+    medians = {k: float(np.median(v)) for k, v in times.items()}
+    return {
+        "rounds": SHARDED_ROUNDS, "step_s": times, "median_step_s": medians,
+        "sharded_over_one_device": medians["sharded"] / medians["one_device"],
+        "control_over_one_device": medians["local_collectives"] / medians["one_device"],
+        "traced": {
+            "wall_s": wall,
+            "collective_calls": sum(e.count for e in comm),
+            "collective_host_ms": sum(e.cpu_time_total for e in comm) / 1e3,
+            "c10d_host_ms": sum(e.cpu_time_total for e in ka if e.key.startswith("c10d::")) / 1e3,
+            "nccl_device_ms": sum(e.self_device_time_total for e in ka
+                                  if "nccl" in e.key.lower()) / 1e3,
+            "device_ms": sum(e.self_device_time_total for e in ka) / 1e3,
+            "functions_host_ms": {e.key: [e.count, e.cpu_time_total / 1e3] for e in ka
+                                  if e.key.lstrip("_").split("Backward")[0]
+                                  in ("Gather", "CopyTo", "ReduceFrom")}}}
+
+
+def sharded_train(ops, TS, opt_mod, PP, place, m, params, pipe, mesh, one, dev) -> tuple:
+    """(a): PAR_STEPS sharded steps on ``mesh`` from params placed by
+    ``param_shardings`` (launches counted): loss, grad norm and every state
+    leaf bit-equal to phase 14 (a)'s one-device run from the same seed."""
+    from repro_torch.training._tree import leaves, tree_map
+
+    placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, m.cfg, mesh))
+    batches = [train_batch(pipe, s, dev) for s in range(PAR_STEPS)]
+    step = TS.make_train_step(m, mesh, opt_mod.AdamWConfig())
+    state = (placed, opt_mod.adamw_init(placed))
+    times, losses, norms = [], [], []
+    ops.reset_launches()
+    for b in batches:
+        (p, o, metrics), t = sync_time(lambda: step(*state, b))
+        state = (p, o)
+        times.append(t)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = dict(ops.launches)
+    placed_ok = all(t.placements == sh.placements for t, sh in zip(
+        leaves(state[0]), leaves(PP.param_shardings(params, m.cfg, mesh)), strict=True))
+    got = leaves(state)
+    equal = sum(torch.equal(local(a).cpu(), b) for a, b in zip(got, one["state"], strict=True))
+    check(placed_ok, "(a) the sharded step's params are not on their specs' placements")
+    check(equal == len(got), f"(a) sharded step: {len(got) - equal} of {len(got)} state leaves "
+          "differ from phase 14 (a)'s one-device run")
+    check(losses == one["losses"] and norms == one["grad_norms"],
+          f"(a) losses {losses} / grad norms {norms} vs {one['losses']} / {one['grad_norms']}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] > 0, f"(a) the sharded step launched no {name}")
+    del state, got
+    stats = {"steps": PAR_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+             "mesh": {"data": 1, "model": 1}, "state_leaves_equal": equal,
+             "state_leaves": len(one["state"]), "losses": losses, "grad_norms": norms,
+             "step_times_s": times, "median_step_s": float(np.median(times)),
+             "phase_14a_median_step_s": one["median_step_s"],
+             "launches": {k: v for k, v in launches.items() if v},
+             "flash_launches_a_step": {k: launches[k] / PAR_STEPS
+                                       for k in ("flash_attention", "flash_attention_bwd")}}
+    stats["in_turns"] = sharded_in_turns(TS, opt_mod, m, params, placed, pipe, mesh, dev)
+    return stats
+
+
+def sharded_prefill(ops, TS, PP, place, build_model, cfg, lm_logits, batch: int, length: int,
+                    seed: int, mesh, dev) -> dict:
+    """(b): phase 9's prefill (the same seed, params and tokens) through the
+    sharded ``make_prefill_step`` on ``mesh`` from params placed by
+    ``param_shardings``: logits bit-equal to phase 9's."""
+    from repro_torch.training._tree import tree_map
+
+    m = build_model(cfg)
+    params = m.init(seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, length), generator=g, device=dev)
+    placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, cfg, mesh))
+    step = TS.make_prefill_step(m, mesh)
+    with torch.inference_mode():
+        ops.reset_launches()
+        (logits, caches), prefill_s = sync_time(lambda: step(placed, {"tokens": toks}))
+        launches = dict(ops.launches)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"(b) the sharded prefill launched flash_attention {launches['flash_attention']} "
+          f"times, not once a layer ({cfg.n_layers})")
+    pc = caches["groups"]["pos0"]["self"]
+    check(tuple(pc.k.shape) == (cfg.n_layers, batch, length, cfg.n_kv_heads,
+                                cfg.resolved_head_dim), f"(b) caches {tuple(pc.k.shape)}")
+    equal = torch.equal(logits.cpu(), lm_logits)
+    check(equal, "(b) the sharded prefill's logits differ from phase 9's, max |diff| "
+          f"{float((logits.cpu().float() - lm_logits.float()).abs().max())}")
+    return {"arch": cfg.name, "batch": [batch, length], "mesh": {"data": 1, "model": 1},
+            "logits_equal_phase_9": equal, "prefill_s": prefill_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def dense_dryrun_cells(dry: dict) -> dict:
+    """(d): the dense family's train_4k and prefill_32k cells on 16x16 from
+    phase 15 (a)'s sweep (meta tensors, the host's CPU): per-rank
+    arguments, temporaries, fit and collective bytes."""
+    cells = dry["single-pod"]["cell"]
+    out = {}
+    for arch in DENSE_ARCHS:
+        for shape in ("train_4k", "prefill_32k"):
+            c = cells[f"{arch}__{shape}__16x16"]
+            out[f"{arch} {shape}"] = {
+                "argument_gib": c["argument_bytes"] / 2**30, "temp_gib": c["temp_bytes"] / 2**30,
+                "fits": c["fits"], "collective_bytes": c["collective_bytes"]}
+    return out
+
+
+def sharded_path(ops, get_config, one: dict, lm_logits, dry: dict, lm_batch: int, lm_len: int,
+                 seed: int, dev) -> tuple[dict, dict]:
+    """Phase 16: (a) and (b) on the card, then (c) on the host's CPU, (d).
+    Returns the stats and the launches of (a) and (b)'s flash kernels."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.parallel import partition as PP
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as TS
+
+    stats = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        one_rank_group(dev)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+            cfg = get_config(PAR_ARCH)
+            m = build_model(cfg)
+            params = m.init(seed, device=dev)
+            pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+            stats["a"], a_s = sync_time(lambda: sharded_train(ops, TS, opt_mod, PP, place, m,
+                                                              params, pipe, mesh, one, dev))
+            stats["a"]["phase_s"] = a_s
+            print("sharded (a) train step: " + json.dumps(stats["a"]), flush=True)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            stats["b"], b_s = sync_time(lambda: sharded_prefill(
+                ops, TS, PP, place, build_model, get_config(LM_ARCH), lm_logits, lm_batch,
+                lm_len, seed, mesh, dev))
+            stats["b"]["phase_s"] = b_s
+            print("sharded (b) prefill: " + json.dumps(stats["b"]), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        stats["c"] = tp_gloo_ranks(tmp)
+        print("sharded (c) 4 gloo ranks: " + json.dumps(stats["c"]), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["d"] = dense_dryrun_cells(dry)
+    print("sharded (d) dense dry-run cells, 16x16: " + json.dumps(stats["d"]), flush=True)
+    launches = {k: stats["a"]["launches"].get(k, 0) + stats["b"]["launches"].get(k, 0)
+                for k in ("flash_attention", "flash_attention_bwd")}
+    return stats, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--series", type=int, default=1024)
@@ -3486,7 +3787,8 @@ def main() -> None:
 
     # phase 9: llama3-8b at full width and depth: prefill through the flash
     # kernel, decode after prefill, the CPU route, then serve --mode model
-    lm, flash_row = model_path(ops, FA, get_config(LM_ARCH), args.lm_batch, args.lm_len,
+    lm, flash_row, lm_logits = model_path(ops, FA, get_config(LM_ARCH), args.lm_batch,
+                                          args.lm_len,
                                args.lm_decode, args.seed, dev, args.trace)
     rows.append(flash_row)
     print("model: " + json.dumps(lm), flush=True)
@@ -3538,8 +3840,8 @@ def main() -> None:
 
     # phase 14: the parallel layer on a DeviceMesh (data- and expert-parallel
     # steps, the cross-pod exchange, mesh checkpoints, dots remat)
-    (_, par_launches), phase_s = sync_time(lambda: parallel_path(ops, get_config, args.seed,
-                                                                  dev))
+    (_, par_launches, par_one), phase_s = sync_time(lambda: parallel_path(ops, get_config,
+                                                                           args.seed, dev))
     print(f"parallel: {phase_s:.3f} s, launches " + json.dumps(par_launches), flush=True)
     for row in rows:
         if row["name"] in par_launches:
@@ -3550,8 +3852,8 @@ def main() -> None:
 
     # phase 15: the dry run (two steps counted on the card against meta,
     # then the sweeps on the CPU) and the paper's baselines on the card
-    (_, dry_launches), phase_s = sync_time(lambda: dryrun_path(P, ops, get_config, args.seed,
-                                                                dev))
+    (dry_stats, dry_launches), phase_s = sync_time(lambda: dryrun_path(P, ops, get_config,
+                                                                        args.seed, dev))
     print(f"dry run and baselines: {phase_s:.3f} s, launches " + json.dumps(dry_launches),
           flush=True)
     for row in rows:
@@ -3560,6 +3862,21 @@ def main() -> None:
                 row["name"]]
         elif row["name"] in ("rans_encode", "rans_decode"):
             row.setdefault("launches_by_path", {})["baselines (phase 15)"] = dry_launches[
+                row["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 16: sharded state and tensor parallelism (the sharded train step
+    # and prefill on a one-rank NCCL mesh, 4 gloo ranks, the dense dry-run cells)
+    (_, tp_launches), phase_s = sync_time(lambda: sharded_path(
+        ops, get_config, par_one, lm_logits, dry_stats["a"], args.lm_batch, args.lm_len,
+        args.seed, dev))
+    del par_one
+    print(f"{smi}: sharded state and tensor parallelism: {phase_s:.3f} s, launches "
+          + json.dumps(tp_launches), flush=True)
+    for row in rows:
+        if row["name"] in tp_launches:
+            check(tp_launches[row["name"]] > 0, f"phase 16 launched no {row['name']}")
+            row.setdefault("launches_by_path", {})["sharded (phase 16)"] = tp_launches[
                 row["name"]]
     torch.cuda.empty_cache()
 

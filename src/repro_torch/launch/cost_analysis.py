@@ -30,8 +30,9 @@ is Python, so every layer's ops dispatch and are counted.
 ops made inside the step (the step's temporaries and outputs), tracked by
 weak references: the dry run's ``temp_bytes``.  The storages of the
 step's inputs (:func:`tensor_bytes`' trees: dicts, lists, tuples and
-dataclass instances such as the decode caches) are not counted, nor are
-the views and in-place writes of them that an op returns.
+dataclass instances such as the decode caches; a DTensor's local shard)
+are not counted, nor are the views and in-place writes of them that an
+op returns.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import weakref
 from collections import defaultdict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves
 
@@ -77,6 +79,8 @@ def _nbytes(x) -> int:
 
 
 def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, DTensor):  # a sharded step's leaf: this rank's shard
+        return [tree.to_local()]
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, dict):
@@ -90,7 +94,8 @@ def _tensors(tree) -> list[torch.Tensor]:
 
 def tensor_bytes(tree) -> int:
     """The bytes of the tensors in ``tree``: dicts, lists, tuples and
-    dataclass instances (the decode caches) are nodes."""
+    dataclass instances (the decode caches) are nodes; a DTensor counts its
+    local shard."""
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 

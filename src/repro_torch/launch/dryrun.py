@@ -14,20 +14,24 @@ For each cell the dry run:
   4. writes artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__comp].json
      with the reference's keys where they mean the same thing.
 
-The port keeps params and AdamW moments whole on every rank and runs the
-ranks along ``"model"`` as replicas (``training.train_step``), so
-``memory.argument_bytes`` is the whole state plus this rank's batch, and
-``memory.temp_bytes`` the peak of the bytes the step's own ops held
-(``StepCost.peak_live_bytes``: activations, gradients and the new state);
-``fits`` says whether the two together fit one card (``arguments_fit``
-whether the arguments alone do).  A train step slices
-the global batch itself; a prefill or decode step is given this rank's
-slice (the global batch over the ``("pod", "data")`` ranks where it
-divides, else the whole batch, as the reference's ``batch_specs``
-replicates it) and caches of the whole sequence.  The data-parallel train
-step keeps every expert on each rank, so an ``moe_ep`` config trains with
-the dense dispatch (``notes`` says so); its prefill and decode take the
-expert-parallel route.  Decode writes cache position ``seq_len - 1``.
+The params and the AdamW moments are DTensors placed by
+``param_shardings``, and every step holds only this rank's shards of them
+(``training.train_step``): ``memory.argument_bytes`` is the sum of the
+local shards' bytes (params, moments and the step count for a train step)
+plus this rank's batch, and ``memory.temp_bytes`` the peak of the bytes
+the step's own ops held (``StepCost.peak_live_bytes``: a block's gathered
+leaves, activations, gradients and the new state); ``fits`` says whether
+the two together fit one card (``arguments_fit`` whether the arguments
+alone do).  A train step slices the global batch itself; a prefill or
+decode step is given this rank's slice (the global batch over the
+``("pod", "data")`` ranks where it divides, else the whole batch, as the
+reference's ``batch_specs`` replicates it) and caches of the whole
+sequence.  The collectives are the step's own: the blocks' gathers and
+reduce-scatters, the dense family's tensor-parallel all-reduces, the
+gradients' and metrics' mean and the norm.  The sharded train step runs
+the MoE's dense dispatch, so an ``moe_ep`` config trains with it
+(``notes`` says so); its prefill and decode take the expert-parallel
+route.  Decode writes cache position ``seq_len - 1``.
 
 ``--compressed`` counts the SHRINK cross-pod exchange stage
 (``make_crosspod_exchange``) against the plain float32 mean over
@@ -56,7 +60,8 @@ import torch.distributed as dist
 from ..configs import ARCHS, SHAPES, cells_for, get_config
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import build_model
-from ..parallel.partition import param_specs
+from ..parallel.partition import param_shardings, param_specs
+from ..parallel.sharding import place
 from ..training._tree import tree_map
 from ..training.grad_compress import (GradCompressConfig, compression_wire_bytes,
                                       make_crosspod_exchange)
@@ -151,6 +156,13 @@ def _exchange(cfg: ModelConfig, mesh, params, overrides: dict) -> dict:
             "roofline": _roofline(c["flops"], c["bytes"], c["collective_bytes"], 0, mesh.size())}
 
 
+def _placed(params, cfg: ModelConfig, mesh):
+    """``params`` (meta tensors, whole) as DTensors placed by
+    ``param_shardings``: each leaf this rank's meta shard."""
+    sh = param_shardings(params, cfg, mesh)
+    return tree_map(lambda p, s: place(p, *s), params, sh)
+
+
 def run_cell(
     arch: str,
     shape_name: str,
@@ -184,10 +196,10 @@ def run_cell(
             return result
         if shape.kind == "train" and cfg.moe_ep:
             cfg = dataclasses.replace(cfg, moe_ep=False)
-            notes.append("moe_ep off in train: the data-parallel step keeps every expert "
-                         "on each rank (expert parallelism runs in prefill and decode)")
+            notes.append("moe_ep off in train: the sharded step runs the dense dispatch "
+                         "(expert parallelism runs in prefill and decode)")
         model = build_model(cfg)
-        params = model.init_shapes()
+        params = _placed(model.init_shapes(), cfg, mesh)
         rows = _rank_batch(shape, mesh)
         if shape.kind == "train":
             opt = adamw_init(params)

@@ -13,14 +13,15 @@ defaults to the best exact codec that imports (``zstd``, else ``none``).
 
 ``--production`` trains on the reference's 16 x 16 ("data", "model") mesh,
 one rank a card under ``torchrun --nproc-per-node 8 --nnodes 32 ...``: the
-data-parallel step (``training.train_step``), each rank on its slice of
-the global ``--batch``.  Every rank holds the same state, so rank 0 alone
-writes the checkpoints into ``--ckpt-dir`` (a directory every rank can
-read) and every rank resumes from it.  It raises ``ConfigError`` up front
-for a config the step cannot run there: ``moe_ep`` (expert parallelism
-runs in prefill and decode only) or a state (params, gradients, float32
-AdamW moments) larger than one card; and in a world of another size,
-naming the 256 ranks it needs.
+sharded step (``training.train_step``), each rank holding its
+``param_specs`` shards of the params and AdamW moments (drawn whole on
+each card from seed 0, then placed by ``param_shardings``) and training on
+its slice of the global ``--batch``.  Every rank takes part in gathering a
+checkpoint's leaves; rank 0 alone writes them into ``--ckpt-dir`` (a
+directory every rank can read, the same bytes as one device's) and every
+rank resumes from it onto its shards.  It raises ``ConfigError`` up front
+for ``moe_ep`` (expert parallelism runs in prefill and decode only), and
+in a world of another size, naming the 256 ranks it needs.
 
 Standard output carries the reference's lines; standard error two more:
 the median time of a step (from one step's start to the next's, which
@@ -43,30 +44,24 @@ from ..configs import get_config, reduced_config
 from ..core.device import resolve_device
 from ..core.errors import ConfigError
 from ..data.pipeline import TokenPipeline
-from ..parallel.sharding import mesh_axes
 from ..models import build_model
-from ..training._tree import leaves
+from ..parallel.partition import param_shardings
+from ..parallel.sharding import mesh_axes, place
+from ..training._tree import leaves, tree_map
 from ..training.checkpoint import default_codec
 from ..training.fault_tolerance import TrainingRunner
 from ..training.optimizer import AdamWConfig, adamw_init
 from ..training.train_step import make_train_step
-from .mesh import HW, make_production_mesh
+from .mesh import make_production_mesh
 
 
 def _refuse_for_production(cfg) -> None:
-    """Raise ``ConfigError`` for a config that the data-parallel step,
-    which keeps the whole state on every card, cannot run."""
+    """Raise ``ConfigError`` for a config that the sharded step cannot run
+    on the production mesh."""
     if cfg.moe_ep:
-        raise ConfigError(f"--production: {cfg.name} sets moe_ep, and the data-parallel step "
-                          f"keeps every expert on each rank (expert parallelism runs in "
-                          f"prefill and decode only)")
-    pbytes = 2 if cfg.param_dtype == "bfloat16" else 4
-    need = cfg.param_count() * (2 * pbytes + 8)  # params, gradients, two float32 moments
-    if need > HW.HBM_BYTES:
-        raise ConfigError(f"--production: {cfg.name}'s params, gradients and AdamW moments "
-                          f"take {need / 2**30:.1f} GiB, more than one card's "
-                          f"{HW.HBM_BYTES / 2**30:.0f} GiB, and the data-parallel step keeps "
-                          f"the whole state on every rank")
+        raise ConfigError(f"--production: {cfg.name} sets moe_ep, and the sharded step runs "
+                          f"the MoE's dense dispatch (expert parallelism runs in prefill and "
+                          f"decode only)")
 
 
 def main(argv=None) -> int:
@@ -101,6 +96,8 @@ def main(argv=None) -> int:
 
     params = model.init(0, device=dev)
     n = sum(p.numel() for p in leaves(params))
+    if mesh is not None:
+        params = tree_map(lambda p, s: place(p, *s), params, param_shardings(params, cfg, mesh))
     axes = mesh_axes(mesh) if mesh is not None else {"data": 1, "model": 1}
     print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={axes}")
 

@@ -34,7 +34,12 @@ contributions in slot order in bf16, so the card's sum has one order
 the rules of a mesh with a ``"model"`` axis, a ``moe_ep`` config takes the
 reference's expert-parallel route: each model rank dispatches every token
 to its own experts only, and one all_reduce over the model group sums the
-ranks' outputs (bit-equal to the single-device MoE on one rank).  The
+ranks' outputs (bit-equal to the single-device MoE on one rank).  Under a
+sharded step's rules (``AxisRules.shards``) that map ``heads`` and ``ffn``
+to ``"model"`` (the dense family), attention runs on this rank's heads and
+the MLP on its slice of ``d_ff``, Megatron-LM's way: a column-split
+product behind ``copy_to``, a row-split one before ``reduce_from``
+(``parallel.collectives``).  The
 RG-LRU scan is ``lax.associative_scan``'s recursion (pair neighbours, scan
 the pairs, fill in the even elements), so its products and sums are the
 reference's, bit for bit.  Decode writes recurrent and RWKV states in
@@ -52,6 +57,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..parallel.collectives import all_gather_dim, copy_to, reduce_from
 from ..parallel.sharding import current_rules, mesh_axes
 
 __all__ = [
@@ -63,6 +69,7 @@ __all__ = [
     "attention_apply",
     "attention_init",
     "dense_init",
+    "expert_parallel",
     "mla_apply",
     "mla_init",
     "mlp_apply",
@@ -243,6 +250,48 @@ def _write_step(buf: torch.Tensor, new: torch.Tensor, slot: int, masked: bool) -
         buf[:, slot : slot + 1] = new.to(buf.dtype)
 
 
+def _tp_shards(logical: str):
+    """The step's ``Shards`` where the active rules split ``logical`` over
+    ``"model"`` on sharded params (a sharded step of the dense family),
+    else None."""
+    rules = current_rules()
+    if rules is None or rules.shards is None or rules.resolve(logical) != "model":
+        return None
+    return rules.shards
+
+
+def _tp_kv_weights(p: Params, cfg: ModelConfig, sh, hl: int, kv_split: bool,
+                   prefill: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(wk, wv, first) for this rank's ``hl`` query heads: ``wk`` and ``wv``
+    as the block gathered them (this rank's kv heads where the rules split
+    ``kv_heads`` over ``"model"``, else all of them), cut to the kv heads
+    that the local query heads read unless a prefill caches them all;
+    ``first`` is the global index of their first kv head."""
+    hd, rep, r = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads, sh.index["model"]
+    if kv_split:
+        return p["wk"], p["wv"], r * (cfg.n_kv_heads // sh.sizes["model"])
+    first, last = (r * hl) // rep, (r * hl + hl - 1) // rep
+    if prefill or (first, last + 1) == (0, cfg.n_kv_heads):
+        return p["wk"], p["wv"], 0
+    return p["wk"][:, first * hd:(last + 1) * hd], p["wv"][:, first * hd:(last + 1) * hd], first
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, hl: int, rep: int,
+                  first: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``k`` and ``v`` [B, S, nk, D] (kv heads from global index ``first``)
+    cut to what query heads h0 .. h0 + hl - 1 read (query head h reads kv
+    head h // rep): a slice where the query heads of one kv head sit
+    together, else one kv head a query head."""
+    idx = [(h0 + i) // rep - first for i in range(hl)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and idx == [lo + i // (hl // n) for i in range(hl)]:
+        if (lo, n) != (0, k.shape[2]):
+            k, v = (t[:, :, lo:lo + n].contiguous() for t in (k, v))
+        return k, v
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
 def attention_apply(
     p: Params,
     x: torch.Tensor,  # [B, S, D]
@@ -259,12 +308,26 @@ def attention_apply(
     """Returns (out [B, S, D] in x's dtype, cache).  ``"decode"`` writes the
     step's K, V and position into ``cache`` in place at ``cache_index``
     (clamped into the buffer as ``dynamic_update_slice`` clamps it; a local
-    buffer wraps) and returns it; ``"prefill"`` returns a new cache."""
+    buffer wraps) and returns it; ``"prefill"`` returns a new cache.
+
+    Under rules that split ``heads`` over ``"model"`` on sharded params,
+    train and prefill self-attention run on this rank's query heads:
+    ``wq`` column-split behind ``copy_to``; ``wk`` and ``wv`` column-split
+    where the rules split ``kv_heads`` too, else whole (the block gathered
+    them) and read for the kv heads that the local query heads need;
+    ``q_norm`` and ``k_norm`` replicated on local heads (their gradients sum
+    over ``"model"``); ``wo`` row-split, then ``reduce_from``.  A prefill
+    caches every kv head."""
+    sh = _tp_shards("heads") if kv_source is None and mode in ("train", "prefill") else None
+    group = None if sh is None else sh.groups["model"]
+    kv_split = sh is not None and current_rules().resolve("kv_heads") == "model"
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    xc = x.to(COMPUTE_DTYPE)
-    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, cfg.n_heads, hd)
+    xc = copy_to(x.to(COMPUTE_DTYPE), group)
+    hl = p["wq"].shape[-1] // hd  # this rank's query heads (all of them off a sharded step)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, hl, hd)
     is_cross = (kv_source is not None) or mode == "decode_cross"
+    first = 0  # the global index of k's first kv head
     if mode == "decode_cross":
         # static cross context: K/V live in the (prefill-built) cache
         assert cache is not None
@@ -274,17 +337,33 @@ def attention_apply(
     else:
         src = kv_source.to(COMPUTE_DTYPE) if kv_source is not None else xc
         sk_in = src.shape[1]
-        k = (src @ p["wk"].to(COMPUTE_DTYPE)).reshape(b, sk_in, cfg.n_kv_heads, hd)
-        v = (src @ p["wv"].to(COMPUTE_DTYPE)).reshape(b, sk_in, cfg.n_kv_heads, hd)
+        wk, wv = p["wk"], p["wv"]
+        if sh is not None:
+            wk, wv, first = _tp_kv_weights(p, cfg, sh, hl, kv_split, mode == "prefill")
+        nk = wk.shape[-1] // hd
+        k = (src @ wk.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
+        v = (src @ wv.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = rmsnorm(q, copy_to(p["q_norm"], group), cfg.norm_eps)
         if mode != "decode_cross":
-            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+            k = rmsnorm(k, copy_to(p["k_norm"], group), cfg.norm_eps)
     if not is_cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
+    if mode == "prefill":
+        if is_cross:
+            kpos = torch.arange(sk_in, dtype=torch.int32, device=x.device)[None].expand(b, sk_in)
+        else:
+            kpos = positions.to(torch.int32)
+        ck, cv = k, v
+        if kv_split:
+            ck, cv = (all_gather_dim(t, 2, group, sh.sizes["model"]) for t in (k, v))
+        new_cache = AttnCache(k=ck.to(COMPUTE_DTYPE), v=cv.to(COMPUTE_DTYPE), kpos=kpos)
+    if sh is not None:
+        k, v = _kv_for_heads(k, v, sh.index["model"] * hl, hl, cfg.n_heads // cfg.n_kv_heads,
+                             first)
     mask = None
     flash = False
     if mode == "decode" and not is_cross:
@@ -317,14 +396,8 @@ def attention_apply(
         y = ops.flash_attention(q, k, v, causal=True)
     else:
         y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
-    out = (y.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
-    if mode == "prefill":
-        if is_cross:
-            kpos = torch.arange(sk_in, dtype=torch.int32, device=x.device)[None].expand(b, sk_in)
-        else:
-            kpos = positions.to(torch.int32)
-        new_cache = AttnCache(k=k.to(COMPUTE_DTYPE), v=v.to(COMPUTE_DTYPE), kpos=kpos)
-    return out, new_cache
+    out = reduce_from(y.reshape(b, s, hl * hd) @ p["wo"].to(COMPUTE_DTYPE), group)
+    return out.to(x.dtype), new_cache
 
 
 # --------------------------------------------------------------------- MLA
@@ -427,9 +500,14 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    xc = x.to(COMPUTE_DTYPE)
+    """SwiGLU.  Under rules that split ``ffn`` over ``"model"`` on sharded
+    params: ``wg`` and ``wu`` column-split, ``wd`` row-split, then one
+    all_reduce."""
+    sh = _tp_shards("ffn")
+    group = None if sh is None else sh.groups["model"]
+    xc = copy_to(x.to(COMPUTE_DTYPE), group)
     h = _silu(xc @ p["wg"].to(COMPUTE_DTYPE)) * (xc @ p["wu"].to(COMPUTE_DTYPE))
-    return (h @ p["wd"].to(COMPUTE_DTYPE)).to(x.dtype)
+    return reduce_from(h @ p["wd"].to(COMPUTE_DTYPE), group).to(x.dtype)
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -587,6 +665,16 @@ def _moe_aux(probs: torch.Tensor, expert_idx: torch.Tensor, cfg: ModelConfig) ->
     return e * torch.sum(me * ce)
 
 
+def expert_parallel(cfg: ModelConfig, rules) -> bool:
+    """Whether ``moe_apply`` takes the expert-parallel route under ``rules``:
+    a ``moe_ep`` config on a mesh whose ``"model"`` axis divides its
+    experts."""
+    if not cfg.moe_ep or rules is None:
+        return False
+    axes = mesh_axes(rules.mesh)
+    return "model" in axes and cfg.n_experts % axes["model"] == 0
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter-dispatch MoE (Switch/GShard): top-k routing with a capacity;
     tokens past an expert's capacity fall through on the residual path.
@@ -594,8 +682,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     rules with a ``"model"`` axis that divides the experts, a ``moe_ep``
     config takes the expert-parallel route."""
     rules = current_rules()
-    if cfg.moe_ep and rules is not None and "model" in mesh_axes(rules.mesh) \
-            and cfg.n_experts % mesh_axes(rules.mesh)["model"] == 0:
+    if expert_parallel(cfg, rules):
         return _moe_apply_ep(p, x, cfg, rules)
     b, s, d = x.shape
     xt = x.reshape(b * s, d).to(COMPUTE_DTYPE)

@@ -8,6 +8,9 @@ VLM also vision[B, Nv, D], the stub frontends' embeddings); ``prefill``
 takes the same inputs and returns the last position's logits and the
 caches; ``decode_step`` takes tokens[B, 1], the caches and a cache index.
 ``loss`` is the forward pass only (the train step takes its gradient).
+Under a sharded step's rules the params are this rank's shards, and where
+the rules split the vocabulary over ``"model"`` the loss reads only this
+rank's slice of the logits (never gathered whole).
 ``init_shapes`` and ``input_specs`` return meta tensors, the port's
 ``jax.ShapeDtypeStruct``: the reference's shapes and dtypes, nothing
 allocated.
@@ -21,9 +24,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..core.device import resolve_device
+from ..parallel.collectives import reduce_from
+from ..parallel.sharding import current_rules
 from . import transformer as T
 
 __all__ = ["Model", "build_model"]
@@ -34,6 +40,29 @@ _META = torch.device("meta")
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _xent_terms(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, the label's logit) of float32 logits [..., V].  Where a
+    sharded step's rules split the vocabulary over ``"model"`` the logits
+    are this rank's slice of it: each rank's logsumexp is combined as the
+    ranks' max plus the log of the sum of each one's exp over it, and the
+    label's logit is taken where it lives and summed (on one rank both are
+    the local values, bit for bit)."""
+    rules = current_rules()
+    sh = None if rules is None else rules.shards
+    if sh is None or rules.resolve("vocab") != "model":
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz, torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    group, n = sh.groups["model"], logits.shape[-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    top = lse.detach().clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    logz = top + torch.log(reduce_from(torch.exp(lse - top), group))
+    row, mine = T.vocab_rows(labels, n, sh.index["model"])
+    tgt = torch.take_along_dim(logits, row[..., None], dim=-1)[..., 0]
+    tgt = torch.where(mine, tgt, torch.zeros((), dtype=tgt.dtype, device=tgt.device))
+    return logz, reduce_from(tgt, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +102,7 @@ class Model:
         x, _, aux = T.apply_stack(params, x, cfg, mode="train",
                                   positions=_positions(b, s, tokens.device),
                                   cross_source=self._cross(params, batch))
-        logits = T.logits_from(params, x, cfg).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        logz, tgt = _xent_terms(T.logits_from(params, x, cfg).float(), labels)
         xent = (logz - tgt).mean()
         z_loss = 1e-4 * torch.mean(logz**2)
         return xent + z_loss + 1e-2 * aux, {"xent": xent, "z_loss": z_loss, "moe_aux": aux}
@@ -90,7 +117,7 @@ class Model:
         x, caches, _ = T.apply_stack(params, x, cfg, mode="prefill",
                                      positions=_positions(b, s, tokens.device),
                                      cross_source=self._cross(params, batch))
-        return T.logits_from(params, x[:, -1:, :], cfg), caches
+        return T.whole_vocab(T.logits_from(params, x[:, -1:, :], cfg)), caches
 
     def decode_step(self, params: Params, tokens: torch.Tensor, caches: dict,
                     cache_index: int) -> tuple[torch.Tensor, dict]:
@@ -102,7 +129,7 @@ class Model:
         positions = torch.full((b, 1), int(cache_index), dtype=torch.int32, device=tokens.device)
         x, caches, _ = T.apply_stack(params, x, cfg, mode="decode", positions=positions,
                                      caches=caches, cache_index=cache_index)
-        return T.logits_from(params, x, cfg), caches
+        return T.whole_vocab(T.logits_from(params, x, cfg)), caches
 
     def make_decode_caches(self, batch: int, max_seq: int, device=None) -> dict:
         """Empty decode caches for ``batch`` rows of ``max_seq`` positions;

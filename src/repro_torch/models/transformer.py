@@ -26,6 +26,16 @@ the block's input; ``"dots"`` (the reference's
 projection matmuls (``aten.mm`` and ``aten.addmm``, a selective-checkpoint
 policy) and recomputes everything else, the batched matmuls and the
 attention kernel included.  Both give the same gradients, bit for bit.
+
+Under a sharded step's rules (``AxisRules.shards``, ``training.train_step``
+on a mesh) the params are this rank's shards: each block gathers its own
+leaves first, inside the remat (ZeRO-3: the backward gathers them again
+and reduce-scatters their gradients), over the axes its compute does not
+split (:func:`_gather_block`).  Where the rules map ``vocab`` to
+``"model"`` (the dense family), the embedding is a masked lookup in this
+rank's rows of the table summed over ``"model"``, and the logits are this
+rank's vocabulary slice (:func:`logits_from`; :func:`whole_vocab` gathers
+a prefill's last position).
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
+from ..parallel.collectives import all_gather_dim, copy_to, reduce_from
+from ..parallel.sharding import current_rules
 from .layers import (
     COMPUTE_DTYPE,
     AttnCache,
@@ -51,6 +63,7 @@ from .layers import (
     _init_device,
     attention_apply,
     attention_init,
+    expert_parallel,
     mla_apply,
     mla_init,
     mlp_apply,
@@ -76,6 +89,8 @@ __all__ = [
     "init_params",
     "logits_from",
     "make_decode_caches",
+    "vocab_rows",
+    "whole_vocab",
 ]
 
 Params = dict
@@ -130,7 +145,9 @@ def block_apply(
     """The mixer (attention, MLA, RG-LRU or RWKV; a cross layer also
     cross-attends to ``cross_source``) then the FFN (MLP or MoE), each
     behind an RMSNorm and a residual.  Returns (x, new cache dict or None,
-    the float32 MoE aux loss)."""
+    the float32 MoE aux loss).  Under a sharded step's rules ``p`` is this
+    rank's shard of the block (:func:`_gather_block`)."""
+    p = _gather_block(p, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -178,6 +195,44 @@ def block_apply(
     else:
         y2 = mlp_apply(p["mlp"], h2)
     return x + y2, (new_cache or None), aux
+
+
+def _sharded():
+    """(rules, Shards) of a sharded step, else (rules, None)."""
+    rules = current_rules()
+    return rules, (None if rules is None else rules.shards)
+
+
+def _gather_block(p: Params, cfg: ModelConfig) -> Params:
+    """A block's leaves for its compute.  Under a sharded step's rules each
+    leaf is gathered over the mesh axes that its compute does not split:
+    where the rules split heads, kv heads and ffn over ``"model"``,
+    attention's and the MLP's leaves keep it (``wk`` and ``wv`` are gathered
+    over it where the kv heads do not divide it, and each rank reads its
+    own kv heads, so their gradients sum over it); the expert-parallel MoE's
+    expert weights keep it too; every other leaf is gathered whole."""
+    rules, sh = _sharded()
+    if sh is None:
+        return p
+    heads, kv, ffn = (rules.resolve(n) == "model" for n in ("heads", "kv_heads", "ffn"))
+    ep = expert_parallel(cfg, rules)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        name, parent = path[-1], (path[-2] if len(path) > 1 else None)
+        split = ((parent == "attn" and ((name in ("wq", "wo") and heads)
+                                        or (name in ("wk", "wv") and kv)))
+                 or (parent == "mlp" and ffn)
+                 or (parent == "moe" and ep and name in ("wg", "wu", "wd")))
+        summed = parent == "attn" and name in ("wk", "wv") and heads
+        return sh.gather(tree, path, ("model",) if split else (), summed)
+
+    return walk(p, ())
+
+
+def _vocab_split(rules) -> bool:
+    return rules.resolve("vocab") == "model"
 
 
 # ------------------------------------------------------- prefill cross path
@@ -455,14 +510,60 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return rmsnorm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
+def _table(params: Params, name: str, vocab: bool) -> torch.Tensor:
+    """``embed`` or ``head``: as given, or under a sharded step's rules
+    gathered over its fsdp axes, and over ``"model"`` unless ``vocab``
+    (this rank's vocabulary slice) is asked for."""
+    _, sh = _sharded()
+    w = params[name]
+    if sh is None:
+        return w
+    return sh.gather(w, (name,), ("model",) if vocab else ())
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(COMPUTE_DTYPE)
+    """The tokens' rows of the embedding table.  Where a sharded step's
+    rules split the vocabulary over ``"model"``: this rank's rows looked up
+    (the others zero), then summed over ``"model"``."""
+    rules, sh = _sharded()
+    if sh is None or not _vocab_split(rules):
+        return _table(params, "embed", False)[tokens].to(COMPUTE_DTYPE)
+    w = _table(params, "embed", True)
+    row, mine = vocab_rows(tokens, w.shape[0], sh.index["model"])
+    x = w[row].to(COMPUTE_DTYPE)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return reduce_from(x, sh.groups["model"])
+
+
+def vocab_rows(ids: torch.Tensor, n: int, index: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row, mine) of token ids in the vocabulary slice of ``n`` entries
+    that model rank ``index`` holds (ids ``index * n`` to ``index * n + n -
+    1``): each id's row in the slice (clamped into it) and whether it lives
+    there."""
+    local = ids.long() - index * n
+    return local.clamp(0, n - 1), (local >= 0) & (local < n)
 
 
 def logits_from(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm, then the head (the embedding's transpose where tied).
+    Where a sharded step's rules split the vocabulary over ``"model"``, this
+    rank's slice of the vocabulary (``Model.loss`` reduces over it)."""
     h = rmsnorm(x, params["ln_f"], cfg.norm_eps).to(COMPUTE_DTYPE)
+    rules, sh = _sharded()
+    vocab = sh is not None and _vocab_split(rules)
+    if vocab:
+        h = copy_to(h, sh.groups["model"])
     if cfg.tie_embeddings:
-        w = params["embed"].to(COMPUTE_DTYPE).T
+        w = _table(params, "embed", vocab).to(COMPUTE_DTYPE).T
     else:
-        w = params["head"].to(COMPUTE_DTYPE)
+        w = _table(params, "head", vocab).to(COMPUTE_DTYPE)
     return h @ w
+
+
+def whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """:func:`logits_from`'s output over the whole vocabulary (gathered over
+    ``"model"`` where a sharded step's rules split it; no gradient)."""
+    rules, sh = _sharded()
+    if sh is None or not _vocab_split(rules):
+        return logits
+    return all_gather_dim(logits, -1, sh.groups["model"], sh.sizes["model"])

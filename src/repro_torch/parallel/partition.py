@@ -9,9 +9,12 @@ mesh has a pod axis (ZeRO-3 across pods, llama4-400b), else "data".
 
 ``param_shardings`` turns the specs into :class:`MeshSharding` leaves (a
 DeviceMesh and its DTensor placements), which ``training.checkpoint``
-restores leaves onto.  The specs are the reference's layout: the port's
-train step keeps every param whole on each rank (data parallelism,
-``training.train_step``), so they place checkpoints, not compute.
+restores leaves onto.  The specs are the reference's layout, and the
+port's steps on a mesh hold each param, its gradient and its AdamW
+moments as this rank's shard of them (``training.train_step``,
+``parallel.collectives``): :func:`shard_shape` is that shard's shape,
+JAX's ``NamedSharding.shard_shape``, which refuses a dim its axes do not
+divide.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Any
 from ..configs.base import ModelConfig
 from .sharding import P, mesh_axes, spec_placements, tree_map_with_path
 
-__all__ = ["MeshSharding", "param_specs", "param_shardings", "fsdp_axes_for"]
+__all__ = ["MeshSharding", "fsdp_axes_for", "param_shardings", "param_specs", "shard_shape",
+           "spec_axes"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -35,6 +39,33 @@ class MeshSharding:
 
     def __iter__(self):
         return iter((self.mesh, self.placements))
+
+
+def spec_axes(spec: P) -> list:
+    """The mesh axes that ``spec`` names, in its dims' order (a tuple's
+    names major first)."""
+    out = []
+    for part in spec:
+        out += [] if part is None else (list(part) if isinstance(part, tuple) else [part])
+    return out
+
+
+def shard_shape(shape, spec: P, mesh) -> tuple:
+    """The shape of a rank's shard of a ``shape`` tensor placed by ``spec``
+    (``NamedSharding(mesh, spec).shard_shape(shape)``); a ``ValueError``
+    where a dim's axes do not divide it, as JAX's."""
+    axes = mesh_axes(mesh)
+    out = []
+    for d, size in enumerate(shape):
+        part = spec[d] if d < len(spec) else None
+        n = 1
+        for name in ([] if part is None else (part if isinstance(part, tuple) else (part,))):
+            n *= axes[name]
+        if size % n:
+            raise ValueError(f"{spec} splits dim {d} of {tuple(shape)} {n} ways, which does not "
+                             f"divide it")
+        out.append(size // n)
+    return tuple(out)
 
 
 def fsdp_axes_for(cfg: ModelConfig, mesh):

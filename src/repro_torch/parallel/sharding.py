@@ -21,12 +21,15 @@ DTensor's placements by :func:`spec_placements`: ``Shard(d)`` on each mesh
 dim that names tensor dim d, ``Replicate()`` on the others.
 
 The reference's model layers call ``shard()`` as GSPMD hints; GSPMD then
-partitions every op.  The port's model layers take no such hints: a hint
-changes no value, and torch has no partitioner that would act on one.
-Data parallelism is explicit in the train step (``training.train_step``),
-and expert parallelism in the MoE (``models.layers``), which reads the
-active rules.  ``shard`` itself redistributes a DTensor to the spec's
-placements and leaves a plain tensor as it is.
+partitions every op.  torch has no partitioner to act on a hint, so the
+port's parallelism is explicit: the steps on a mesh (``training.train_step``)
+set rules that carry :class:`~repro_torch.parallel.collectives.Shards`
+(``AxisRules.shards``), and under them each block gathers its params'
+shards, the dense family's attention, MLP, embedding and loss split heads,
+ffn and vocab over ``"model"`` where the rules map them there, and the MoE
+takes its expert-parallel route (``models.layers``, ``models.transformer``,
+``parallel.collectives``).  ``shard`` itself redistributes a DTensor to
+the spec's placements and leaves a plain tensor as it is.
 
 ``shard_map_compat`` runs a function on each rank's local shards, as
 ``jax.shard_map`` does: inputs are cut (a plain tensor, which every rank
@@ -120,9 +123,14 @@ def mesh_axes(mesh) -> dict:
 
 
 class AxisRules:
-    def __init__(self, mesh, mapping: dict[str, object]):
+    """``mapping``: logical axis -> mesh axis (or a tuple, or None).
+    ``shards``: a step's :class:`~repro_torch.parallel.collectives.Shards`
+    when the params the layers see are this rank's shards, else None."""
+
+    def __init__(self, mesh, mapping: dict[str, object], shards=None):
         self.mesh = mesh
         self.mapping = dict(mapping)
+        self.shards = shards
 
     def resolve(self, name: Optional[str]):
         if name is None:
@@ -211,9 +219,13 @@ def local_shard(x: torch.Tensor, mesh, placements) -> torch.Tensor:
 
 def place(x: torch.Tensor, mesh, placements) -> DTensor:
     """The whole tensor ``x``, which every rank holds, as a DTensor on
-    ``mesh`` with ``placements`` (each rank keeps its own piece)."""
-    return DTensor.from_local(local_shard(x, mesh, placements), mesh, placements,
-                              run_check=False, shape=x.shape, stride=x.stride())
+    ``mesh`` with ``placements`` (each rank keeps its own piece: a copy
+    where the piece is smaller than the whole, which can then be freed)."""
+    local = local_shard(x, mesh, placements)
+    if local.numel() != x.numel():
+        local = local.clone()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def shard(x: torch.Tensor, *names) -> torch.Tensor:

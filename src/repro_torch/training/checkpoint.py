@@ -27,11 +27,13 @@ placements), a ``torch.device``, or a ``parallel.partition.MeshSharding``
 (``param_shardings``' leaves: a DeviceMesh and its placements), which
 restores the leaf as a DTensor on that mesh, each rank keeping its own
 piece; the mesh may differ from the one that saved (an elastic restart:
-``make_train_step`` takes such a state, gathering each leaf whole on
-every rank when a step starts).
-A save copies the leaves to the host first (a DTensor whole, which is a
-collective: every rank saves) and can write in a background thread.  The
-bytes on disk do not depend on where a leaf lived.
+``make_train_step`` on the new mesh trains on those pieces).
+A save copies the leaves to the host first (a DTensor whole, one leaf at
+a time, which is a collective: every rank calls it, and ``write=False``
+gathers without keeping or writing anything, the ranks other than the one
+that writes) and can write in a background thread.  The bytes on disk do
+not depend on where a leaf lived, so a sharded step's state is written as
+one device's.
 """
 from __future__ import annotations
 
@@ -146,13 +148,21 @@ def save_checkpoint(
     state: Any,
     codec: str | None = None,
     asynchronous: bool = False,
+    write: bool = True,
 ) -> threading.Thread | None:
     """Snapshot `state` (a tree of tensors) at `step`.  Returns the writer
-    thread when asynchronous.  ``codec=None`` picks :func:`default_codec`."""
+    thread when asynchronous.  ``codec=None`` picks :func:`default_codec`.
+    ``write=False``: only gather the DTensor leaves (the collectives of a
+    save on a rank that does not write) and return None."""
     directory = Path(directory)
     if codec is None:
         codec = default_codec()
     flat = leaves(state)
+    if not write:
+        for x in flat:
+            if isinstance(x, DTensor):
+                x.full_tensor()
+        return None
     snap = [(_host(x), x.dtype == torch.bfloat16, x.device) for x in flat]
     treedef = _treedef(state)
 
@@ -255,11 +265,13 @@ class CheckpointManager:
         self.codec = codec if codec is not None else default_codec()
         self._pending: list[threading.Thread] = []
 
-    def save(self, step: int, state: Any, asynchronous: bool = True) -> None:
-        t = save_checkpoint(self.dir, step, state, codec=self.codec, asynchronous=asynchronous)
+    def save(self, step: int, state: Any, asynchronous: bool = True, write: bool = True) -> None:
+        t = save_checkpoint(self.dir, step, state, codec=self.codec, asynchronous=asynchronous,
+                            write=write)
         if t:
             self._pending.append(t)
-        self._gc()
+        if write:
+            self._gc()
 
     def wait(self) -> None:
         for t in self._pending:

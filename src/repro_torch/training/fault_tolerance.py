@@ -91,8 +91,9 @@ class TrainingRunner:
     step_fn(state, batch) -> (state, metrics);  data_fn(step) -> batch must
     be a pure function of the step index (``data.pipeline`` is).  The
     history holds each step's metrics as Python floats.  ``writes=False``
-    resumes from ``ckpt_dir`` but writes nothing there: the data-parallel
-    ranks other than the one that saves, all holding the same state.
+    resumes from ``ckpt_dir`` but writes nothing there: the ranks of a mesh
+    other than the one that saves, which take part in each save's gathers
+    of a sharded state (``save_checkpoint(write=False)``).
     """
 
     def __init__(
@@ -128,9 +129,8 @@ class TrainingRunner:
             batch = self.data_fn(step)
             self.state, metrics = self.step_fn(self.state, batch)
             history.append({"step": step, **{k: float(v) for k, v in metrics.items()}})
-            if self.writes and step % self.ckpt_every == 0:
-                self.manager.save(step, self.state, asynchronous=True)
+            if step % self.ckpt_every == 0:
+                self.manager.save(step, self.state, asynchronous=True, write=self.writes)
         self.manager.wait()
-        if self.writes:
-            self.manager.save(n_steps - 1, self.state, asynchronous=False)
+        self.manager.save(n_steps - 1, self.state, asynchronous=False, write=self.writes)
         return history

@@ -8,7 +8,9 @@ update of identical inputs equals the reference's bit for bit except where
 ``b ** step`` and ``cos`` round another way (an ulp of the schedule and
 the bias corrections, ``tests/test_torch_optimizer.py``).  Scalars that
 divide are float32 tensors: CUDA torch turns a division by a Python float
-into a multiply by its reciprocal.
+into a multiply by its reciprocal.  On a mesh the state mirrors the
+params' placements (``adamw_init`` of DTensors gives DTensors of local
+zeros), and the sharded train step updates each rank's pieces.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ._tree import leaves, tree_map, unflatten
 
@@ -40,9 +43,21 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _zeros(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros of ``p``'s shape; of its placements, each rank's piece
+    zeros, where ``p`` is a DTensor (a sharded step's param)."""
+    if isinstance(p, DTensor):
+        local = p.to_local()
+        local = torch.zeros(local.shape, dtype=torch.float32, device=local.device)
+        return DTensor.from_local(local, p.device_mesh, p.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> dict:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = leaves(params)[0].device if leaves(params) else None
+    zeros = _zeros
+    flat = [p.to_local() if isinstance(p, DTensor) else p for p in leaves(params)]
+    dev = flat[0].device if flat else None
     return {
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
@@ -66,8 +81,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm.  ``norm``: the norm where the caller has it (a sharded step sums
+    its pieces over the mesh), else :func:`global_norm`'s."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp_max(torch.div(_f32(max_norm, norm), torch.clamp_min(norm, 1e-9)), 1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 

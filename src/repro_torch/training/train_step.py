@@ -1,26 +1,41 @@
 """Train and serve steps, counterpart of ``repro.training.train_step``.
 
 * ``make_train_step``: the loss's gradient on the params, clipped by the
-  global norm, then AdamW.  ``mesh`` None: one device.  A DeviceMesh:
-  data parallelism over its batch axes (``("pod", "data")``, as the
-  reference's rules map ``batch``): each rank takes its slice of dim 0 of
-  the global batch, and one ``all_reduce`` over the ranks that share a
-  ``"model"`` coordinate averages the gradients and the metrics, all
-  leaves flattened into one float32 buffer in a fixed order; clip and
-  AdamW then run the same on every rank.  Params and optimizer state stay
-  whole on every rank; ranks along ``"model"`` compute the same step (the
-  port's layers take no GSPMD hints, ``parallel.sharding``).  A state
-  placed on a mesh (DTensor leaves, as ``load_checkpoint`` restores
-  through ``param_shardings``) is made whole on every rank when the step
-  starts, so training resumes from it.
+  global norm, then AdamW.  ``mesh`` None: one device.  A DeviceMesh: the
+  reference's jitted step with ``param_specs`` shardings, written out.
+  Every param, its gradient and both AdamW moments are this rank's shard
+  under the param's spec (``parallel.collectives.Shards``): the step takes
+  DTensors placed by ``param_shardings`` (or plain tensors that every rank
+  holds whole, and takes its pieces of them) and returns DTensors of the
+  same placements.  Each rank trains on its slice of dim 0 of the global
+  batch over the batch axes (``("pod", "data")``, as the reference's rules
+  map ``batch``).  Each block gathers its leaves over the axes its compute
+  does not split, inside its remat (ZeRO-3), and the gathers' backward
+  reduce-scatters the gradients; a leaf replicated along a batch axis has
+  its gradient summed over it in one flat float32 all_reduce (the metrics
+  ride with the leaves replicated along every batch axis), and every
+  gradient and metric is then the batch ranks' mean.  The dense family
+  splits heads, ffn and vocab over ``"model"`` as the rules map them
+  (``models.layers``, ``models.transformer``, ``models.model``); every
+  other family gathers its blocks whole and runs the same compute on the
+  ranks along ``"model"``.  The clip's norm sums each shard once over the
+  mesh (one all_reduce), and AdamW is elementwise on the shards, so a
+  one-rank mesh gives the one-device step's bits.  What depends on the
+  params' specs alone (the specs, placements, gather plans and the mean's
+  buckets) is worked out on the first call and kept; later calls repeat
+  only the collectives and the DTensors' wrapping.
 * ``make_compressed_train_step``: each pod takes its slice of the global
   batch, computes its gradient, and the cross-pod mean rides the SHRINK
   compressed exchange (``grad_compress.py``) with error feedback carried in
   the step state.  ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
   with a ``"pod"`` dimension, whose process group carries the collectives.
-* ``make_prefill_step`` / ``make_decode_step`` run under the mesh's rules
-  (decode with ``seq_model`` on ``"model"``); under them an MoE config
-  with ``moe_ep`` takes the expert-parallel route.
+* ``make_prefill_step`` / ``make_decode_step`` on a mesh take the params
+  as the train step does (shards) and this rank's rows of the batch.  The
+  prefill runs the dense family's tensor-parallel layers and returns the
+  last position's logits and the caches whole over ``"model"``; the
+  decode gathers each block whole (no tensor parallelism) and keeps the
+  caches' layout, with ``seq_model`` on ``"model"`` in its rules.  Under
+  either an MoE config with ``moe_ep`` takes the expert-parallel route.
 
 A step takes params as a tree of tensors and returns new trees (the
 reference's ``(params, opt_state, metrics)``); the gradient is autograd's
@@ -42,7 +57,8 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
 from ..models import Model
-from ..parallel.partition import param_specs
+from ..parallel.collectives import Shards
+from ..parallel.partition import param_specs, spec_axes
 from ..parallel.sharding import P, axis_rules, make_rules, mesh_axes, tree_map_with_path
 from ._tree import leaves, tree_map, unflatten
 from .grad_compress import GradCompressConfig, _concat, _split, compressed_psum_tree
@@ -157,46 +173,49 @@ def _value_and_grad(model: Model, params, batch):
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, unflatten(params, grads)
 
 
-def _update(opt_cfg: AdamWConfig, params, opt_state, grads):
+def _update(opt_cfg: AdamWConfig, params, opt_state, grads, norm=None):
+    """Clip by the global norm (``norm(grads)`` where given: a sharded
+    step's), then AdamW."""
     with torch.no_grad():
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip,
+                                           None if norm is None else norm(grads))
         params, opt_state = adamw_update(opt_cfg, params, grads, opt_state)
     return params, opt_state, gnorm
 
 
-def _whole(tree):
-    """``tree`` with each DTensor leaf gathered whole onto every rank."""
-    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+def _plain(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class _DataParallel:
     """The batch axes of a DeviceMesh: this rank's index among the ranks
-    that share its ``"model"`` coordinate (pod major), their count, and
-    their process group (the axis's own group, or one made for the pod x
-    data plane: every rank makes every plane's group, in one order)."""
+    that share its ``"model"`` coordinate (pod major), their count, each
+    batch axis's group and the group of them all (the axis's own, or one
+    made for the pod x data plane: every rank makes every plane's group,
+    in one order)."""
 
     def __init__(self, mesh):
         axes = mesh_axes(mesh)
-        names = [a for a in ("pod", "data") if a in axes]
-        if not names:
+        self.names = tuple(a for a in ("pod", "data") if a in axes)
+        if not self.names:
             raise ConfigError(f"data parallelism needs a 'data' or 'pod' axis; the mesh has "
                               f"{tuple(axes)}")
         coord = dict(zip(axes, mesh.get_coordinate()))
-        self.n = math.prod(axes[a] for a in names)
+        self.n = math.prod(axes[a] for a in self.names)
+        self._buckets: dict = {}
         self.rank = 0
-        for a in names:
+        for a in self.names:
             self.rank = self.rank * axes[a] + coord[a]
-        if len(names) == 1:
-            self.group = mesh.get_group(names[0])
-        else:
-            ranks = mesh.mesh.permute(*[list(axes).index(a) for a in names]
-                                      + [i for i, a in enumerate(axes) if a not in names])
+        self.groups = {(a,): mesh.get_group(a) for a in self.names}
+        if len(self.names) > 1:
+            ranks = mesh.mesh.permute(*[list(axes).index(a) for a in self.names]
+                                      + [i for i, a in enumerate(axes) if a not in self.names])
             planes = ranks.reshape(self.n, -1).T.tolist()
             mine = dist.get_rank()
             for plane in planes:  # every rank creates every group
                 group = dist.new_group(plane)
                 if mine in plane:
-                    self.group = group
+                    self.groups[self.names] = group
 
     def slice(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a batch leaf (the whole leaf where dim 0 does
@@ -206,37 +225,107 @@ class _DataParallel:
         b = x.shape[0] // self.n
         return x[self.rank * b:(self.rank + 1) * b]
 
-    def mean(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The ranks' mean of each tensor: one all_reduce of one float32
-        buffer holding them all, in order."""
-        buf, shapes = _concat(tensors)
-        dist.all_reduce(buf, group=self.group)
-        buf = torch.div(buf, torch.tensor(float(self.n), device=buf.device))
-        return [m.to(t.dtype) for m, t in zip(_split(buf, tensors, shapes), tensors)]
+    def mean(self, grads: list, specs: list, metrics: list) -> tuple[list, list]:
+        """The batch ranks' mean of each gradient and metric.  A gradient
+        arrives summed over the batch axes its spec names (the gathers'
+        reduce-scatter); the axes it is replicated along sum it here, in one
+        flat float32 all_reduce a set of axes, the metrics with the set of
+        them all."""
+        out, n = list(grads) + list(metrics), len(grads)
+        key = (tuple(specs), len(metrics))
+        if key not in self._buckets:  # made once for the step's specs
+            buckets: dict[tuple, list] = {self.names: list(range(n, len(out)))}
+            for i, spec in enumerate(specs):
+                named = set(spec_axes(spec))
+                buckets.setdefault(tuple(a for a in self.names if a not in named), []).append(i)
+            self._buckets[key] = buckets
+        buckets = self._buckets[key]
+        count = None
+        for axes, idx in buckets.items():
+            tensors = [out[i] for i in idx]
+            if not tensors:
+                continue
+            buf, shapes = _concat(tensors)
+            if axes:
+                dist.all_reduce(buf, group=self.groups[axes])
+            count = torch.tensor(float(self.n), device=buf.device) if count is None else count
+            buf = torch.div(buf, count)
+            for i, m, t in zip(idx, _split(buf, tensors, shapes), tensors):
+                out[i] = m.to(t.dtype)
+        return out[:n], out[n:]
+
+
+def _mesh_group(mesh):
+    """A process group over every rank of ``mesh``."""
+    ranks = mesh.mesh.flatten().tolist()
+    if len(ranks) == dist.get_world_size():
+        return dist.group.WORLD
+    return dist.new_group(sorted(ranks))
+
+
+def _step_rules(mesh, cfg: ModelConfig, shards: Shards, tp: bool, overrides=None):
+    """The rules of a sharded step: ``make_rules``' with this rank's
+    ``shards``.  ``heads``, ``kv_heads``, ``ffn`` and ``vocab`` stay on
+    ``"model"`` only where the step splits the dense family over it (``tp``;
+    heads the axis does not divide, as ``force_head_sharding`` may ask,
+    stay whole), else they map to nothing and the blocks gather whole."""
+    rules = make_rules(mesh, cfg, overrides)
+    msize = mesh_axes(mesh).get("model", 1)
+    if not (tp and cfg.family == "dense"):
+        rules.mapping.update(dict.fromkeys(("heads", "kv_heads", "ffn", "vocab")))
+    elif cfg.n_heads % msize:
+        rules.mapping.update(heads=None, kv_heads=None)
+    rules.shards = shards
+    return rules
 
 
 def make_train_step(model: Model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()):
-    rules = None if mesh is None else make_rules(mesh, model.cfg)
-    dp = None if mesh is None else _DataParallel(mesh)
-    if dp is not None and model.cfg.moe_ep and mesh_axes(mesh).get("model", 1) > 1:
-        raise ConfigError("the data-parallel step keeps every expert on each rank; expert "
-                          "parallelism (moe_ep over a model axis) runs in prefill and decode")
+    if mesh is None:
+        def one_device(params, opt_state, batch):
+            with axis_rules(None):
+                loss, parts, grads = _value_and_grad(model, params, batch)
+            params, opt_state, gnorm = _update(opt_cfg, params, opt_state, grads)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm, **parts}
+
+        return one_device
+    cfg = model.cfg
+    if cfg.moe_ep and mesh_axes(mesh).get("model", 1) > 1:
+        raise ConfigError("the sharded step runs the MoE's dense dispatch; expert parallelism "
+                          "(moe_ep over a model axis) runs in prefill and decode")
+    sh, dp, world = Shards(mesh, cfg), _DataParallel(mesh), _mesh_group(mesh)
+    rules = _step_rules(mesh, cfg, sh, tp=True)
+
+    def mesh_norm(specs):
+        def norm(grads):
+            """The global norm of sharded gradients: each piece's squares
+            summed once over the mesh (from 0, in leaf order, as
+            ``global_norm`` sums them)."""
+            flat = leaves(grads)
+            sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+            for g, s in zip(flat, specs):
+                if sh.counted(s):
+                    sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+            dist.all_reduce(sq, group=world)
+            return torch.sqrt(sq)
+        return norm
 
     def step(params, opt_state, batch):
-        params, opt_state = _whole(params), _whole(opt_state)
-        if dp is not None:
-            batch = {k: dp.slice(v) for k, v in batch.items()}
+        specs = sh.specs(params)
+        local = sh.local(params, specs)
+        opt = {"m": sh.local(opt_state["m"], specs), "v": sh.local(opt_state["v"], specs),
+               "step": _plain(opt_state["step"])}
+        batch = {k: dp.slice(v) for k, v in batch.items()}
         with axis_rules(rules):
-            loss, parts, grads = _value_and_grad(model, params, batch)
+            loss, parts, grads = _value_and_grad(model, local, batch)
+        flat_specs = leaves(specs)
         metrics = {"loss": loss, **parts}
-        if dp is not None:
-            flat = leaves(grads)
-            got = dp.mean(flat + list(metrics.values()))
-            grads = unflatten(grads, got[:len(flat)])
-            metrics = dict(zip(metrics, got[len(flat):]))
-        params, opt_state, gnorm = _update(opt_cfg, params, opt_state, grads)
+        got, vals = dp.mean(leaves(grads), flat_specs, list(metrics.values()))
+        grads, metrics = unflatten(grads, got), dict(zip(metrics, vals))
+        local, opt, gnorm = _update(opt_cfg, local, opt, grads, norm=mesh_norm(flat_specs))
         metrics = {"loss": metrics.pop("loss"), "grad_norm": gnorm, **metrics}
-        return params, opt_state, metrics
+        return sh.wrap(local, specs, params), {
+            "m": sh.wrap(opt["m"], specs, params), "v": sh.wrap(opt["v"], specs, params),
+            "step": opt["step"]}, metrics
 
     return step
 
@@ -285,22 +374,37 @@ def make_ef_state(params):
 
 # ------------------------------------------------------------- serve steps
 def make_prefill_step(model: Model, mesh=None):
-    rules = None if mesh is None else make_rules(mesh, model.cfg)
+    if mesh is None:
+        def one_device(params, batch):
+            with axis_rules(None):
+                return model.prefill(params, batch)
+
+        return one_device
+    sh = Shards(mesh, model.cfg)
+    rules = _step_rules(mesh, model.cfg, sh, tp=True)
 
     def step(params, batch):
         with axis_rules(rules):
-            return model.prefill(params, batch)
+            return model.prefill(sh.local(params, sh.specs(params)), batch)
 
     return step
 
 
 def make_decode_step(model: Model, mesh=None):
-    # seq_model: decode attention runs against sequence-sharded caches
-    rules = None if mesh is None else make_rules(mesh, model.cfg,
-                                                 overrides={"seq_model": "model"})
+    if mesh is None:
+        def one_device(params, tokens, caches, cache_index):
+            with axis_rules(None):
+                return model.decode_step(params, tokens, caches, cache_index)
+
+        return one_device
+    sh = Shards(mesh, model.cfg)
+    # the reference's decode rules (seq_model on "model", its sequence-sharded
+    # caches); this step keeps whole caches, so no layer reads seq_model
+    rules = _step_rules(mesh, model.cfg, sh, tp=False, overrides={"seq_model": "model"})
 
     def step(params, tokens, caches, cache_index):
         with axis_rules(rules):
-            return model.decode_step(params, tokens, caches, cache_index)
+            return model.decode_step(sh.local(params, sh.specs(params)), tokens, caches,
+                                     cache_index)
 
     return step

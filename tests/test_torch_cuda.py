@@ -1024,7 +1024,57 @@ def test_data_parallel_step_on_a_one_rank_nccl_mesh_is_the_one_device_step(nccl_
             state = step(*state, batch)[:2]
         assert ops.launches["flash_attention_bwd"] > 0
         states.append(state)
-    assert all(torch.equal(a, b) for a, b in zip(leaves(states[0]), leaves(states[1])))
+    # the mesh step's params and moments are DTensors: one rank's shards are whole
+    got = [t.to_local() if hasattr(t, "to_local") else t for t in leaves(states[0])]
+    assert all(torch.equal(a, b) for a, b in zip(got, leaves(states[1]), strict=True))
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_sharded_step_on_a_one_rank_nccl_mesh_is_bit_equal(nccl_rank, kv):
+    """Phase 16 (a) at a reduced qwen3-0.6b: the sharded step (FSDP
+    gathers, the dense family's heads, ffn and vocab over "model", all on
+    groups of one) from params placed by ``param_shardings`` is the
+    one-device step bit for bit over 2 steps, and runs the flash kernels on
+    its local heads; its prefill's logits and caches too."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.parallel import param_shardings
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training import AdamWConfig, adamw_init, make_prefill_step, make_train_step
+    from repro_torch.training._tree import leaves, tree_map
+
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen3-0.6b"]), n_kv_heads=kv)
+    m = build_model(cfg)
+    params = m.init(0, device=nccl_rank)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=4, seq_len=128)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    placed = tree_map(lambda p, s: place(p, *s), params, param_shardings(params, cfg, mesh))
+    states, metrics = [], []
+    for mesh_arg, start in ((mesh, placed), (None, params)):
+        step, state = make_train_step(m, mesh_arg, AdamWConfig()), (start, adamw_init(start))
+        ops.reset_launches()
+        for s in range(2):
+            batch = {k: torch.from_numpy(a).to(nccl_rank) for k, a in pipe.batch_at(s).items()}
+            *state, last = step(*state, batch)
+        assert ops.launches["flash_attention"] > 0 and ops.launches["flash_attention_bwd"] > 0
+        states.append(state)
+        metrics.append(last)
+    got = [t.to_local() if hasattr(t, "to_local") else t for t in leaves(states[0])]
+    assert all(torch.equal(a, b) for a, b in zip(got, leaves(states[1]), strict=True))
+    assert all(torch.equal(metrics[0][k], metrics[1][k]) for k in metrics[1])
+    tokens = {"tokens": torch.from_numpy(pipe.batch_at(0)["tokens"]).to(nccl_rank)}
+    with torch.no_grad():
+        a = make_prefill_step(m, mesh)(placed, tokens)
+        b = make_prefill_step(m, None)(params, tokens)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(
+        [getattr(a[1]["groups"]["pos0"]["self"], f) for f in ("k", "v", "kpos")],
+        [getattr(b[1]["groups"]["pos0"]["self"], f) for f in ("k", "v", "kpos")]))
 
 
 def test_ep_prefill_on_a_one_rank_nccl_mesh_equals_the_dense_path(nccl_rank):

@@ -5,19 +5,26 @@ process-wide default group), so the pytest worker keeps no process group
 and no environment variable (``torch_dist_helpers.dist_guard``).  The
 cells: qwen3-0.6b ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
 16x16 mesh, the ``--compressed`` exchange on 2x16x16, llama3-8b
-``train_4k`` (whose state and step do not fit one 80 GiB card), and an
-unknown arch (a ``FAILED__`` file and exit code 1).  Each written cell has
-the reference's JSON keys; the train cell's collective bytes are exactly
-2 x 4 bytes x the elements of the one float32 buffer its data-parallel
-all-reduce carries (every parameter's gradient and the four metrics); the
-decode cell's arguments hold the caches, and their in-place writes are no
-temporaries.  ``model_flops_total`` equals the reference's own lines
+``train_4k``, and an unknown arch (a ``FAILED__`` file and exit code 1).
+Each written cell has the reference's JSON keys.  Every step holds this
+rank's ``param_specs`` shards: a cell's ``argument_bytes`` are the local
+shards' bytes (and the moments' and step count's in a train cell) plus
+the rank's batch or caches.  The qwen3-0.6b train cell's collectives are
+the sharded step's: all-gathers, tensor-parallel all-reduces, and
+reduce-scatters of exactly 4 bytes an element of each float32 gradient
+piece that its leaf's gathers hand back (the pieces of this rank's
+``"data"`` shards; ``wk`` and ``wv``, gathered over ``"model"`` too,
+first their ``"model"`` pieces; the tied embedding twice, its lookup's and
+the logits'); llama3-8b's ``train_4k`` now fits a card (its whole state
+took 89 GiB).  The decode cell's arguments hold the caches, and their
+in-place writes are no temporaries.  ``model_flops_total`` equals the reference's own lines
 (read from ``repro/launch/dryrun.py``'s source, not imported), evaluated
 on the reference's configs, for every arch and cell.
 """
 import ast
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -32,6 +39,8 @@ import repro_torch.configs as PC
 from repro_torch.launch.dryrun import model_flops_total
 from repro_torch.models import build_model
 from repro_torch.models import transformer as T
+from repro_torch.parallel.partition import param_specs, shard_shape, spec_axes
+from repro_torch.parallel.sharding import P, abstract_mesh, tree_map_with_path
 
 TIMEOUT = 600
 KEYS = {"arch", "shape", "mesh", "compressed", "devices", "kind", "cost", "memory",
@@ -96,17 +105,43 @@ def test_cells_write_the_reference_keys(runs, name, kind):
         assert cell["cost"]["kernels"]["flash_attention"]["calls"] > 0
 
 
+def _reduce_scatter_elements(params, cfg, mesh) -> int:
+    """The float32 elements that a sharded qwen3-0.6b train step's
+    reduce-scatters hand back on 16x16: each leaf split over ``"data"``
+    once its local shard (a stacked leaf's layers together), ``wk`` and
+    ``wv`` first their ``"model"`` pieces (16 x the shard: the 8 kv heads
+    do not divide the axis, so the blocks gather them whole), the tied
+    embedding twice (its lookup and the logits each gather it)."""
+    specs = param_specs(params, cfg, mesh)
+    found = []
+    tree_map_with_path(lambda path, leaf: found.append((path, leaf)), params)
+    total = 0
+    for (path, leaf), spec in zip(found, _leaves(specs), strict=True):
+        if "data" not in spec_axes(spec):
+            continue
+        local = math.prod(shard_shape(leaf.shape, spec, mesh))
+        total += local * {"wk": 17, "wv": 17, "embed": 2}.get(path[-1], 1)
+    return total
+
+
 def test_train_cell_counts_the_one_flat_all_reduce(runs):
+    """The sharded step's collectives: the gathers, the tensor-parallel and
+    flat all-reduces, and the gradients' reduce-scatters exactly."""
     cell = _cell(runs, "qwen_train")
-    params = build_model(PC.get_config("qwen3-0.6b")).init_shapes()
-    n = sum(p.numel() for p in _leaves(params))
-    assert cell["collectives"] == {"total_bytes": 2 * 4 * (n + 4),
-                                   "by_type": {"all-reduce": 2 * 4 * (n + 4)}}
+    cfg = PC.get_config("qwen3-0.6b")
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    by_type = cell["collectives"]["by_type"]
+    assert set(by_type) == {"all-gather", "all-reduce", "reduce-scatter"}
+    assert cell["collectives"]["total_bytes"] == sum(by_type.values())
+    assert by_type["reduce-scatter"] == 4 * _reduce_scatter_elements(
+        build_model(cfg).init_shapes(), cfg, mesh)
     assert cell["batch_rows_per_device"] == 256 // 16
     assert cell["cost"]["kernels"]["flash_attention_bwd"]["calls"] == 28  # one a layer
 
 
 def _leaves(tree):
+    if isinstance(tree, P):
+        return [tree]
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
@@ -118,6 +153,17 @@ def _leaves(tree):
 
 def _bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _shard_bytes(cfg, mesh, moments: bool = False) -> int:
+    """The bytes of this rank's ``param_specs`` shards of the params (and of
+    the two float32 AdamW moments and the int32 step count)."""
+    params = build_model(cfg).init_shapes()
+    total = 4 if moments else 0
+    for leaf, spec in zip(_leaves(params), _leaves(param_specs(params, cfg, mesh)), strict=True):
+        n = math.prod(shard_shape(leaf.shape, spec, mesh))
+        total += n * (leaf.element_size() + (8 if moments else 0))
+    return total
 
 
 def test_compressed_cell(runs):
@@ -133,9 +179,9 @@ def test_compressed_cell(runs):
 
 
 def test_decode_cell_counts_the_caches_as_arguments(runs):
-    """A decode cell's arguments are the params, this rank's tokens, the
-    cache index and the caches of the whole sequence; the caches' in-place
-    writes are not temporaries."""
+    """A decode cell's arguments are this rank's shards of the params, its
+    tokens, the cache index and the caches of the whole sequence; the
+    caches' in-place writes are not temporaries."""
     cell = _cell(runs, "qwen_decode")
     m = build_model(PC.get_config("qwen3-0.6b"))
     rows = cell["batch_rows_per_device"]
@@ -143,14 +189,27 @@ def test_decode_cell_counts_the_caches_as_arguments(runs):
                                   torch.device("meta"))
     cache_bytes = _bytes(caches)
     assert cache_bytes > 2**30
-    assert cell["memory"]["argument_bytes"] == _bytes(m.init_shapes()) + cache_bytes + rows * 4 + 4
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    assert cell["memory"]["argument_bytes"] == _shard_bytes(m.cfg, mesh) + cache_bytes \
+        + rows * 4 + 4
     assert 0 < cell["memory"]["temp_bytes"] < cache_bytes // 10  # one layer's scratch, no cache
 
 
 def test_llama3_8b_train_does_not_fit_a_card(runs):
+    """llama3-8b's whole state (89 GiB) does not fit a card; the sharded
+    step's arguments are this rank's shards of it and its 16 rows of
+    tokens and labels, and the cell fits."""
     cell = _cell(runs, "llama_train")
-    assert cell["memory"]["fits"] is False
-    assert cell["memory"]["argument_bytes"] + cell["memory"]["temp_bytes"] > 80 * 1024**3
+    cfg = PC.get_config("llama3-8b")
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    whole = cfg.param_count() * (2 * 2 + 8)  # params, gradients, two float32 moments
+    assert whole > 80 * 1024**3
+    rows = cell["batch_rows_per_device"]
+    assert cell["memory"]["argument_bytes"] == _shard_bytes(cfg, mesh, moments=True) \
+        + 2 * rows * 4096 * 4
+    assert cell["memory"]["argument_bytes"] < 2**30
+    assert cell["memory"]["fits"] is True
+    assert cell["memory"]["argument_bytes"] + cell["memory"]["temp_bytes"] <= 80 * 1024**3
 
 
 def test_a_failed_cell_writes_its_traceback(runs):

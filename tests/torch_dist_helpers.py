@@ -15,6 +15,10 @@ runs many files in turn:
   ``file://`` rendezvous under the test's directory, each with a timeout;
   the worker script destroys its group in a ``finally``.
 
+The sharded steps return DTensors of each rank's shards; ``whole``,
+``whole_grads``, ``placed_as_specs`` and ``recording_update`` read them
+back whole on every rank.
+
 torch's first DTensor call imports ``torch._dynamo``, which sets
 ``TORCHINDUCTOR_CACHE_DIR`` to its default once a process; importing it
 here makes that happen while the tests are collected, before any guard's
@@ -29,6 +33,12 @@ import textwrap
 import pytest
 import torch._dynamo  # noqa: F401  (see the module docstring)
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel import param_specs
+from repro_torch.parallel.sharding import spec_placements
+from repro_torch.training import train_step as TS
+from repro_torch.training._tree import leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RANK_TIMEOUT = 240  # seconds a worker may take
@@ -87,3 +97,37 @@ def run_ranks(body: str, world: int, directory: pathlib.Path) -> None:
                 p.kill()
                 p.communicate()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+
+
+def whole(tree) -> list:
+    """A step's output leaves, each DTensor gathered whole (a collective)."""
+    return [t.full_tensor() if isinstance(t, DTensor) else t for t in leaves(tree)]
+
+
+def placed_as_specs(model, params, mesh, tree) -> bool:
+    """Whether each leaf of ``tree`` (params of ``params``' structure) is a
+    DTensor on ``mesh`` with its spec's placements."""
+    specs = leaves(param_specs(params, model.cfg, mesh))
+    return all(isinstance(t, DTensor) and t.placements == spec_placements(mesh, s)
+               for t, s in zip(leaves(tree), specs, strict=True))
+
+
+def whole_grads(model, params, mesh, local: list) -> list:
+    """Gradients recorded as this rank's shards, made whole over ``mesh``."""
+    specs = leaves(param_specs(params, model.cfg, mesh))
+    return [DTensor.from_local(g, mesh, spec_placements(mesh, s), run_check=False,
+                               shape=p.shape, stride=p.stride()).full_tensor()
+            for g, s, p in zip(local, specs, leaves(params), strict=True)]
+
+
+def recording_update(seen: list):
+    """``train_step._update`` wrapped so that each step's gradient, averaged
+    over the ranks and not yet clipped, is appended to ``seen`` (a sharded
+    step's: this rank's shards)."""
+    update = TS._update
+
+    def record(opt_cfg, params, opt_state, grads, **kw):
+        seen.append([g.detach().clone() for g in leaves(grads)])
+        return update(opt_cfg, params, opt_state, grads, **kw)
+
+    return record
