@@ -280,15 +280,27 @@ result line):
    (collective calls, their host time, the NCCL kernels' device time, the
    collectives' autograd Functions); (b) phase 9's llama3-8b prefill (4 x
    2048, the same seed and tokens) through the sharded
-   ``make_prefill_step`` on that mesh: logits bit-equal to phase 9's; (c)
-   on the host's CPU after (b): ``tests/torch_tp_case.py``'s reduced dense
-   config (4 heads, 1 kv head replicated over "model" and 2 split) on 4
-   gloo processes, a 2 x 2 mesh, 3 sharded steps and a prefill against
-   the one-device step within the bounds that
-   ``tests/test_torch_tensor_parallel.py`` holds, every rank's local shard
-   shapes printed; (d) the dense configs' ``train_4k`` and
-   ``prefill_32k`` cells of phase 15 (a)'s 16x16 sweep: per-rank argument
-   and temporary bytes, fit and collective bytes.  The flash rows gain
+   ``make_prefill_step`` on that mesh (the global batch; its logits and
+   caches come back as DTensors): logits bit-equal to phase 9's; (e) its
+   caches grafted into decode buffers of phase 9's length, then phase 9's
+   16 decode steps (its tokens fed) through the sharded
+   ``make_decode_step`` (the reference's decode layout: heads, ffn and
+   vocab over "model", the caches placed by ``cache_specs``): each step's
+   logits bit-equal to phase 9's, the median step beside phase 9's, one
+   more step traced (collective calls and their host ms); (c) on the
+   host's CPU after (b) and (e): ``tests/torch_tp_case.py``'s reduced
+   dense config (4 heads, 1 kv head replicated over "model" and 2 split)
+   on 4 gloo processes, a 2 x 2 mesh, 3 sharded steps and a prefill of the
+   global batch against the one-device step within the bounds that
+   ``tests/test_torch_tensor_parallel.py`` holds, every rank's local
+   shard shapes printed, then a prefill and 6 sharded decode steps (the
+   caches' sequence split over "model", one step with a rank holding no
+   written slot, two either side of the pieces' boundary) against one
+   device within the logit and cache bounds that
+   ``tests/test_torch_decode_parallel.py`` holds; (d) the dense configs'
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells of phase 15
+   (a)'s 16x16 sweep: per-rank argument and temporary bytes, fit and
+   collective bytes.  The flash rows gain
    ``launches_by_path["sharded (phase 16)"]`` ((a)'s 3 steps and (b)).
    The card's name and power limit open the phase's summary line.
 
@@ -1721,7 +1733,9 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
                trace: pathlib.Path | None = None):
     """Phase 9: a dense model (llama3-8b's full width and depth) on the
     card: prefill, the kernel against its plain version on the path's own
-    inputs, prefill -> decode, the CPU route.  Returns (stats, flash row)."""
+    inputs, prefill -> decode, the CPU route.  Returns (stats, flash row,
+    the prefill's logits, the decode's tokens fed, logits and median step
+    s), the last two on the host for phase 16."""
     from repro_torch.models import build_model
     from repro_torch.models import transformer as T
 
@@ -1769,6 +1783,8 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
             dec_logits.append(out[:, 0])
             tok = out[:, -1].argmax(-1, keepdim=True)
         del dec
+        decoded = {"tokens": [t.cpu() for t in fed], "logits": [t.cpu() for t in dec_logits],
+                   "median_step_s": float(np.median(step_s[1:] or step_s))}
         profiled = profile_model(m, params, toks, dev, trace) if trace is not None else None
         ext = torch.cat([toks] + fed, dim=1)
         pos = torch.arange(length + steps, device=dev, dtype=torch.int32)[None].expand(batch, -1)
@@ -1807,7 +1823,7 @@ def model_path(ops, FA, cfg, batch: int, length: int, steps: int, seed: int, dev
     }
     if profiled is not None:
         stats["trace"] = profiled
-    return stats, row, logits.cpu()
+    return stats, row, logits.cpu(), decoded
 
 
 def run_main(serve, argv: list[str]) -> str:
@@ -3014,6 +3030,7 @@ def ep_prefill(ops, L, TS, get_config, build_model, mesh, seed: int, dev) -> tup
             ops.reset_launches()
             (logits, _), ep_s = sync_time(lambda: prefill(params, batch))
             launches = dict(ops.launches)
+            logits = logits.to_local()  # this rank's rows of the global batch: all of them
             dense = TS.make_prefill_step(build_model(cfg), None)
             (want, _), dense_s = sync_time(lambda: dense(params, batch))
     finally:
@@ -3434,9 +3451,11 @@ DENSE_ARCHS = ("qwen3-0.6b", "llama3-8b", "stablelm-12b", "command-r-35b")
 
 
 def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
-    """(c): ``tests/torch_tp_case.py``'s case (the config, worker and bounds
-    that ``tests/test_torch_tensor_parallel.py`` holds) on 4 gloo processes
-    for each kv case, against the one-device step on this host's CPU."""
+    """(c): ``tests/torch_tp_case.py``'s cases (the config, workers and
+    bounds that ``tests/test_torch_tensor_parallel.py`` and
+    ``tests/test_torch_decode_parallel.py`` hold) on 4 gloo processes for
+    each kv case, against one device on this host's CPU: the sharded train
+    steps and prefill, then the prefill and 6 sharded decode steps."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_tp_case as TPC
 
@@ -3444,7 +3463,10 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
     stats = {"ranks": 4, "mesh": {"data": 2, "model": 2}, "steps": TPC.STEPS, "config": TPC.TINY,
              "bounds": {"grad_rel": TPC.GRAD_REL, "param_rel": TPC.GRAD_REL,
                         "moved_rel": TPC.MOVED_REL, "loss_rel": TPC.LOSS_REL,
-                        "gnorm_rel": TPC.GNORM_REL["bfloat16"]}}
+                        "gnorm_rel": TPC.GNORM_REL["bfloat16"], "logits": TPC.LOGIT_TOL,
+                        "caches": TPC.CACHE_TOL},
+             "decode": {"prompt": TPC.PROMPT, "buffer": TPC.DECODE_LEN,
+                        "steps": TPC.DECODE_STEPS}}
     for kv in TP_KV:
         run = tmp / f"tp_kv{kv}"
         run.mkdir(parents=True)
@@ -3452,6 +3474,11 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
         check(g["within"], f"(c) kv {kv}: the sharded step off the one-device step: "
               + json.dumps({k: v for k, v in g.items() if k != "local_shapes"}))
         stats[f"kv {kv}"] = g
+        run = tmp / f"tp_decode_kv{kv}"
+        run.mkdir(parents=True)
+        g = TPC.decode_gaps(run, kv)
+        check(g["within"], f"(c) kv {kv}: the sharded decode off one device's: " + json.dumps(g))
+        stats[f"decode kv {kv}"] = g
     stats["wall_s"] = time.perf_counter() - t0
     return stats
 
@@ -3478,6 +3505,30 @@ def local_collectives():
             setattr(dist, n, fn)
 
 
+def traced_collectives(fn) -> dict:
+    """``fn()`` once under torch.profiler: its wall s, the collective calls
+    and their host ms (``record_param_comms``; ``c10d`` ops), the NCCL
+    kernels' and all device ms, and the host ms of the collectives'
+    autograd Functions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(fn)
+    ka = prof.key_averages()
+    comm = [e for e in ka if e.key == "record_param_comms"]
+    return {
+        "wall_s": wall,
+        "collective_calls": sum(e.count for e in comm),
+        "collective_host_ms": sum(e.cpu_time_total for e in comm) / 1e3,
+        "c10d_host_ms": sum(e.cpu_time_total for e in ka if e.key.startswith("c10d::")) / 1e3,
+        "nccl_device_ms": sum(e.self_device_time_total for e in ka
+                              if "nccl" in e.key.lower()) / 1e3,
+        "device_ms": sum(e.self_device_time_total for e in ka) / 1e3,
+        "functions_host_ms": {e.key: [e.count, e.cpu_time_total / 1e3] for e in ka
+                              if e.key.lstrip("_").split("Backward")[0]
+                              in ("Gather", "CopyTo", "ReduceFrom")}}
+
+
 def sharded_in_turns(TS, opt_mod, m, params, placed, pipe, mesh, dev) -> dict:
     """(a)'s timing, on one batch, each from its own state: the one-device
     step, the sharded step, and the sharded step under
@@ -3486,8 +3537,6 @@ def sharded_in_turns(TS, opt_mod, m, params, placed, pipe, mesh, dev) -> dict:
     one); every chain's losses equal.  Then one sharded step traced: its
     collective calls, their host time and their kernels' device time, and
     the host time of the collectives' autograd Functions."""
-    from torch.profiler import ProfilerActivity, profile
-
     b = train_batch(pipe, 0, dev)
     opt = opt_mod.AdamWConfig()
     steps = {"one_device": TS.make_train_step(m, None, opt),
@@ -3513,28 +3562,15 @@ def sharded_in_turns(TS, opt_mod, m, params, placed, pipe, mesh, dev) -> dict:
         for name in ("one_device", "sharded", "local_collectives", "local_collectives",
                      "sharded", "one_device"):
             times[name].append(run(name))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run("sharded")
+    traced = traced_collectives(lambda: run("sharded"))
     check(losses["sharded"][:-1] == losses["local_collectives"] == losses["one_device"],
           f"(a) the timed chains' losses differ: {losses}")
-    ka = prof.key_averages()
-    comm = [e for e in ka if e.key == "record_param_comms"]
     medians = {k: float(np.median(v)) for k, v in times.items()}
     return {
         "rounds": SHARDED_ROUNDS, "step_s": times, "median_step_s": medians,
         "sharded_over_one_device": medians["sharded"] / medians["one_device"],
         "control_over_one_device": medians["local_collectives"] / medians["one_device"],
-        "traced": {
-            "wall_s": wall,
-            "collective_calls": sum(e.count for e in comm),
-            "collective_host_ms": sum(e.cpu_time_total for e in comm) / 1e3,
-            "c10d_host_ms": sum(e.cpu_time_total for e in ka if e.key.startswith("c10d::")) / 1e3,
-            "nccl_device_ms": sum(e.self_device_time_total for e in ka
-                                  if "nccl" in e.key.lower()) / 1e3,
-            "device_ms": sum(e.self_device_time_total for e in ka) / 1e3,
-            "functions_host_ms": {e.key: [e.count, e.cpu_time_total / 1e3] for e in ka
-                                  if e.key.lstrip("_").split("Backward")[0]
-                                  in ("Gather", "CopyTo", "ReduceFrom")}}}
+        "traced": traced}
 
 
 def sharded_train(ops, TS, opt_mod, PP, place, m, params, pipe, mesh, one, dev) -> tuple:
@@ -3580,11 +3616,16 @@ def sharded_train(ops, TS, opt_mod, PP, place, m, params, pipe, mesh, one, dev) 
     return stats
 
 
-def sharded_prefill(ops, TS, PP, place, build_model, cfg, lm_logits, batch: int, length: int,
-                    seed: int, mesh, dev) -> dict:
+def sharded_serve(ops, TS, PP, place, build_model, cfg, lm_logits, lm_decoded, batch: int,
+                  length: int, seed: int, mesh, dev) -> tuple[dict, dict]:
     """(b): phase 9's prefill (the same seed, params and tokens) through the
     sharded ``make_prefill_step`` on ``mesh`` from params placed by
-    ``param_shardings``: logits bit-equal to phase 9's."""
+    ``param_shardings``: logits bit-equal to phase 9's.  (e): its caches
+    (``cache_specs``' pieces: all of them on one rank) grafted into decode
+    buffers of phase 9's length, then phase 9's decode steps (its tokens
+    fed) through the sharded ``make_decode_step``: each step's logits
+    bit-equal to phase 9's; the median step beside phase 9's, and one more
+    step traced (collective calls, their host ms)."""
     from repro_torch.training._tree import tree_map
 
     m = build_model(cfg)
@@ -3592,6 +3633,7 @@ def sharded_prefill(ops, TS, PP, place, build_model, cfg, lm_logits, batch: int,
     g = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (batch, length), generator=g, device=dev)
     placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, cfg, mesh))
+    del params
     step = TS.make_prefill_step(m, mesh)
     with torch.inference_mode():
         ops.reset_launches()
@@ -3603,22 +3645,48 @@ def sharded_prefill(ops, TS, PP, place, build_model, cfg, lm_logits, batch: int,
     pc = caches["groups"]["pos0"]["self"]
     check(tuple(pc.k.shape) == (cfg.n_layers, batch, length, cfg.n_kv_heads,
                                 cfg.resolved_head_dim), f"(b) caches {tuple(pc.k.shape)}")
+    logits = logits.to_local()
     equal = torch.equal(logits.cpu(), lm_logits)
     check(equal, "(b) the sharded prefill's logits differ from phase 9's, max |diff| "
           f"{float((logits.cpu().float() - lm_logits.float()).abs().max())}")
-    return {"arch": cfg.name, "batch": [batch, length], "mesh": {"data": 1, "model": 1},
-            "logits_equal_phase_9": equal, "prefill_s": prefill_s,
-            "launches": {k: v for k, v in launches.items() if v}}
+    b = {"arch": cfg.name, "batch": [batch, length], "mesh": {"data": 1, "model": 1},
+         "logits_equal_phase_9": equal, "prefill_s": prefill_s,
+         "launches": {k: v for k, v in launches.items() if v}}
+
+    steps = len(lm_decoded["tokens"])
+    decode = TS.make_decode_step(m, mesh)
+    with torch.inference_mode():
+        dec = m.make_decode_caches(batch, length + steps, device=dev)
+        dc = dec["groups"]["pos0"]["self"]
+        for f in ("k", "v", "kpos"):
+            getattr(dc, f)[:, :, :length] = getattr(pc, f).to_local()
+        del caches, pc
+        equal_steps, step_s = 0, []
+        for i, (tok, want) in enumerate(zip(lm_decoded["tokens"], lm_decoded["logits"])):
+            (out, dec), dt = sync_time(lambda: decode(placed, tok.to(dev), dec, length + i))
+            step_s.append(dt)
+            equal_steps += torch.equal(out.to_local()[:, 0].cpu(), want)
+        traced = traced_collectives(lambda: decode(placed, tok.to(dev), dec, length + steps - 1))
+    check(equal_steps == steps, f"(e) {steps - equal_steps} of {steps} sharded decode steps' "
+          "logits differ from phase 9's")
+    median = float(np.median(step_s[1:] or step_s))
+    e = {"arch": cfg.name, "batch": batch, "prompt_len": length, "steps": steps,
+         "mesh": {"data": 1, "model": 1}, "steps_equal_phase_9": equal_steps,
+         "step_s": step_s, "median_step_s": median,
+         "phase_9_median_step_s": lm_decoded["median_step_s"],
+         "over_phase_9": median / lm_decoded["median_step_s"], "traced_step": traced}
+    del placed, dec
+    return b, e
 
 
 def dense_dryrun_cells(dry: dict) -> dict:
-    """(d): the dense family's train_4k and prefill_32k cells on 16x16 from
-    phase 15 (a)'s sweep (meta tensors, the host's CPU): per-rank
-    arguments, temporaries, fit and collective bytes."""
+    """(d): the dense family's train_4k, prefill_32k and decode_32k cells on
+    16x16 from phase 15 (a)'s sweep (meta tensors, the host's CPU):
+    per-rank arguments, temporaries, fit and collective bytes."""
     cells = dry["single-pod"]["cell"]
     out = {}
     for arch in DENSE_ARCHS:
-        for shape in ("train_4k", "prefill_32k"):
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
             c = cells[f"{arch}__{shape}__16x16"]
             out[f"{arch} {shape}"] = {
                 "argument_gib": c["argument_bytes"] / 2**30, "temp_gib": c["temp_bytes"] / 2**30,
@@ -3626,10 +3694,11 @@ def dense_dryrun_cells(dry: dict) -> dict:
     return out
 
 
-def sharded_path(ops, get_config, one: dict, lm_logits, dry: dict, lm_batch: int, lm_len: int,
-                 seed: int, dev) -> tuple[dict, dict]:
-    """Phase 16: (a) and (b) on the card, then (c) on the host's CPU, (d).
-    Returns the stats and the launches of (a) and (b)'s flash kernels."""
+def sharded_path(ops, get_config, one: dict, lm_logits, lm_decoded: dict, dry: dict,
+                 lm_batch: int, lm_len: int, seed: int, dev) -> tuple[dict, dict]:
+    """Phase 16: (a), (b) and (e) on the card, then (c) on the host's CPU,
+    (d).  Returns the stats and the launches of (a) and (b)'s flash
+    kernels."""
     import gc
 
     import torch.distributed as dist
@@ -3659,11 +3728,12 @@ def sharded_path(ops, get_config, one: dict, lm_logits, dry: dict, lm_batch: int
             del params
             gc.collect()
             torch.cuda.empty_cache()
-            stats["b"], b_s = sync_time(lambda: sharded_prefill(
-                ops, TS, PP, place, build_model, get_config(LM_ARCH), lm_logits, lm_batch,
-                lm_len, seed, mesh, dev))
-            stats["b"]["phase_s"] = b_s
+            (stats["b"], stats["e"]), be_s = sync_time(lambda: sharded_serve(
+                ops, TS, PP, place, build_model, get_config(LM_ARCH), lm_logits, lm_decoded,
+                lm_batch, lm_len, seed, mesh, dev))
+            stats["e"]["phase_s"] = be_s
             print("sharded (b) prefill: " + json.dumps(stats["b"]), flush=True)
+            print("sharded (e) decode: " + json.dumps(stats["e"]), flush=True)
             gc.collect()
             torch.cuda.empty_cache()
         finally:
@@ -3787,9 +3857,9 @@ def main() -> None:
 
     # phase 9: llama3-8b at full width and depth: prefill through the flash
     # kernel, decode after prefill, the CPU route, then serve --mode model
-    lm, flash_row, lm_logits = model_path(ops, FA, get_config(LM_ARCH), args.lm_batch,
-                                          args.lm_len,
-                               args.lm_decode, args.seed, dev, args.trace)
+    lm, flash_row, lm_logits, lm_decoded = model_path(ops, FA, get_config(LM_ARCH),
+                                                      args.lm_batch, args.lm_len, args.lm_decode,
+                                                      args.seed, dev, args.trace)
     rows.append(flash_row)
     print("model: " + json.dumps(lm), flush=True)
     torch.cuda.empty_cache()
@@ -3868,9 +3938,9 @@ def main() -> None:
     # phase 16: sharded state and tensor parallelism (the sharded train step
     # and prefill on a one-rank NCCL mesh, 4 gloo ranks, the dense dry-run cells)
     (_, tp_launches), phase_s = sync_time(lambda: sharded_path(
-        ops, get_config, par_one, lm_logits, dry_stats["a"], args.lm_batch, args.lm_len,
-        args.seed, dev))
-    del par_one
+        ops, get_config, par_one, lm_logits, lm_decoded, dry_stats["a"], args.lm_batch,
+        args.lm_len, args.seed, dev))
+    del par_one, lm_decoded
     print(f"{smi}: sharded state and tensor parallelism: {phase_s:.3f} s, launches "
           + json.dumps(tp_launches), flush=True)
     for row in rows:

@@ -18,17 +18,21 @@ The params and the AdamW moments are DTensors placed by
 ``param_shardings``, and every step holds only this rank's shards of them
 (``training.train_step``): ``memory.argument_bytes`` is the sum of the
 local shards' bytes (params, moments and the step count for a train step)
-plus this rank's batch, and ``memory.temp_bytes`` the peak of the bytes
-the step's own ops held (``StepCost.peak_live_bytes``: a block's gathered
-leaves, activations, gradients and the new state); ``fits`` says whether
-the two together fit one card (``arguments_fit`` whether the arguments
-alone do).  A train step slices the global batch itself; a prefill or
-decode step is given this rank's slice (the global batch over the
-``("pod", "data")`` ranks where it divides, else the whole batch, as the
-reference's ``batch_specs`` replicates it) and caches of the whole
-sequence.  The collectives are the step's own: the blocks' gathers and
-reduce-scatters, the dense family's tensor-parallel all-reduces, the
-gradients' and metrics' mean and the norm.  The sharded train step runs
+plus this rank's batch (and, for a decode, its pieces of the caches), and
+``memory.temp_bytes`` the peak of the bytes the step's own ops held
+(``StepCost.peak_live_bytes``: a block's gathered leaves, activations,
+gradients and the new state); ``fits`` says whether the two together fit
+one card (``arguments_fit`` whether the arguments alone do).  Every step
+is given the global batch (``Model.input_specs(shape)``) and slices its
+rows itself (the global batch over the ``("pod", "data")`` ranks where it
+divides, else the whole batch, as the reference's ``batch_specs``
+replicates it); this rank's rows are its batch bytes.  A decode's caches
+are DTensors placed by ``cache_specs`` (batch over the batch axes, the
+sequence over ``"model"``), so it holds S/16 of each cache.  The
+collectives are the step's own: the blocks' gathers and reduce-scatters,
+the dense family's tensor-parallel all-reduces, a decode's gathers of its
+query heads and merges of the ranks' partial softmaxes, the gradients'
+and metrics' mean and the norm.  The sharded train step runs
 the MoE's dense dispatch, so an ``moe_ep`` config trains with it
 (``notes`` says so); its prefill and decode take the expert-parallel
 route.  Decode writes cache position ``seq_len - 1``.
@@ -60,14 +64,15 @@ import torch.distributed as dist
 from ..configs import ARCHS, SHAPES, cells_for, get_config
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import build_model
+from ..parallel.collectives import Shards
 from ..parallel.partition import param_shardings, param_specs
 from ..parallel.sharding import place
 from ..training._tree import tree_map
 from ..training.grad_compress import (GradCompressConfig, compression_wire_bytes,
                                       make_crosspod_exchange)
 from ..training.optimizer import adamw_init
-from ..training.train_step import (make_decode_step, make_ef_state, make_prefill_step,
-                                   make_train_step)
+from ..training.train_step import (cache_specs, make_decode_step, make_ef_state,
+                                   make_prefill_step, make_train_step)
 from .cost_analysis import analyze_step, tensor_bytes
 from .mesh import HW, make_production_mesh
 
@@ -163,6 +168,16 @@ def _placed(params, cfg: ModelConfig, mesh):
     return tree_map(lambda p, s: place(p, *s), params, sh)
 
 
+def _placed_caches(caches, cfg: ModelConfig, mesh):
+    """Decode caches (meta tensors, whole) as DTensors placed by
+    ``cache_specs`` over the batch axes: each leaf this rank's meta
+    piece."""
+    sh = Shards(mesh, cfg)
+    specs = cache_specs(caches, mesh, tuple(a for a in ("pod", "data")
+                                            if a in mesh.mesh_dim_names))
+    return sh.wrap(sh.local(caches, specs), specs, caches)
+
+
 def run_cell(
     arch: str,
     shape_name: str,
@@ -208,16 +223,18 @@ def run_cell(
             arg_bytes = (tensor_bytes(params) + tensor_bytes(opt)
                          + tensor_bytes(batch) * rows // shape.global_batch)
         elif shape.kind == "prefill":
-            batch = model.input_specs(shape, per_device_batch=rows)
+            batch = model.input_specs(shape)
             with torch.no_grad():
                 out, cost = analyze_step(make_prefill_step(model, mesh), params, batch)
-            arg_bytes = tensor_bytes(params) + tensor_bytes(batch)
+            arg_bytes = tensor_bytes(params) + tensor_bytes(batch) * rows // shape.global_batch
         else:
-            specs = model.input_specs(shape, per_device_batch=rows)
+            specs = model.input_specs(shape)
+            caches = _placed_caches(specs["caches"], cfg, mesh)
             with torch.no_grad():
                 out, cost = analyze_step(make_decode_step(model, mesh), params, specs["tokens"],
-                                         specs["caches"], shape.seq_len - 1)
-            arg_bytes = tensor_bytes(params) + tensor_bytes(specs)
+                                         caches, shape.seq_len - 1)
+            arg_bytes = (tensor_bytes(params) + tensor_bytes(caches) + tensor_bytes(
+                specs["cache_index"]) + tensor_bytes(specs["tokens"]) * rows // shape.global_batch)
             out = out[0]  # the caches are written in place
     trace_s = time.time() - t0
     temp = cost.peak_live_bytes

@@ -39,7 +39,12 @@ sharded step's rules (``AxisRules.shards``) that map ``heads`` and ``ffn``
 to ``"model"`` (the dense family), attention runs on this rank's heads and
 the MLP on its slice of ``d_ff``, Megatron-LM's way: a column-split
 product behind ``copy_to``, a row-split one before ``reduce_from``
-(``parallel.collectives``).  The
+(``parallel.collectives``); decode does the same on its one token.
+Decode caches in ``cache_specs``' layout hold this rank's piece of the
+sequence (a ``Piece``): each rank attends over its piece and the ranks'
+partial softmaxes merge over ``"model"`` (flash-decoding), and the
+recurrent and WKV states, split by width or heads, are gathered whole for
+the step.  The
 RG-LRU scan is ``lax.associative_scan``'s recursion (pair neighbours, scan
 the pairs, fill in the even elements), so its products and sums are the
 reference's, bit for bit.  Decode writes recurrent and RWKV states in
@@ -57,7 +62,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.collectives import all_gather_dim, copy_to, reduce_from
+from ..parallel.collectives import Piece, all_gather_dim, copy_to, merge_partials, reduce_from
 from ..parallel.sharding import current_rules, mesh_axes
 
 __all__ = [
@@ -222,6 +227,44 @@ def _sdpa(
     return torch.cat(outs, dim=1)
 
 
+def _partial_softmax(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(m, l, e) of float32 scores ``s`` over its last axis, this rank's
+    keys only: the row max, the row sum of e and e = exp(s - m), the
+    probabilities not yet normalised (:func:`merge_partials` combines the
+    ranks' m, l and e @ v)."""
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e.sum(dim=-1, keepdim=True), e
+
+
+def _sdpa_partials(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k: torch.Tensor,  # [B, Sk, KV, D], this rank's piece of the sequence
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],  # [B, 1, 1, Sk] additive or None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_sdpa``'s one-token route over a piece of the keys, as partials for
+    the merge: the float32 row max and sum [B, 1, H, 1] and the output of
+    the unnormalised probabilities [B, 1, H, D], ``p @ v`` in float32 (the
+    partials stay unrounded until the merge has normalised them, where
+    ``_sdpa`` rounds its probabilities and its output to q's dtype).
+    Grouped by kv head with no repeat, for any number of query heads a kv
+    head."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)
+    s = torch.einsum("bckrd,bskd->bkrcs", qg, k).float() * d**-0.5
+    if mask is not None:
+        s = s + mask[:, None]
+    m, l, e = _partial_softmax(s)
+    o = torch.einsum("bkrcs,bskd->bckrd", e, v.float()).reshape(b, sq, h, d)
+
+    def rows(t):  # [B, KV, rep, C, 1] -> [B, C, H, 1]
+        return t.permute(0, 3, 1, 2, 4).reshape(b, sq, h, 1)
+
+    return rows(m), rows(l), o
+
+
 def _causal_mask(sq: int, sk: int, device=None) -> torch.Tensor:
     """Additive float32 mask [1, 1, Sq, Sk]: 0 where kpos <= qpos, else -1e30."""
     qpos = torch.arange(sq, device=device)[:, None]
@@ -236,18 +279,24 @@ def _local_mask(sq: int, sk: int, window: int, device=None) -> torch.Tensor:
     return torch.where(ok, 0.0, _NEG)[None, None]
 
 
-def _write_step(buf: torch.Tensor, new: torch.Tensor, slot: int, masked: bool) -> None:
+def _write_step(buf: torch.Tensor, new: torch.Tensor, slot: int, masked: bool,
+                piece: Optional[Piece] = None) -> None:
     """Write one step ``new`` [B, 1, ...] into ``buf`` [B, S_buf, ...] at
     ``slot``, in place: a one-hot masked select (a slot past the buffer
     writes nothing) or ``dynamic_update_slice``'s write, which clamps the
-    slot into the buffer."""
+    slot into the buffer.  ``buf`` may be this rank's ``piece`` of the
+    buffer along its sequence: ``slot`` is global, clamped into the whole
+    buffer first, and written only where it falls in the piece."""
     n = buf.shape[1]
+    first, total = (0, n) if piece is None else (piece.first, piece.total)
     if masked:
-        oh = (torch.arange(n, device=buf.device) == slot).reshape((1, n) + (1,) * (buf.ndim - 2))
+        oh = (torch.arange(first, first + n, device=buf.device) == slot).reshape(
+            (1, n) + (1,) * (buf.ndim - 2))
         buf.copy_(torch.where(oh, new.to(buf.dtype), buf))
     else:
-        slot = min(max(slot, 0), n - 1)
-        buf[:, slot : slot + 1] = new.to(buf.dtype)
+        slot = min(max(slot, 0), total - 1) - first
+        if 0 <= slot < n:
+            buf[:, slot : slot + 1] = new.to(buf.dtype)
 
 
 def _tp_shards(logical: str):
@@ -261,17 +310,18 @@ def _tp_shards(logical: str):
 
 
 def _tp_kv_weights(p: Params, cfg: ModelConfig, sh, hl: int, kv_split: bool,
-                   prefill: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
+                   cached: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
     """(wk, wv, first) for this rank's ``hl`` query heads: ``wk`` and ``wv``
     as the block gathered them (this rank's kv heads where the rules split
     ``kv_heads`` over ``"model"``, else all of them), cut to the kv heads
-    that the local query heads read unless a prefill caches them all;
-    ``first`` is the global index of their first kv head."""
+    that the local query heads read unless a prefill or decode caches them
+    all (``cached``); ``first`` is the global index of their first kv
+    head."""
     hd, rep, r = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads, sh.index["model"]
     if kv_split:
         return p["wk"], p["wv"], r * (cfg.n_kv_heads // sh.sizes["model"])
     first, last = (r * hl) // rep, (r * hl + hl - 1) // rep
-    if prefill or (first, last + 1) == (0, cfg.n_kv_heads):
+    if cached or (first, last + 1) == (0, cfg.n_kv_heads):
         return p["wk"], p["wv"], 0
     return p["wk"][:, first * hd:(last + 1) * hd], p["wv"][:, first * hd:(last + 1) * hd], first
 
@@ -304,6 +354,7 @@ def attention_apply(
     cache_index: Optional[int] = None,
     kv_source: Optional[torch.Tensor] = None,  # cross-attention context
     window: int = 0,
+    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[AttnCache]]:
     """Returns (out [B, S, D] in x's dtype, cache).  ``"decode"`` writes the
     step's K, V and position into ``cache`` in place at ``cache_index``
@@ -311,14 +362,23 @@ def attention_apply(
     buffer wraps) and returns it; ``"prefill"`` returns a new cache.
 
     Under rules that split ``heads`` over ``"model"`` on sharded params,
-    train and prefill self-attention run on this rank's query heads:
-    ``wq`` column-split behind ``copy_to``; ``wk`` and ``wv`` column-split
-    where the rules split ``kv_heads`` too, else whole (the block gathered
-    them) and read for the kv heads that the local query heads need;
-    ``q_norm`` and ``k_norm`` replicated on local heads (their gradients sum
-    over ``"model"``); ``wo`` row-split, then ``reduce_from``.  A prefill
-    caches every kv head."""
-    sh = _tp_shards("heads") if kv_source is None and mode in ("train", "prefill") else None
+    self-attention runs on this rank's query heads: ``wq`` column-split
+    behind ``copy_to``; ``wk`` and ``wv`` column-split where the rules split
+    ``kv_heads`` too, else whole (the block gathered them) and read for the
+    kv heads that the local query heads need; ``q_norm`` and ``k_norm``
+    replicated on local heads (their gradients sum over ``"model"``); ``wo``
+    row-split, then ``reduce_from``.  A prefill or decode caches every kv
+    head (gathered over ``"model"`` where the rules split them).
+
+    ``piece``: the decode caches are this rank's piece of the sequence
+    (``parallel.collectives.Piece``, from ``cache_specs``' layout).  The
+    step's slot is written where it falls in the piece (a local ring wraps
+    modulo the whole buffer), every query head attends over the piece (the
+    local heads gathered over ``"model"`` first), and the ranks' partial
+    softmaxes merge (``merge_partials``) before this rank's heads go on to
+    ``wo``.  None: the whole sequence is here, and attention runs as on one
+    device."""
+    sh = _tp_shards("heads") if kv_source is None and mode != "decode_cross" else None
     group = None if sh is None else sh.groups["model"]
     kv_split = sh is not None and current_rules().resolve("kv_heads") == "model"
     b, s, _ = x.shape
@@ -339,7 +399,7 @@ def attention_apply(
         sk_in = src.shape[1]
         wk, wv = p["wk"], p["wv"]
         if sh is not None:
-            wk, wv, first = _tp_kv_weights(p, cfg, sh, hl, kv_split, mode == "prefill")
+            wk, wv, first = _tp_kv_weights(p, cfg, sh, hl, kv_split, mode != "train")
         nk = wk.shape[-1] // hd
         k = (src @ wk.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
         v = (src @ wv.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
@@ -361,20 +421,19 @@ def attention_apply(
         if kv_split:
             ck, cv = (all_gather_dim(t, 2, group, sh.sizes["model"]) for t in (k, v))
         new_cache = AttnCache(k=ck.to(COMPUTE_DTYPE), v=cv.to(COMPUTE_DTYPE), kpos=kpos)
-    if sh is not None:
-        k, v = _kv_for_heads(k, v, sh.index["model"] * hl, hl, cfg.n_heads // cfg.n_kv_heads,
-                             first)
     mask = None
     flash = False
     if mode == "decode" and not is_cross:
         assert cache is not None and cache_index is not None
+        if kv_split:  # the cache holds every kv head
+            k, v = (all_gather_dim(t, 2, group, sh.sizes["model"]) for t in (k, v))
         slot = int(cache_index)
         if mask_kind == "local":
-            slot %= cache.k.shape[1]
+            slot %= cache.k.shape[1] if piece is None else piece.total
         for buf_t, new_t in ((cache.k, k), (cache.v, v), (cache.kpos, positions)):
-            _write_step(buf_t, new_t, slot, cfg.masked_cache_update)
+            _write_step(buf_t, new_t, slot, cfg.masked_cache_update, piece)
         new_cache = cache
-        k, v = cache.k.to(COMPUTE_DTYPE), cache.v.to(COMPUTE_DTYPE)
+        k, v, first = cache.k.to(COMPUTE_DTYPE), cache.v.to(COMPUTE_DTYPE), 0
         qpos = positions[:, :, None]  # [B, 1, 1]
         kp = cache.kpos[:, None, :]  # [B, 1, S_buf]
         ok = (kp >= 0) & (kp <= qpos)
@@ -392,10 +451,19 @@ def attention_apply(
     else:
         flash = True  # causal self-attention over the whole sequence
 
-    if flash:
-        y = ops.flash_attention(q, k, v, causal=True)
+    if piece is not None:  # every head over this rank's keys, merged over "model"
+        qa = q if sh is None else all_gather_dim(q, 2, group, sh.sizes["model"])
+        y = merge_partials(*_sdpa_partials(qa, k, v, mask), piece.group, q.dtype)
+        if sh is not None:
+            y = y[:, :, sh.index["model"] * hl:(sh.index["model"] + 1) * hl]
     else:
-        y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
+        if sh is not None:
+            k, v = _kv_for_heads(k, v, sh.index["model"] * hl, hl,
+                                 cfg.n_heads // cfg.n_kv_heads, first)
+        if flash:
+            y = ops.flash_attention(q, k, v, causal=True)
+        else:
+            y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
     out = reduce_from(y.reshape(b, s, hl * hd) @ p["wo"].to(COMPUTE_DTYPE), group)
     return out.to(x.dtype), new_cache
 
@@ -424,6 +492,7 @@ def mla_apply(
     mode: str,  # "train" | "prefill" | "decode"
     cache: Optional[MLACache] = None,
     cache_index: Optional[int] = None,
+    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[MLACache]]:
     """Multi-head latent attention.  ``"decode"`` writes the step's latent,
     rope key and position into ``cache`` in place and attends in the latent
@@ -431,7 +500,11 @@ def mla_apply(
     W_vup); train and prefill expand K and V per head and run causal
     self-attention at head dim nope + rope (the flash kernel, V padded to
     that width; ``_sdpa`` under ``attn_softmax_bf16``, with the float32
-    softmax the reference's MLA always takes)."""
+    softmax the reference's MLA always takes).  With a ``piece`` the decode
+    cache is this rank's piece of the sequence: the slot is written where
+    it falls, and the ranks' partial softmaxes over their latents merge
+    (``merge_partials``, ``ctx_lat`` the partial output) before the W_vup
+    expansion; every head runs on every rank."""
     b, s, _ = x.shape
     h = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -448,7 +521,7 @@ def mla_apply(
         assert cache is not None and cache_index is not None
         for buf_t, new_t in ((cache.c_kv, c_kv), (cache.k_rope, k_rope_new),
                              (cache.kpos, positions)):
-            _write_step(buf_t, new_t, int(cache_index), cfg.masked_cache_update)
+            _write_step(buf_t, new_t, int(cache_index), cfg.masked_cache_update, piece)
         new_cache = cache
         ck, cr = cache.c_kv.to(COMPUTE_DTYPE), cache.k_rope.to(COMPUTE_DTYPE)
         w_kup = p["w_kup"].to(COMPUTE_DTYPE).reshape(-1, h, nd)  # [lora, H, nd]
@@ -459,8 +532,13 @@ def mla_apply(
         kp = cache.kpos[:, None, None, :]  # [B, 1, 1, Sk]
         qp = positions[:, None, :, None]  # [B, 1, Sq, 1]
         scores = torch.where((kp >= 0) & (kp <= qp), scores, _NEG)
-        probs = _softmax(scores).to(COMPUTE_DTYPE)
-        ctx_lat = torch.einsum("bhsk,bkl->bshl", probs, ck)
+        if piece is None:
+            probs = _softmax(scores).to(COMPUTE_DTYPE)
+            ctx_lat = torch.einsum("bhsk,bkl->bshl", probs, ck)
+        else:
+            m, l, e = (t.transpose(1, 2) for t in _partial_softmax(scores))  # [B, 1, H, .]
+            o = torch.einsum("bshk,bkl->bshl", e, ck.float())
+            ctx_lat = merge_partials(m, l, o, piece.group, COMPUTE_DTYPE)
         w_vup = p["w_vup"].to(COMPUTE_DTYPE).reshape(-1, h, vd)
         ctx = torch.einsum("bshl,lhv->bshv", ctx_lat, w_vup)
     else:
@@ -720,6 +798,19 @@ class RecState:
     conv: torch.Tensor
 
 
+def _whole_state(t: torch.Tensor, dim: int, piece: Optional[Piece]) -> torch.Tensor:
+    """A decode state whole: ``t`` itself, or this rank's ``piece`` of it
+    along ``dim`` gathered over ``"model"``."""
+    return t if piece is None else all_gather_dim(t, dim, piece.group, piece.n)
+
+
+def _keep_piece(state: torch.Tensor, new: torch.Tensor, dim: int,
+                piece: Optional[Piece]) -> None:
+    """Write the whole new state ``new`` into ``state`` in place: all of it,
+    or this rank's ``piece`` of it along ``dim``."""
+    state.copy_(new if piece is None else new.narrow(dim, piece.first, piece.size))
+
+
 def _associative_scan(combine, elems: tuple, dim: int) -> tuple:
     """``jax.lax.associative_scan`` over ``dim`` (>= 0), by its recursion:
     combine neighbour pairs, scan the reduced sequence, then combine each
@@ -782,11 +873,16 @@ def rglru_apply(
     *,
     mode: str,
     state: Optional[RecState] = None,
+    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[RecState]]:
     """The recurrent block: a gelu gate branch, a short causal depthwise
     conv and the RG-LRU on the input branch.  ``"decode"`` (one token)
     writes the new h and conv tail into ``state`` in place and returns it;
-    ``"prefill"`` returns a new state, ``"train"`` none."""
+    ``"prefill"`` returns a new state, ``"train"`` none.  With a ``piece``
+    the decode state is this rank's piece of the width: it is gathered
+    whole over ``"model"`` before the step and this rank keeps its piece
+    of the new one (the block's compute is not split yet; splitting it
+    over ``"model"`` removes these gathers)."""
     b, s, _ = x.shape
     w = cfg.lru_width or cfg.d_model
     xc = x.to(COMPUTE_DTYPE)
@@ -796,11 +892,12 @@ def rglru_apply(
     conv = p["conv"].to(COMPUTE_DTYPE)
     if mode == "decode":
         assert state is not None
-        hist = torch.cat([state.conv.to(COMPUTE_DTYPE), u], dim=1)  # [B, cw, W]
+        h0, tail = (_whole_state(t, -1, piece) for t in (state.h, state.conv))
+        hist = torch.cat([tail.to(COMPUTE_DTYPE), u], dim=1)  # [B, cw, W]
         conv_out = torch.einsum("bcw,cw->bw", hist, conv)[:, None, :]
-        y_core, h_fin = _rglru_core(conv_out, p, state.h)
-        state.h.copy_(h_fin)
-        state.conv.copy_(hist[:, 1:, :])
+        y_core, h_fin = _rglru_core(conv_out, p, h0)
+        _keep_piece(state.h, h_fin, -1, piece)
+        _keep_piece(state.conv, hist[:, 1:, :], -1, piece)
         new_state = state
     else:
         up = torch.cat([torch.zeros((b, cw - 1, w), dtype=COMPUTE_DTYPE, device=x.device), u],
@@ -901,12 +998,17 @@ def rwkv_apply(
     *,
     mode: str,
     state: Optional[RwkvState] = None,
+    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[RwkvState]]:
     """RWKV6 (Finch) block: time-mix with a data-dependent decay, then
     channel-mix.  The WKV runs chunked when ``cfg.rwkv_chunked`` divides S
     and S is at least two chunks, else step by step (decode's one token).
     ``"decode"`` writes the new state into ``state`` in place and returns
-    it; ``"prefill"`` returns a new state, ``"train"`` none."""
+    it; ``"prefill"`` returns a new state, ``"train"`` none.  With a
+    ``piece`` the decode WKV state is this rank's piece of the heads: it is
+    gathered whole over ``"model"`` before the step and this rank keeps its
+    piece of the new one (splitting the block's compute over ``"model"``
+    removes the gather)."""
     b, s, d = x.shape
     hk = cfg.rwkv_head_dim
     h = d // hk
@@ -929,7 +1031,7 @@ def rwkv_apply(
     decay = torch.exp(-torch.exp(torch.clamp(
         p["decay_base"].float().reshape(1, 1, d) + dd.float(), -20.0, 2.0))).reshape(b, s, h, hk)
     u = p["bonus_u"].float()  # [H, K]
-    s0 = state.wkv.float() if state is not None else torch.zeros(
+    s0 = _whole_state(state.wkv, 1, piece).float() if state is not None else torch.zeros(
         (b, h, hk, hk), dtype=torch.float32, device=x.device)
 
     chunk = cfg.rwkv_chunked
@@ -960,7 +1062,7 @@ def rwkv_apply(
     new_state = None
     if mode == "decode":
         assert state is not None
-        state.wkv.copy_(s_fin)
+        _keep_piece(state.wkv, s_fin, 1, piece)
         state.shift_t.copy_(xc[:, -1, :])
         state.shift_c.copy_(xa[:, -1, :])
         new_state = state

@@ -120,15 +120,17 @@ class Model:
         return T.whole_vocab(T.logits_from(params, x[:, -1:, :], cfg)), caches
 
     def decode_step(self, params: Params, tokens: torch.Tensor, caches: dict,
-                    cache_index: int) -> tuple[torch.Tensor, dict]:
+                    cache_index: int, pieces=None) -> tuple[torch.Tensor, dict]:
         """One token (tokens [B, 1]) against the caches at position
-        ``cache_index``; the caches are written in place and returned."""
+        ``cache_index``; the caches are written in place and returned.
+        ``pieces`` (a decode step on a mesh): the caches are this rank's
+        pieces, placed as ``Shards.cache_pieces`` says."""
         cfg = self.cfg
         b = tokens.shape[0]
         x = T.embed_tokens(params, tokens, cfg)
         positions = torch.full((b, 1), int(cache_index), dtype=torch.int32, device=tokens.device)
         x, caches, _ = T.apply_stack(params, x, cfg, mode="decode", positions=positions,
-                                     caches=caches, cache_index=cache_index)
+                                     caches=caches, cache_index=cache_index, pieces=pieces)
         return T.whole_vocab(T.logits_from(params, x, cfg)), caches
 
     def make_decode_caches(self, batch: int, max_seq: int, device=None) -> dict:

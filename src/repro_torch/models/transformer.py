@@ -141,26 +141,31 @@ def block_apply(
     cache_index: Optional[int] = None,
     cross_source: Optional[torch.Tensor] = None,
     encoder: bool = False,
+    piece: Optional[dict] = None,
 ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The mixer (attention, MLA, RG-LRU or RWKV; a cross layer also
     cross-attends to ``cross_source``) then the FFN (MLP or MoE), each
     behind an RMSNorm and a residual.  Returns (x, new cache dict or None,
     the float32 MoE aux loss).  Under a sharded step's rules ``p`` is this
-    rank's shard of the block (:func:`_gather_block`)."""
+    rank's shard of the block (:func:`_gather_block`).  ``piece``: where a
+    decode's caches are this rank's pieces, each cache's
+    ``parallel.collectives.Piece`` (or None) under the cache dict's keys."""
     p = _gather_block(p, cfg)
+    piece = piece or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "local", "cross"):
         if cfg.mla and not encoder:
             y, c = mla_apply(p["attn"], h, cfg, positions=positions, mode=mode,
-                             cache=cache.get("self") if cache else None, cache_index=cache_index)
+                             cache=cache.get("self") if cache else None, cache_index=cache_index,
+                             piece=piece.get("self"))
         else:
             y, c = attention_apply(
                 p["attn"], h, cfg, positions=positions, mode=mode,
                 mask_kind="none" if encoder else ("local" if kind == "local" else "causal"),
                 cache=cache.get("self") if cache else None, cache_index=cache_index,
-                window=cfg.local_window,
+                window=cfg.local_window, piece=piece.get("self"),
             )
         if c is not None:
             new_cache["self"] = c
@@ -169,7 +174,8 @@ def block_apply(
             hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
             if mode == "decode":
                 yc, _ = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
-                                        mode="decode_cross", cache=cache.get("cross"))
+                                        mode="decode_cross", cache=cache.get("cross"),
+                                        piece=piece.get("cross"))
                 new_cache["cross"] = cache["cross"]
             else:
                 yc, cc = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
@@ -178,13 +184,14 @@ def block_apply(
                     new_cache["cross"] = cc
             x = x + yc
     elif kind == "rec":
-        y, st = rglru_apply(p["rec"], h, cfg, mode=mode, state=cache.get("rec") if cache else None)
+        y, st = rglru_apply(p["rec"], h, cfg, mode=mode, state=cache.get("rec") if cache else None,
+                            piece=piece.get("rec"))
         if st is not None:
             new_cache["rec"] = st
         x = x + y
     elif kind == "rwkv":
         y, st = rwkv_apply(p["rwkv"], h, cfg, mode=mode,
-                           state=cache.get("rwkv") if cache else None)
+                           state=cache.get("rwkv") if cache else None, piece=piece.get("rwkv"))
         if st is not None:
             new_cache["rwkv"] = st
         return x + y, (new_cache or None), aux
@@ -451,23 +458,31 @@ def apply_stack(
     caches: Optional[dict] = None,
     cache_index: Optional[int] = None,
     cross_source: Optional[torch.Tensor] = None,
+    pieces: Optional[dict] = None,
 ):
     """Run the prefix blocks, the stacked groups (a loop over the group
     axis, each group's positions in order) and the tail.  Returns (x,
     caches, aux): prefill emits new caches, decode the given ones written
-    in place, train None; aux is the float32 sum of the MoE aux losses."""
+    in place, train None; aux is the float32 sum of the MoE aux losses.
+    ``pieces`` (decode on a mesh): the tree of
+    ``parallel.collectives.Shards.cache_pieces``, which hands each block
+    where its caches' pieces sit (one entry a stack, for all its groups)."""
     _stacked_only(cfg)
     group = cfg.block_group
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(p, kind, cache):
+    def run(p, kind, cache, piece=None):
         nonlocal x, aux_total
         x, nc, aux = block_apply(p, x, cfg, kind, mode=mode, positions=positions, cache=cache,
-                                 cache_index=cache_index, cross_source=cross_source)
+                                 cache_index=cache_index, cross_source=cross_source, piece=piece)
         aux_total = aux_total + aux
         return nc
 
-    new_prefix = [run(pp, _block_kind(cfg, i), caches["prefix"][i] if caches else None)
+    def piece_at(part, i):
+        return None if pieces is None else pieces[part][i]
+
+    new_prefix = [run(pp, _block_kind(cfg, i), caches["prefix"][i] if caches else None,
+                      piece_at("prefix", i))
                   for i, pp in enumerate(params["prefix"])]
     new_groups: dict = {}
     if "groups" in params and mode == "train":
@@ -483,14 +498,16 @@ def apply_stack(
         for g in range(n_groups):
             for p, kind in enumerate(group):
                 gc = _at(caches["groups"][f"pos{p}"], g) if caches is not None else None
-                nc = run(_at(params["groups"][f"pos{p}"], g), kind, gc)
+                nc = run(_at(params["groups"][f"pos{p}"], g), kind, gc,
+                         piece_at("groups", f"pos{p}"))
                 if mode == "prefill" and nc is not None:
                     emitted[f"pos{p}"].append(nc)
         if mode == "prefill":
             new_groups = {k: _stack(v) for k, v in emitted.items() if v}
         elif mode == "decode":
             new_groups = caches["groups"]
-    new_tail = [run(tp, _block_kind(cfg, i), caches["tail"][i] if caches else None)
+    new_tail = [run(tp, _block_kind(cfg, i), caches["tail"][i] if caches else None,
+                    piece_at("tail", i))
                 for i, tp in enumerate(params["tail"])]
     out = None
     if mode in ("prefill", "decode"):

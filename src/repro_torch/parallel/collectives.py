@@ -20,8 +20,18 @@ themselves:
 * :func:`copy_to` and :func:`reduce_from`, Megatron-LM's f and g: identity
   forward and all_reduce backward at the input of a column-split product;
   all_reduce forward and identity backward after a row-split one.
-* :func:`all_gather_dim` (no gradient): a prefill's caches and last
-  logits made whole over ``"model"``.
+* :func:`all_gather_dim` (no gradient): a prefill's cache and last
+  logits made whole over ``"model"``, a decode's local query heads, and
+  the recurrent states that decode gathers whole.
+
+The decode caches live in ``cache_specs``' layout (the flash-decoding
+one): batch over the batch axes, the cache's sequence (a recurrent
+state's width or heads) over ``"model"`` where the axis divides it.
+:meth:`Shards.local` and :meth:`Shards.wrap` take a cache tree as they
+take params (dataclass instances are nodes), :meth:`Shards.cache_pieces`
+tells each layer where its piece sits (a :class:`Piece`, or None where the
+spec leaves the dim whole or ``"model"`` is 1), and :func:`merge_partials`
+is the flash-decoding combine of the ranks' partial softmaxes.
 
 A group of one still runs its collectives (each then copies), and every
 gathered tensor is contiguous in the leaf's own layout, so a one-rank mesh
@@ -29,6 +39,7 @@ computes what one device computes, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -39,7 +50,7 @@ from ..configs.base import ModelConfig
 from .partition import _spec_for_leaf, fsdp_axes_for, param_specs, shard_shape
 from .sharding import P, local_shard, mesh_axes, spec_placements
 
-__all__ = ["Shards", "all_gather_dim", "copy_to", "reduce_from"]
+__all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "merge_partials", "reduce_from"]
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -131,6 +142,36 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFrom.apply(x, group)
 
 
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """This rank's piece of a cache dim split over ``"model"``: its first
+    global index, its length, the dim's global length, and the model axis's
+    group and size."""
+
+    first: int
+    size: int
+    total: int
+    group: object
+    n: int
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, group,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The flash-decoding combine over ``group`` of each rank's float32 row
+    max ``m`` and sum ``l`` (``[..., 1]``) and unnormalised partial output
+    ``o`` (``[..., D]``): M, the ranks' max (one all_reduce), then L = the
+    sum of exp(m - M) l and O = the sum of exp(m - M) o in float32 (one
+    packed all_reduce), and O / L in ``dtype``.  A rank whose keys are all
+    masked (m = -1e30) has exp(m - M) = 0 and adds nothing."""
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - top)
+    packed = torch.cat([(scale * l).reshape(-1), (scale * o).reshape(-1)])
+    dist.all_reduce(packed, group=group)
+    total, out = packed.split([l.numel(), o.numel()])
+    return (out.view(o.shape) / total.view(l.shape)).to(dtype)
+
+
 def _names(part) -> tuple:
     return () if part is None else (part if isinstance(part, tuple) else (part,))
 
@@ -212,6 +253,16 @@ class Shards:
             return local_shard(leaf, self.mesh, pl)
         return _zip_map(one, tree, specs)
 
+    def cut(self, tree, specs, axes: tuple):
+        """Each plain leaf of ``tree`` cut to this rank's piece along the
+        mesh axes in ``axes`` alone (its other dims as they are: a leaf
+        that holds this rank's rows already), a copy where the piece is
+        smaller than the leaf, so that the whole can be freed."""
+        def one(leaf, spec):
+            piece = local_shard(leaf, self.mesh, spec_placements(self.mesh, spec, axes))
+            return piece.clone() if piece.numel() != leaf.numel() else piece
+        return _zip_map(one, tree, specs)
+
     def wrap(self, tree, specs, like):
         """DTensors of the local ``tree`` placed by ``specs``, each of its
         ``like`` leaf's global shape."""
@@ -219,6 +270,31 @@ class Shards:
             return DTensor.from_local(t, self.mesh, self.placements(spec), run_check=False,
                                       shape=ref.shape, stride=_contiguous_stride(ref.shape))
         return _zip_map(one, tree, specs, like)
+
+    def cache_pieces(self, caches, specs):
+        """Each cache of a decode tree (a dataclass instance) as the
+        :class:`Piece` of its split dim that this rank holds, or None where
+        ``specs`` (``cache_specs``') leave that dim whole or ``"model"`` is 1:
+        the sequence of an attention or latent cache (``kpos``' last dim),
+        a recurrent state's width (``h``'s last) or a WKV state's heads
+        (``wkv``'s third from last).  ``caches`` has the global shapes."""
+        n = self.sizes.get("model", 1)
+
+        def walk(tree, spec):
+            if isinstance(tree, dict):
+                return {k: walk(tree[k], spec[k]) for k in tree}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(walk(t, s) for t, s in zip(tree, spec, strict=True))
+            names = {f.name for f in dataclasses.fields(tree)}
+            name, dim = next((k, d) for k, d in (("kpos", -1), ("h", -1), ("wkv", -3))
+                             if k in names)
+            total = getattr(tree, name).shape[dim]
+            if n == 1 or "model" not in _names(getattr(spec, name)[dim]):
+                return None
+            size = total // n
+            return Piece(self.index["model"] * size, size, total, self.groups["model"], n)
+
+        return walk(caches, specs)
 
     def counted(self, spec: P) -> bool:
         """Whether this rank's piece of a leaf placed by ``spec`` counts in a
@@ -239,11 +315,16 @@ def _shape_key(tree):
 
 def _zip_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (spec trees have :class:`P` leaves)."""
+    ``rest`` (spec trees have :class:`P` leaves; dataclass instances, the
+    caches, are nodes)."""
     if isinstance(tree, dict):
         return {k: _zip_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zip_map(fn, t, *xs) for t, *xs in zip(tree, *rest, strict=True))
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _zip_map(fn, getattr(tree, f.name),
+                                              *(getattr(r, f.name) for r in rest))
+                             for f in dataclasses.fields(tree)})
     if tree is None:
         return None
     return fn(tree, *rest)

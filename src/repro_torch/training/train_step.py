@@ -30,12 +30,25 @@
   the step state.  ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
   with a ``"pod"`` dimension, whose process group carries the collectives.
 * ``make_prefill_step`` / ``make_decode_step`` on a mesh take the params
-  as the train step does (shards) and this rank's rows of the batch.  The
-  prefill runs the dense family's tensor-parallel layers and returns the
-  last position's logits and the caches whole over ``"model"``; the
-  decode gathers each block whole (no tensor parallelism) and keeps the
-  caches' layout, with ``seq_model`` on ``"model"`` in its rules.  Under
-  either an MoE config with ``moe_ep`` takes the expert-parallel route.
+  as the train step does (shards) and the **global** batch, as the train
+  step does: each slices dim 0 of every batch leaf (``_DataParallel.slice``;
+  a dim the batch axes do not divide stays whole on every rank, as
+  ``batch_specs`` replicates it).  Both run the dense family's
+  tensor-parallel layers (heads, ffn and vocab over ``"model"``; the
+  blocks gather only over their fsdp axes) and return DTensors of the
+  global shapes: the logits as this rank's rows (``batch_specs``), the
+  caches as this rank's pieces under ``cache_specs`` (batch over the batch
+  axes, the sequence, or a recurrent state's width or heads, over
+  ``"model"`` where it divides), so ``full_tensor()`` gives the
+  reference's global arrays.  The prefill cuts its caches to that layout;
+  the decode takes caches so placed (DTensors, or whole plain tensors of
+  which each rank takes its pieces), writes the step into its local
+  pieces in place (the reference donates them) and attends over its piece
+  of the sequence, the ranks' partial softmaxes merged over ``"model"``
+  (``parallel.collectives.merge_partials``).  Where ``cache_specs`` leaves
+  a sequence whole, or ``"model"`` is 1, that layer attends as one device
+  does, so a one-rank mesh gives the one-device step's bits.  Under either
+  an MoE config with ``moe_ep`` takes the expert-parallel route.
 
 A step takes params as a tree of tensors and returns new trees (the
 reference's ``(params, opt_state, metrics)``); the gradient is autograd's
@@ -373,6 +386,41 @@ def make_ef_state(params):
 
 
 # ------------------------------------------------------------- serve steps
+class _Global:
+    """A leaf's global shape, all that ``batch_specs``, ``cache_specs`` and
+    ``Shards.wrap`` read of it (no tensor: a step's cost counter would count
+    a meta tensor's bytes)."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def _rows(sh: Shards, dp: _DataParallel, x: torch.Tensor, rows: int) -> DTensor:
+    """``x``, this rank's slice of dim 0 of a global batch of ``rows``, as a
+    DTensor of the global shape placed by ``batch_specs`` (replicated where
+    the batch axes do not divide ``rows``)."""
+    like = _Global((rows, *x.shape[1:]))
+    return sh.wrap(x, batch_specs(like, sh.mesh, dp.names), like)
+
+
+def _global_caches(caches, rows: int):
+    """The global shapes of a prefill's caches, computed from this rank's
+    slice of a global batch of ``rows``: each leaf's with its batch dim
+    (dim 1 of the stacked groups', dim 0 of the others) at ``rows``."""
+    def one(path, t):
+        shape = list(t.shape)
+        shape[1 if path[0] == "groups" else 0] = rows
+        return _Global(shape)
+
+    return tree_map_with_path(one, caches)
+
+
 def make_prefill_step(model: Model, mesh=None):
     if mesh is None:
         def one_device(params, batch):
@@ -380,12 +428,18 @@ def make_prefill_step(model: Model, mesh=None):
                 return model.prefill(params, batch)
 
         return one_device
-    sh = Shards(mesh, model.cfg)
+    sh, dp = Shards(mesh, model.cfg), _DataParallel(mesh)
     rules = _step_rules(mesh, model.cfg, sh, tp=True)
 
     def step(params, batch):
+        rows = batch["tokens"].shape[0]
         with axis_rules(rules):
-            return model.prefill(sh.local(params, sh.specs(params)), batch)
+            logits, caches = model.prefill(sh.local(params, sh.specs(params)),
+                                           {k: dp.slice(v) for k, v in batch.items()})
+        like = _global_caches(caches, rows)
+        specs = cache_specs(like, mesh, dp.names)
+        return (_rows(sh, dp, logits, rows),
+                sh.wrap(sh.cut(caches, specs, ("model",)), specs, like))
 
     return step
 
@@ -397,14 +451,18 @@ def make_decode_step(model: Model, mesh=None):
                 return model.decode_step(params, tokens, caches, cache_index)
 
         return one_device
-    sh = Shards(mesh, model.cfg)
-    # the reference's decode rules (seq_model on "model", its sequence-sharded
-    # caches); this step keeps whole caches, so no layer reads seq_model
-    rules = _step_rules(mesh, model.cfg, sh, tp=False, overrides={"seq_model": "model"})
+    sh, dp = Shards(mesh, model.cfg), _DataParallel(mesh)
+    # the reference's decode rules: seq_model on "model" (its caches'
+    # sequence), heads, ffn and vocab on "model" as in prefill
+    rules = _step_rules(mesh, model.cfg, sh, tp=True, overrides={"seq_model": "model"})
 
     def step(params, tokens, caches, cache_index):
+        specs = cache_specs(caches, mesh, dp.names)
+        local = sh.local(caches, specs)
         with axis_rules(rules):
-            return model.decode_step(sh.local(params, sh.specs(params)), tokens, caches,
-                                     cache_index)
+            logits, local = model.decode_step(sh.local(params, sh.specs(params)),
+                                              dp.slice(tokens), local, cache_index,
+                                              pieces=sh.cache_pieces(caches, specs))
+        return _rows(sh, dp, logits, tokens.shape[0]), sh.wrap(local, specs, caches)
 
     return step

@@ -1071,10 +1071,43 @@ def test_sharded_step_on_a_one_rank_nccl_mesh_is_bit_equal(nccl_rank, kv):
     with torch.no_grad():
         a = make_prefill_step(m, mesh)(placed, tokens)
         b = make_prefill_step(m, None)(params, tokens)
-    assert torch.equal(a[0], b[0])
+    assert torch.equal(a[0].to_local(), b[0])
     assert all(torch.equal(x, y) for x, y in zip(
-        [getattr(a[1]["groups"]["pos0"]["self"], f) for f in ("k", "v", "kpos")],
+        [getattr(a[1]["groups"]["pos0"]["self"], f).to_local() for f in ("k", "v", "kpos")],
         [getattr(b[1]["groups"]["pos0"]["self"], f) for f in ("k", "v", "kpos")]))
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_sharded_decode_on_a_one_rank_nccl_mesh_is_bit_equal(nccl_rank, kv):
+    """The sharded prefill and 4 steps of the sharded decode step (the
+    reference's layout: heads, ffn and vocab over "model", caches placed by
+    ``cache_specs``, all groups of one) at a reduced qwen3-0.6b, from
+    params placed by ``param_shardings``, bit-equal to one device's."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch_tp_case import decode_chain
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import param_shardings
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training import make_decode_step, make_prefill_step
+    from repro_torch.training._tree import tree_map
+
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen3-0.6b"]), n_kv_heads=kv)
+    m = build_model(cfg)
+    params = m.init(0, device=nccl_rank)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    placed = tree_map(lambda p, s: place(p, *s), params, param_shardings(params, cfg, mesh))
+    prompt = torch.randint(0, cfg.vocab_size, (4, 128), device=nccl_rank,
+                           generator=torch.Generator(device=nccl_rank).manual_seed(1))
+    got = decode_chain(m, placed, make_prefill_step(m, mesh), make_decode_step(m, mesh), prompt,
+                       steps=4, length=136)
+    want = decode_chain(m, params, make_prefill_step(m, None), make_decode_step(m, None),
+                        prompt, steps=4, length=136)
+    flat = [[g[0], *g[1], *g[2], g[3], *g[4]] for g in (got, want)]
+    assert all(torch.equal(a, b) for a, b in zip(*flat, strict=True))
 
 
 def test_ep_prefill_on_a_one_rank_nccl_mesh_equals_the_dense_path(nccl_rank):
@@ -1095,7 +1128,7 @@ def test_ep_prefill_on_a_one_rank_nccl_mesh_equals_the_dense_path(nccl_rank):
     with torch.inference_mode():
         got, _ = make_prefill_step(m_ep, mesh)(params, {"tokens": tokens})
         want, _ = make_prefill_step(build_model(cfg), None)(params, {"tokens": tokens})
-    assert torch.equal(got, want)
+    assert torch.equal(got.to_local(), want)
 
 
 def test_crosspod_exchange_and_mesh_checkpoint_on_a_one_rank_nccl_mesh(nccl_rank, tmp_path):

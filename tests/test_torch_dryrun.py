@@ -16,10 +16,11 @@ piece that its leaf's gathers hand back (the pieces of this rank's
 ``"data"`` shards; ``wk`` and ``wv``, gathered over ``"model"`` too,
 first their ``"model"`` pieces; the tied embedding twice, its lookup's and
 the logits'); llama3-8b's ``train_4k`` now fits a card (its whole state
-took 89 GiB).  The decode cell's arguments hold the caches, and their
-in-place writes are no temporaries.  ``model_flops_total`` equals the reference's own lines
-(read from ``repro/launch/dryrun.py``'s source, not imported), evaluated
-on the reference's configs, for every arch and cell.
+took 89 GiB).  The decode cell's arguments hold this rank's pieces of the
+caches (``cache_specs``: its rows, S/16 of the sequence), and their
+in-place writes are no temporaries.  ``model_flops_total`` equals the
+reference's own lines (read from ``repro/launch/dryrun.py``'s source, not
+imported), evaluated on the reference's configs, for every arch and cell.
 """
 import ast
 import dataclasses
@@ -41,6 +42,7 @@ from repro_torch.models import build_model
 from repro_torch.models import transformer as T
 from repro_torch.parallel.partition import param_specs, shard_shape, spec_axes
 from repro_torch.parallel.sharding import P, abstract_mesh, tree_map_with_path
+from repro_torch.training.train_step import cache_specs
 
 TIMEOUT = 600
 KEYS = {"arch", "shape", "mesh", "compressed", "devices", "kind", "cost", "memory",
@@ -180,19 +182,25 @@ def test_compressed_cell(runs):
 
 def test_decode_cell_counts_the_caches_as_arguments(runs):
     """A decode cell's arguments are this rank's shards of the params, its
-    tokens, the cache index and the caches of the whole sequence; the
-    caches' in-place writes are not temporaries."""
+    rows of the tokens, the cache index and its pieces of the caches under
+    ``cache_specs``: its 8 of the 128 rows and 2048 of the 32768 positions,
+    a 256th of the whole; the caches' in-place writes are not
+    temporaries."""
     cell = _cell(runs, "qwen_decode")
     m = build_model(PC.get_config("qwen3-0.6b"))
+    shape = PC.SHAPES["decode_32k"]
     rows = cell["batch_rows_per_device"]
-    caches = T.make_decode_caches(m.cfg, rows, PC.SHAPES["decode_32k"].seq_len, 0,
+    assert rows == shape.global_batch // 16
+    caches = T.make_decode_caches(m.cfg, shape.global_batch, shape.seq_len, 0,
                                   torch.device("meta"))
-    cache_bytes = _bytes(caches)
-    assert cache_bytes > 2**30
     mesh = abstract_mesh((16, 16), ("data", "model"))
-    assert cell["memory"]["argument_bytes"] == _shard_bytes(m.cfg, mesh) + cache_bytes \
+    specs = cache_specs(caches, mesh, "data")
+    pieces = sum(math.prod(shard_shape(c.shape, s, mesh)) * c.element_size()
+                 for c, s in zip(_leaves(caches), _leaves(specs), strict=True))
+    assert pieces == _bytes(caches) // 256 and pieces > 2**30
+    assert cell["memory"]["argument_bytes"] == _shard_bytes(m.cfg, mesh) + pieces \
         + rows * 4 + 4
-    assert 0 < cell["memory"]["temp_bytes"] < cache_bytes // 10  # one layer's scratch, no cache
+    assert 0 < cell["memory"]["temp_bytes"] < pieces // 10  # one layer's scratch, no cache
 
 
 def test_llama3_8b_train_does_not_fit_a_card(runs):

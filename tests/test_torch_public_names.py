@@ -57,7 +57,6 @@ WAIVERS = {
         "NamedSharding": "JAX's jit input sharding: the port's steps take each rank's slice",
         "P": "JAX's PartitionSpec for the jit shardings (the port's is parallel.sharding.P)",
         "batch_specs": "jit input shardings: a port step slices its own batch",
-        "cache_specs": "jit input shardings: a port decode step takes this rank's caches",
         "analyze_hlo": "XLA HLO only: the port counts with launch.cost_analysis.analyze_step",
         "compiled_cost_dict": "XLA's compiled cost analysis: no compiled step in the port",
         "AdamWConfig": "imported and unused by the reference's dry run",

@@ -10,8 +10,8 @@ rank gathers ``wk``/``wv`` whole and reads the kv head of its query
 heads), and 2 kv heads, which it splits.
 
 * On 4 gloo ranks, a ("data", "model") mesh of 2 x 2, 3 sharded steps of
-  the global batch of 8 x 32 and one prefill of each data rank's 4 rows,
-  against the port's one-device step, within ``torch_tp_case``'s bounds
+  the global batch of 8 x 32 and one prefill of the global batch (made
+  whole), against the port's one-device step, within ``torch_tp_case``'s bounds
   (measured: first-step gradients at most 2.6% of a leaf's largest
   |gradient|, params 4.0%, movement 1.8%, loss 8.6e-5 relative, grad norm
   7.4e-4 at step 1 and 1.09e-3 after, logits 0.0059 apart).  Every rank
@@ -59,7 +59,7 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch_dist_helpers import ROOT, RANK_TIMEOUT, dist_guard, one_rank, run_ranks  # noqa: F401
 from torch_dist_helpers import whole
-from torch_tp_case import GRAD_REL, OPT, TINY, cache_leaves, gaps, leaf_names, one_device
+from torch_tp_case import GRAD_REL, OPT, TINY, cache_tensors, gaps, leaf_names, one_device
 from torch_tp_case import run, run_workers, setup, within
 
 from repro import configs as RC
@@ -172,8 +172,8 @@ def test_one_rank_mesh_is_bit_equal_to_one_device(kv, one_rank):
     with torch.no_grad():
         a = make_prefill_step(model, mesh)(params, {"tokens": batches[0]["tokens"]})
         b = make_prefill_step(model, None)(params, {"tokens": batches[0]["tokens"]})
-    assert all(torch.equal(x, y) for x, y in zip([a[0]] + cache_leaves(a[1]),
-                                                 [b[0]] + cache_leaves(b[1]), strict=True))
+    assert all(torch.equal(x, y) for x, y in zip([a[0].to_local()] + cache_tensors(a[1]),
+                                                 [b[0]] + cache_tensors(b[1]), strict=True))
 
 
 # one sharded step on a (1, 2) mesh: saves each rank's local gradient of
