@@ -261,8 +261,10 @@ result line):
    ``rans_decode`` launches; (a) then ``python -m repro_torch.launch.dryrun
    --all``, ``--all --multi-pod`` and the ``--compressed`` qwen3-0.6b cell,
    each a subprocess on the host's CPU (no card), all three at once and
-   after every timed phase: every cell written, no ``FAILED__`` file, each
-   cell's dominant term and fit.  The flash rows gain
+   after every phase timed on the card, phase 16's (c) running on a thread
+   beside them (each reports its own wall; they share the host's cores):
+   every cell written, no ``FAILED__`` file, each cell's dominant term and
+   fit.  The flash rows gain
    ``launches_by_path["dry-run check (phase 15)"]``, the rANS rows
    ``"baselines (phase 15)"``.
 16. sharded state and tensor parallelism: (a) qwen3-0.6b at full width and
@@ -287,22 +289,38 @@ result line):
    ``make_decode_step`` (the reference's decode layout: heads, ffn and
    vocab over "model", the caches placed by ``cache_specs``): each step's
    logits bit-equal to phase 9's, the median step beside phase 9's, one
-   more step traced (collective calls and their host ms); (c) on the
-   host's CPU after (b) and (e): ``tests/torch_tp_case.py``'s reduced
-   dense config (4 heads, 1 kv head replicated over "model" and 2 split)
-   on 4 gloo processes, a 2 x 2 mesh, 3 sharded steps and a prefill of the
-   global batch against the one-device step within the bounds that
-   ``tests/test_torch_tensor_parallel.py`` holds, every rank's local
-   shard shapes printed, then a prefill and 6 sharded decode steps (the
-   caches' sequence split over "model", one step with a rank holding no
-   written slot, two either side of the pieces' boundary) against one
-   device within the logit and cache bounds that
+   more step traced (collective calls and their host ms); (f) each of
+   phase 12's families (llama4 cut as there) on the same mesh, every
+   family split over "model" as its rules say: phase 12's prefill (same
+   seed, params and inputs) through the sharded ``make_prefill_step``,
+   logits bit-equal to phase 12's; phase 12's decode check (its prompt,
+   capacity and tokens fed) through the sharded prefill and 16 steps of
+   ``make_decode_step``, each step's logits bit-equal to phase 12's; one
+   sharded train step of the first group of layers at full width (2 x
+   2048; llama4 at 2 experts) bit-equal to the one-device step; each
+   run's seconds beside phase 12's; then the flash pair against its plain
+   versions at a rank's shapes under 16-way TP (deepseek's 1 MLA head at
+   d 192, V padded from 128; the VLM's 2 heads of 128; seamless's 1 head
+   of 64); (c) on the host's CPU during phase 15's sweeps, one launch of
+   4 gloo processes for all its cases:
+   ``tests/torch_tp_case.py``'s reduced dense config (4 heads, 1 kv head
+   replicated over "model" and 2 split) and its family cases (deepseek's
+   MLA and shared expert, recurrentgemma, rwkv6, the VLM, seamless on 2 x
+   2; a vocabulary of 510 on 1 x 4) on 4 gloo processes, 3 sharded steps
+   and a prefill of the global batch against the one-device step within
+   the bounds that ``tests/test_torch_tensor_parallel.py`` holds, then
+   for the dense config a prefill and 6 sharded decode steps (the caches'
+   sequence split over "model", one step with a rank holding no written
+   slot, two either side of the pieces' boundary) against one device
+   within the logit and cache bounds that
    ``tests/test_torch_decode_parallel.py`` holds; (d) the dense configs'
-   ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells of phase 15
-   (a)'s 16x16 sweep: per-rank argument and temporary bytes, fit and
-   collective bytes.  The flash rows gain
-   ``launches_by_path["sharded (phase 16)"]`` ((a)'s 3 steps and (b)).
-   The card's name and power limit open the phase's summary line.
+   and the five families' ``train_4k``, ``prefill_32k`` and
+   ``decode_32k`` cells of phase 15 (a)'s 16x16 sweep: per-rank argument
+   and temporary bytes, fit and collective bytes (the families' beside
+   the parent tree's).  The flash rows gain ``launches_by_path["sharded
+   (phase 16)"]`` ((a)'s 3 steps and (b)) and ``["sharded families (phase
+   16)"]`` ((f)'s prefills and train steps).  The card's name and power
+   limit open the phase's summary line.
 
 Each path's launch counts are zeroed just before it and read just after;
 each kernel the path runs must have run.
@@ -326,6 +344,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -2165,7 +2184,8 @@ def family_decode_check(T, L, m, params, batch: dict, prompt: int, steps: int, d
     prompt + steps, decode greedily, and hold each step's logits to one
     forward pass over the extended prompt, whose decoded tokens an MoE
     routes to the decode's experts (``PinnedRouting``; the forward's own
-    routing is compared too, and reported).  Returns (check, step times)."""
+    routing is compared too, and reported).  Returns (check, step times,
+    the tokens fed and each step's logits, on the host, for phase 16 (f))."""
     cfg = m.cfg
     sub = dict(batch, tokens=batch["tokens"][:, :prompt])
     logits, caches = m.prefill(params, sub)
@@ -2210,7 +2230,7 @@ def family_decode_check(T, L, m, params, batch: dict, prompt: int, steps: int, d
             "moe_layers": n_moe, "decoded_tokens": b * steps, "flips": pin.flips,
             "tokens_with_a_flip": len(pin.rows_flipped), "largest_flip_gap": pin.worst_gap,
             "max_abs_diff_own_routing": own}
-    return out, step_s
+    return out, step_s, [t.cpu() for t in fed], [o.cpu() for o in outs]
 
 
 def check_flash_mla(FA, q, k, v_pad, v_dim: int, launches: dict) -> dict:
@@ -2295,8 +2315,8 @@ def family_path(ops, FA, T, L, build_model, cfg, seed: int, dev,
             for n_tok in (FAMILY_BATCH * prompt, FAMILY_BATCH * (prompt + FAMILY_DECODE)):
                 cap = max(8, int(mc.cfg.capacity_factor * n_tok * cfg.top_k / cfg.n_experts))
                 check(cap >= n_tok, f"{cfg.name}: the decode check's capacity {cap} drops")
-        decode, step_s = family_decode_check(T, L, mc, params, batch, prompt, FAMILY_DECODE,
-                                             dev)
+        decode, step_s, fed, outs = family_decode_check(T, L, mc, params, batch, prompt,
+                                                        FAMILY_DECODE, dev)
 
         cpu_route, profiled = None, None
         if cfg.mla and trace is not None:
@@ -2335,6 +2355,9 @@ def family_path(ops, FA, T, L, build_model, cfg, seed: int, dev,
         stats["cpu_route"] = cpu_route
     if profiled is not None:
         stats["trace"] = profiled
+    # what phase 16 (f) holds its sharded steps to, bit for bit
+    stats["_ref"] = {"logits": logits.cpu(), "prompt": prompt, "fed": fed, "steps": outs,
+                     "capacity_factor": mc.cfg.capacity_factor}
     return stats, mla
 
 
@@ -2366,7 +2389,8 @@ def families_path(ops, FA, serve, get_config, seed: int, dev,
         gc.collect()
         torch.cuda.empty_cache()
         stats["phase_s"] = phase_s + serve_s
-        print(f"family {arch}: " + json.dumps(stats), flush=True)
+        print(f"family {arch}: " + json.dumps({k: v for k, v in stats.items() if k != "_ref"}),
+              flush=True)
         out[arch] = stats
     return out, mla
 
@@ -3195,7 +3219,9 @@ def parallel_path(ops, get_config, seed: int, dev) -> tuple[dict, dict, dict]:
 # ---------------------------------------------------------------- phase 15
 # (b): two steps counted on the card and on meta; (c): the paper's
 # baselines on the gateway's rows; (a): the dry-run sweeps on the host's
-# CPU, started after (c), so no timed phase shares the host with them
+# CPU, started after (c), so no phase timed on the card shares the host with
+# them; phase 16's gloo ranks (its (c)) run beside them, and each reports
+# its own wall
 DRYRUN_SWEEPS = {
     "single-pod": ["--all"],
     "multi-pod": ["--all", "--multi-pod"],
@@ -3238,15 +3264,22 @@ def start_dryruns(tmp: pathlib.Path) -> dict:
 
 def finish_dryruns(jobs: dict) -> dict:
     """(a): every sweep exits 0 within its time, every cell is written and
-    no ``FAILED__`` file appears; each cell's dominant term and fit."""
+    no ``FAILED__`` file appears; each cell's dominant term and fit, and
+    each sweep's wall from its start to its own end (polled every 0.1 s)."""
+    ends: dict = {}
+    while len(ends) < len(jobs):
+        for name, (_, _, t0, p) in jobs.items():
+            if name in ends:
+                continue
+            if p.poll() is not None:
+                ends[name] = time.perf_counter()
+            elif time.perf_counter() - t0 > DRYRUN_TIMEOUT:
+                p.kill()
+                fail(f"dry run {name}: no end within {DRYRUN_TIMEOUT} s")
+        time.sleep(0.1)
     stats = {}
     for name, (out, log, t0, p) in jobs.items():
-        try:
-            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            fail(f"dry run {name}: no end within {DRYRUN_TIMEOUT} s")
-        wall = time.perf_counter() - t0
+        wall = ends[name] - t0
         failed = sorted(f.name for f in out.glob("FAILED__*"))
         check(p.returncode == 0 and not failed,
               f"dry run {name}: exit {p.returncode}, failed {failed}\n" + log.read_text()[-3000:])
@@ -3401,11 +3434,15 @@ def baselines_on_card(P, B, ops, seed: int, dev) -> tuple[dict, dict]:
             "trc_rans_launches": launches}, launches
 
 
-def dryrun_path(P, ops, get_config, seed: int, dev) -> tuple[dict, dict]:
+def dryrun_path(P, ops, get_config, seed: int, dev, meanwhile=None) -> tuple[dict, dict]:
     """Phase 15: (b) the two steps counted on the card and on meta, (c) the
     baselines on the card, then (a) the dry-run sweeps, all three at once
-    and alone on the host.  Returns the stats and the launches of (b)'s
-    flash kernels and (c)'s rANS ones."""
+    on the host, with ``meanwhile(tmp)`` (other work on the host's CPU, its
+    result under ``"meanwhile"``) run on a thread beside them.  (a)'s
+    ``phase_s`` runs from the sweeps' start to the last one's end, and
+    ``meanwhile``'s result keeps its own wall: the two share the host's
+    cores, so neither is a time alone.  Returns the stats and the launches
+    of (b)'s flash kernels and (c)'s rANS ones."""
     import repro_torch.baselines as B
     from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch import dryrun as DR
@@ -3433,10 +3470,19 @@ def dryrun_path(P, ops, get_config, seed: int, dev) -> tuple[dict, dict]:
     launches |= rans
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     try:
-        stats["a"], wall = sync_time(lambda: finish_dryruns(start_dryruns(tmp)))
+        t0 = time.perf_counter()
+        jobs = start_dryruns(tmp / "sweeps")
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            side = None if meanwhile is None else pool.submit(meanwhile, tmp / "meanwhile")
+            stats["a"] = finish_dryruns(jobs)
+            stats["a"]["phase_s"] = time.perf_counter() - t0
+            if side is not None:
+                stats["meanwhile"] = side.result()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    stats["a"]["phase_s"] = wall
+    if meanwhile is not None:
+        stats["a"]["beside"] = {"what": meanwhile.__name__,
+                                "wall_s": stats["meanwhile"].get("wall_s")}
     print("dry run (a): " + json.dumps(stats["a"]), flush=True)
     return stats, launches
 
@@ -3446,16 +3492,49 @@ def dryrun_path(P, ops, get_config, seed: int, dev) -> tuple[dict, dict]:
 # (c) on 4 gloo ranks on the CPU, (d) the dense cells of phase 15's dry-run
 # sweep
 TP_KV = (1, 2)  # (c): kv heads replicated over "model" (1), split (2)
+# (c): the families' train cases (tests/torch_tp_case.py's FAMILY_CASES) and
+# their meshes: 2 x 2, and 1 x 4 for the vocabulary that 4 does not divide
+TP_FAMILY_MESH = {"uneven": (1, 4)}
+# (f): the other families at phase 12's full width on a one-rank mesh; the
+# train step on the first group of layers, FAMILY_TRAIN_ROWS x FAMILY_LEN;
+# llama4's train step at 2 experts (its widths kept): 128 experts' bf16
+# weights and float32 AdamW moments (~190 GB a layer) do not fit one card
+FAMILY_TRAIN_ROWS = 2
+FAMILY_TRAIN_EXPERTS = {"llama4-maverick-400b-a17b": 2}
+# (f): the flash pair at a rank's shapes under 16-way TP (q shape, kv heads,
+# V's width before its zero padding): deepseek 1 MLA head at d 192, the VLM
+# 2 of its 32 heads (8 kv heads stay whole: each rank reads 1), seamless 1
+# head of 64 over its decoder's 1024 tokens
+TP16_FLASH = {"deepseek-v2-lite-16b": ((FAMILY_BATCH, FAMILY_LEN, 1, 192), 1, 128),
+              "llama-3.2-vision-11b": ((FAMILY_BATCH, FAMILY_LEN, 2, 128), 1, 128),
+              "seamless-m4t-medium": ((FAMILY_BATCH, FAMILY_LEN // 2, 1, 64), 1, 64)}
+# (d): the five families' dry-run cells before their tensor parallelism (GiB
+# of a rank's arguments + peak temporaries, 16x16; launch/dryrun.py --all on
+# the tree before it, PERF.md section 6)
+FAMILY_DRY_BEFORE = {
+    "deepseek-v2-lite-16b": {"train_4k": (0.62, 146.41), "prefill_32k": (0.12, 6.91),
+                             "decode_32k": (0.60, 0.81)},
+    "recurrentgemma-9b": {"train_4k": (0.38, 401.45), "prefill_32k": (0.08, 56.58),
+                          "decode_32k": (0.09, 4.03)},
+    "rwkv6-1.6b": {"train_4k": (0.08, 87.25), "prefill_32k": (0.03, 18.51),
+                   "decode_32k": (0.04, 1.03)},
+    "seamless-m4t-medium": {"train_4k": (0.17, 158.90), "prefill_32k": (0.14, 6.56),
+                            "decode_32k": (0.76, 2.02)},
+    "llama-3.2-vision-11b": {"train_4k": (0.76, 179.74), "prefill_32k": (0.12, 21.61),
+                             "decode_32k": (2.60, 2.02)}}
 SHARDED_ROUNDS = 3  # (a): rounds of one device, sharded, control, control, sharded, one device
 DENSE_ARCHS = ("qwen3-0.6b", "llama3-8b", "stablelm-12b", "command-r-35b")
 
 
 def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
-    """(c): ``tests/torch_tp_case.py``'s cases (the config, workers and
-    bounds that ``tests/test_torch_tensor_parallel.py`` and
-    ``tests/test_torch_decode_parallel.py`` hold) on 4 gloo processes for
-    each kv case, against one device on this host's CPU: the sharded train
-    steps and prefill, then the prefill and 6 sharded decode steps."""
+    """(c): ``tests/torch_tp_case.py``'s cases (the configs, workers and
+    bounds that ``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_tensor_parallel_families.py`` and
+    ``tests/test_torch_decode_parallel.py`` hold) against one device on
+    this host's CPU, all on one launch of 4 gloo processes: the sharded
+    train steps and prefill of the dense config for each kv case and of
+    each family (the vocabulary of 510 on 1 x 4, held to the dense bounds),
+    then the dense prefill and 6 sharded decode steps for each kv case."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_tp_case as TPC
 
@@ -3464,21 +3543,19 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
              "bounds": {"grad_rel": TPC.GRAD_REL, "param_rel": TPC.GRAD_REL,
                         "moved_rel": TPC.MOVED_REL, "loss_rel": TPC.LOSS_REL,
                         "gnorm_rel": TPC.GNORM_REL["bfloat16"], "logits": TPC.LOGIT_TOL,
-                        "caches": TPC.CACHE_TOL},
+                        "caches": TPC.CACHE_TOL, "families": TPC.FAMILY_BF16},
              "decode": {"prompt": TPC.PROMPT, "buffer": TPC.DECODE_LEN,
                         "steps": TPC.DECODE_STEPS}}
-    for kv in TP_KV:
-        run = tmp / f"tp_kv{kv}"
-        run.mkdir(parents=True)
-        g = TPC.check_in_subprocesses(run, kv)
-        check(g["within"], f"(c) kv {kv}: the sharded step off the one-device step: "
-              + json.dumps({k: v for k, v in g.items() if k != "local_shapes"}))
-        stats[f"kv {kv}"] = g
-        run = tmp / f"tp_decode_kv{kv}"
-        run.mkdir(parents=True)
-        g = TPC.decode_gaps(run, kv)
-        check(g["within"], f"(c) kv {kv}: the sharded decode off one device's: " + json.dumps(g))
-        stats[f"decode kv {kv}"] = g
+    train = {f"family {c}": (c, TP_FAMILY_MESH.get(c, (2, 2)), 1 if c == "uneven" else c)
+             for c in TPC.FAMILY_CASES}
+    train |= {f"kv {kv}": (kv, (2, 2), kv) for kv in TP_KV}
+    got = TPC.check_cases_in_one_launch(tmp / "tp", train, TP_KV)
+    for name, g in got.items():
+        g = {k: v for k, v in g.items() if k != "local_shapes"}
+        if name in train:
+            g["mesh"] = train[name][1]
+        check(g["within"], f"(c) {name}: the sharded steps off one device's: " + json.dumps(g))
+        stats[name] = g
     stats["wall_s"] = time.perf_counter() - t0
     return stats
 
@@ -3679,26 +3756,235 @@ def sharded_serve(ops, TS, PP, place, build_model, cfg, lm_logits, lm_decoded, b
     return b, e
 
 
-def dense_dryrun_cells(dry: dict) -> dict:
-    """(d): the dense family's train_4k, prefill_32k and decode_32k cells on
-    16x16 from phase 15 (a)'s sweep (meta tensors, the host's CPU):
-    per-rank arguments, temporaries, fit and collective bytes."""
+def dryrun_cells(dry: dict, archs: tuple, before: dict | None = None) -> dict:
+    """(d): the ``train_4k``, ``prefill_32k`` and ``decode_32k`` cells of
+    ``archs`` on 16x16 from phase 15 (a)'s sweep (meta tensors, the host's
+    CPU): per-rank arguments, temporaries, fit and collective bytes, beside
+    ``before``'s arguments and temporaries where given."""
     cells = dry["single-pod"]["cell"]
     out = {}
-    for arch in DENSE_ARCHS:
+    for arch in archs:
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             c = cells[f"{arch}__{shape}__16x16"]
             out[f"{arch} {shape}"] = {
                 "argument_gib": c["argument_bytes"] / 2**30, "temp_gib": c["temp_bytes"] / 2**30,
                 "fits": c["fits"], "collective_bytes": c["collective_bytes"]}
+            if before is not None:
+                out[f"{arch} {shape}"]["before_argument_and_temp_gib"] = before[arch][shape]
     return out
 
 
-def sharded_path(ops, get_config, one: dict, lm_logits, lm_decoded: dict, dry: dict,
-                 lm_batch: int, lm_len: int, seed: int, dev) -> tuple[dict, dict]:
-    """Phase 16: (a), (b) and (e) on the card, then (c) on the host's CPU,
-    (d).  Returns the stats and the launches of (a) and (b)'s flash
-    kernels."""
+def _local_tree(tree):
+    """A cache tree's DTensors as their local tensors (whole on one rank)."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_local_tree(v) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _local_tree(getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    return local(tree)
+
+
+def train_cut(cfg):
+    """(f)'s train model: the first group of layers (the leading dense
+    layers and one block group; one encoder layer), phase 12's widths."""
+    n_prefix = cfg.first_dense_layers if cfg.n_experts else 0
+    changes = {"n_layers": n_prefix + len(cfg.block_group)}
+    if cfg.n_enc_layers:
+        changes["n_enc_layers"] = 1
+    if cfg.name in FAMILY_TRAIN_EXPERTS:
+        changes["n_experts"] = FAMILY_TRAIN_EXPERTS[cfg.name]
+    return dataclasses.replace(cfg, **changes)
+
+
+def sharded_family_train(ops, TS, PP, place, opt_mod, build_model, cfg, seed: int, mesh,
+                         dev) -> tuple[dict, dict]:
+    """(f)'s train step: one sharded step of the cut model on ``mesh`` from
+    params placed by ``param_shardings``, every state leaf and metric
+    bit-equal to the one-device step on the same params and batch (run
+    first, its state kept on the host).  Returns (stats, flash launches)."""
+    from repro_torch.training._tree import leaves, tree_map
+
+    tc = train_cut(cfg)
+    m = build_model(tc)
+    params = m.init(seed, device=dev)
+    batch = family_batch(tc, FAMILY_TRAIN_ROWS, FAMILY_LEN, seed, dev)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    opt = opt_mod.AdamWConfig()
+
+    def fresh():
+        """AdamW's first state, the moments' zeros as one float32 zero
+        expanded (no memory: the update reads them and writes new ones; at
+        full vocabulary the whole zeros and the new moments together do not
+        fit beside the step)."""
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        moments = tree_map(lambda p: zero.expand(p.shape), params)
+        return {"m": moments, "v": moments,
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    (p1, o1, m1), one_s = sync_time(lambda: TS.make_train_step(m, None, opt)(
+        params, fresh(), batch))
+    want, copy_s = sync_time(lambda: [t.cpu() for t in leaves((p1, o1))])
+    want_m = {k: float(v) for k, v in m1.items()}
+    del p1, o1
+    torch.cuda.empty_cache()
+    placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, tc, mesh))
+    ops.reset_launches()
+    (p2, o2, m2), sharded_s = sync_time(lambda: TS.make_train_step(m, mesh, opt)(
+        placed, fresh(), batch))
+    launches = {k: ops.launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+    got = leaves((p2, o2))
+    # the card compares: each host leaf goes back to it, a leaf at a time
+    equal, compare_s = sync_time(lambda: sum(torch.equal(local(a), b.to(dev))
+                                             for a, b in zip(got, want, strict=True)))
+    got_m = {k: float(v) for k, v in m2.items()}
+    check(equal == len(want) and got_m == want_m,
+          f"(f) {cfg.name} train: {len(want) - equal} of {len(want)} state leaves differ from "
+          f"one device, metrics {got_m} vs {want_m}")
+    del p2, o2, got, placed, params, want
+    torch.cuda.empty_cache()
+    return {"layers": tc.n_layers, "enc_layers": tc.n_enc_layers, "experts": tc.n_experts,
+            "batch": [FAMILY_TRAIN_ROWS, FAMILY_LEN], "state_leaves_equal": equal,
+            "metrics_equal": True, "loss": got_m["loss"], "one_device_s": one_s,
+            "sharded_s": sharded_s, "state_to_host_s": copy_s, "compare_s": compare_s,
+            "launches": launches}, launches
+
+
+def sharded_family(ops, TS, PP, place, opt_mod, build_model, cfg, ref: dict, p12: dict,
+                   seed: int, mesh, dev) -> tuple[dict, dict]:
+    """(f), one family: phase 12's prefill of FAMILY_BATCH x FAMILY_LEN (the
+    same seed, params and inputs) through the sharded ``make_prefill_step``
+    on ``mesh``, logits bit-equal to phase 12's; phase 12's decode check
+    (its prompt, capacity and tokens fed) through the sharded prefill and
+    ``make_decode_step``, each step's logits bit-equal to phase 12's; then
+    :func:`sharded_family_train`.  Each run's seconds beside phase 12's."""
+    from repro_torch.training._tree import tree_map
+
+    m = build_model(cfg)
+    params = m.init(seed, device=dev)
+    placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, cfg, mesh))
+    batch = family_batch(cfg, FAMILY_BATCH, FAMILY_LEN, seed, dev)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    with torch.inference_mode():
+        ops.reset_launches()
+        (logits, caches), prefill_s = sync_time(lambda: TS.make_prefill_step(m, mesh)(
+            placed, batch))
+        launches["flash_attention"] += ops.launches["flash_attention"]
+        del caches
+        logits_equal = torch.equal(logits.to_local().cpu(), ref["logits"])
+        check(logits_equal, f"(f) {cfg.name}: the sharded prefill's logits differ from phase "
+              f"12's, max |diff| {float((logits.to_local().cpu().float() - ref['logits'].float()).abs().max())}")
+        del logits
+        mc = m
+        if ref["capacity_factor"] != cfg.capacity_factor:
+            mc = build_model(dataclasses.replace(cfg, capacity_factor=ref["capacity_factor"]))
+        prompt, steps = ref["prompt"], len(ref["steps"])
+        sub = dict(batch, tokens=batch["tokens"][:, :prompt])
+        ops.reset_launches()
+        _, pcaches = TS.make_prefill_step(mc, mesh)(placed, sub)
+        launches["flash_attention"] += ops.launches["flash_attention"]
+        dec = mc.make_decode_caches(FAMILY_BATCH, prompt + steps, device=dev)
+        graft(dec, _local_tree(pcaches), prompt)
+        del pcaches
+        decode = TS.make_decode_step(mc, mesh)
+        equal_steps, step_s = 0, []
+        for i, (tok, want) in enumerate(zip(ref["fed"], ref["steps"])):
+            (out, dec), dt = sync_time(lambda: decode(placed, tok.to(dev), dec, prompt + i))
+            step_s.append(dt)
+            equal_steps += torch.equal(out.to_local()[:, 0].cpu(), want)
+        del dec, out
+    check(equal_steps == steps, f"(f) {cfg.name}: {steps - equal_steps} of {steps} sharded "
+          "decode steps' logits differ from phase 12's")
+    del placed, params
+    torch.cuda.empty_cache()
+    train, train_launches = sharded_family_train(ops, TS, PP, place, opt_mod, build_model, cfg,
+                                                 seed, mesh, dev)
+    for k, v in train_launches.items():
+        launches[k] += v
+    median = float(np.median(step_s[1:] or step_s))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": {"data": 1, "model": 1},
+            "prefill_logits_equal_phase_12": logits_equal, "prefill_s": prefill_s,
+            "phase_12_prefill_s": p12["prefill_s"], "decode_prompt": prompt,
+            "decode_steps_equal_phase_12": equal_steps, "decode_steps": steps,
+            "decode_median_step_s": median,
+            "phase_12_decode_median_step_s": p12["decode_step_median_s"],
+            "decode_over_phase_12": median / p12["decode_step_median_s"], "train": train,
+            "launches": launches}, launches
+
+
+def check_flash_tp16(FA, seed: int, dev) -> dict:
+    """(f): the flash forward and backward against their plain versions at a
+    rank's shapes under 16-way TP (TP16_FLASH; random bf16 inputs from the
+    seed), within the kernels' bounds; the padded V columns stay 0."""
+    out = {}
+    for arch, (shape, kvh, v_dim) in TP16_FLASH.items():
+        q, k, v, o, dout, lse = flash_bwd_case(FA, shape, kvh, v_dim, seed, dev)
+        got = FA.flash_attention_cuda(q, k, v, causal=True)
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), atol=FLASH_BF16_TOL,
+                                  rtol=FLASH_BF16_TOL)),
+              f"(f) flash_attention at {arch}'s 16-way shape: max err {err}")
+        check(bool((got[..., v_dim:] == 0).all()), f"(f) {arch}: padded V columns not 0")
+        bwd = FA.flash_attention_bwd_cuda(q, k, v, o, dout, True, lse=lse)
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, dout, True)
+        errs = {}
+        for name, x, w in zip(("dq", "dk", "dv"), bwd, plain):
+            e, scale = float((x.float() - w.float()).abs().max()), float(w.float().abs().max())
+            errs[name] = e / scale
+            check(e <= FLASH_BWD_TOL * scale,
+                  f"(f) flash_attention_bwd at {arch}'s 16-way shape, {name}: {e} over "
+                  f"{FLASH_BWD_TOL} x {scale}")
+        out[arch] = {"q": list(shape), "kv_heads": kvh, "v_dim": v_dim, "fwd_max_abs_err": err,
+                     "fwd_tolerance": FLASH_BF16_TOL, "bwd_rel_err": errs,
+                     "bwd_tolerance": FLASH_BWD_TOL,
+                     "route": FA.last_route["flash_attention_bwd"]}
+        del q, k, v, o, dout, lse, got, want, bwd, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_families(ops, FA, get_config, refs: dict, seed: int, mesh, dev) -> tuple[dict, dict]:
+    """(f): :func:`sharded_family` for each of phase 12's families (llama4
+    cut as phase 12 cuts it), then the flash pair at 16-way TP shapes.
+    Returns the stats and (f)'s flash launches."""
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.parallel import partition as PP
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as TS
+
+    stats, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if arch in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+        (st, got), wall = sync_time(lambda: sharded_family(
+            ops, TS, PP, place, opt_mod, build_model, cfg, refs[arch]["_ref"], refs[arch],
+            seed, mesh, dev))
+        st["wall_s"] = wall
+        for k, v in got.items():
+            launches[k] += v
+        print(f"sharded (f) {arch}: " + json.dumps(st), flush=True)
+        stats[arch] = st
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k, v in launches.items():
+        check(v > 0, f"(f) launched no {k}")
+    stats["flash_tp16"] = check_flash_tp16(FA, seed, dev)
+    print("sharded (f) flash at 16-way shapes: " + json.dumps(stats["flash_tp16"]), flush=True)
+    return stats, launches
+
+
+def sharded_path(ops, FA, get_config, one: dict, lm_logits, lm_decoded: dict, dry: dict,
+                 tp_ranks: dict, families: dict, lm_batch: int, lm_len: int, seed: int,
+                 dev) -> tuple[dict, dict, dict]:
+    """Phase 16: (a), (b), (e) and (f) on the card, (c) (``tp_ranks``, run
+    on the host's CPU during phase 15's sweeps) and (d).  Returns the stats,
+    the launches of (a) and (b)'s flash kernels and (f)'s."""
     import gc
 
     import torch.distributed as dist
@@ -3712,41 +3998,45 @@ def sharded_path(ops, get_config, one: dict, lm_logits, lm_decoded: dict, dry: d
     from repro_torch.training import train_step as TS
 
     stats = {}
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    one_rank_group(dev)
     try:
-        one_rank_group(dev)
-        try:
-            mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
-            cfg = get_config(PAR_ARCH)
-            m = build_model(cfg)
-            params = m.init(seed, device=dev)
-            pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
-            stats["a"], a_s = sync_time(lambda: sharded_train(ops, TS, opt_mod, PP, place, m,
-                                                              params, pipe, mesh, one, dev))
-            stats["a"]["phase_s"] = a_s
-            print("sharded (a) train step: " + json.dumps(stats["a"]), flush=True)
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
-            (stats["b"], stats["e"]), be_s = sync_time(lambda: sharded_serve(
-                ops, TS, PP, place, build_model, get_config(LM_ARCH), lm_logits, lm_decoded,
-                lm_batch, lm_len, seed, mesh, dev))
-            stats["e"]["phase_s"] = be_s
-            print("sharded (b) prefill: " + json.dumps(stats["b"]), flush=True)
-            print("sharded (e) decode: " + json.dumps(stats["e"]), flush=True)
-            gc.collect()
-            torch.cuda.empty_cache()
-        finally:
-            dist.destroy_process_group()
-        stats["c"] = tp_gloo_ranks(tmp)
-        print("sharded (c) 4 gloo ranks: " + json.dumps(stats["c"]), flush=True)
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config(PAR_ARCH)
+        m = build_model(cfg)
+        params = m.init(seed, device=dev)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        stats["a"], a_s = sync_time(lambda: sharded_train(ops, TS, opt_mod, PP, place, m,
+                                                          params, pipe, mesh, one, dev))
+        stats["a"]["phase_s"] = a_s
+        print("sharded (a) train step: " + json.dumps(stats["a"]), flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        (stats["b"], stats["e"]), be_s = sync_time(lambda: sharded_serve(
+            ops, TS, PP, place, build_model, get_config(LM_ARCH), lm_logits, lm_decoded,
+            lm_batch, lm_len, seed, mesh, dev))
+        stats["e"]["phase_s"] = be_s
+        print("sharded (b) prefill: " + json.dumps(stats["b"]), flush=True)
+        print("sharded (e) decode: " + json.dumps(stats["e"]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        (stats["f"], f_launches), f_s = sync_time(lambda: sharded_families(
+            ops, FA, get_config, families, seed, mesh, dev))
+        stats["f"]["phase_s"] = f_s
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    stats["d"] = dense_dryrun_cells(dry)
+        dist.destroy_process_group()
+    stats["c"] = tp_ranks
+    print("sharded (c) 4 gloo ranks: " + json.dumps(stats["c"]), flush=True)
+    stats["d"] = dryrun_cells(dry, DENSE_ARCHS)
     print("sharded (d) dense dry-run cells, 16x16: " + json.dumps(stats["d"]), flush=True)
+    stats["d_families"] = dryrun_cells(dry, tuple(FAMILY_DRY_BEFORE), FAMILY_DRY_BEFORE)
+    print("sharded (d) the families' dry-run cells, 16x16: " + json.dumps(stats["d_families"]),
+          flush=True)
     launches = {k: stats["a"]["launches"].get(k, 0) + stats["b"]["launches"].get(k, 0)
                 for k in ("flash_attention", "flash_attention_bwd")}
-    return stats, launches
+    return stats, launches, f_launches
 
 
 def main() -> None:
@@ -3922,8 +4212,8 @@ def main() -> None:
 
     # phase 15: the dry run (two steps counted on the card against meta,
     # then the sweeps on the CPU) and the paper's baselines on the card
-    (dry_stats, dry_launches), phase_s = sync_time(lambda: dryrun_path(P, ops, get_config,
-                                                                        args.seed, dev))
+    (dry_stats, dry_launches), phase_s = sync_time(lambda: dryrun_path(
+        P, ops, get_config, args.seed, dev, meanwhile=tp_gloo_ranks))
     print(f"dry run and baselines: {phase_s:.3f} s, launches " + json.dumps(dry_launches),
           flush=True)
     for row in rows:
@@ -3937,17 +4227,19 @@ def main() -> None:
 
     # phase 16: sharded state and tensor parallelism (the sharded train step
     # and prefill on a one-rank NCCL mesh, 4 gloo ranks, the dense dry-run cells)
-    (_, tp_launches), phase_s = sync_time(lambda: sharded_path(
-        ops, get_config, par_one, lm_logits, lm_decoded, dry_stats["a"], args.lm_batch,
-        args.lm_len, args.seed, dev))
-    del par_one, lm_decoded
+    (_, tp_launches, f_launches), phase_s = sync_time(lambda: sharded_path(
+        ops, FA, get_config, par_one, lm_logits, lm_decoded, dry_stats["a"],
+        dry_stats.pop("meanwhile"), families, args.lm_batch, args.lm_len, args.seed, dev))
+    del par_one, lm_decoded, families
     print(f"{smi}: sharded state and tensor parallelism: {phase_s:.3f} s, launches "
-          + json.dumps(tp_launches), flush=True)
+          + json.dumps(tp_launches) + ", (f) " + json.dumps(f_launches), flush=True)
     for row in rows:
         if row["name"] in tp_launches:
             check(tp_launches[row["name"]] > 0, f"phase 16 launched no {row['name']}")
+            check(f_launches[row["name"]] > 0, f"phase 16 (f) launched no {row['name']}")
             row.setdefault("launches_by_path", {})["sharded (phase 16)"] = tp_launches[
                 row["name"]]
+            row["launches_by_path"]["sharded families (phase 16)"] = f_launches[row["name"]]
     torch.cuda.empty_cache()
 
     if args.trace is not None:

@@ -34,17 +34,19 @@ contributions in slot order in bf16, so the card's sum has one order
 the rules of a mesh with a ``"model"`` axis, a ``moe_ep`` config takes the
 reference's expert-parallel route: each model rank dispatches every token
 to its own experts only, and one all_reduce over the model group sums the
-ranks' outputs (bit-equal to the single-device MoE on one rank).  Under a
-sharded step's rules (``AxisRules.shards``) that map ``heads`` and ``ffn``
-to ``"model"`` (the dense family), attention runs on this rank's heads and
-the MLP on its slice of ``d_ff``, Megatron-LM's way: a column-split
+ranks' outputs (bit-equal to the single-device MoE on one rank).  Under
+a sharded step's rules (``AxisRules.shards``) every family splits over
+``"model"`` what the rules map there, Megatron-LM's way: a column-split
 product behind ``copy_to``, a row-split one before ``reduce_from``
-(``parallel.collectives``); decode does the same on its one token.
-Decode caches in ``cache_specs``' layout hold this rank's piece of the
-sequence (a ``Piece``): each rank attends over its piece and the ranks'
-partial softmaxes merge over ``"model"`` (flash-decoding), and the
-recurrent and WKV states, split by width or heads, are gathered whole for
-the step.  The
+(``parallel.collectives``).  Attention, cross-attention and MLA run on this
+rank's heads, the MLP and the MoE's shared experts on its slice of the
+ffn, the RG-LRU on its channels and RWKV6's time-mix on its heads (its
+channel-mix on its slice of the ffn); decode does the same on its one
+token.  Decode caches in ``cache_specs``' layout hold this rank's piece of
+the sequence (a ``Piece``): each rank attends over its piece and the
+ranks' partial softmaxes merge over ``"model"`` (flash-decoding); the
+recurrent and WKV states, split by width or heads, are the pieces that
+the split compute reads and writes.  The
 RG-LRU scan is ``lax.associative_scan``'s recursion (pair neighbours, scan
 the pairs, fill in the even elements), so its products and sums are the
 reference's, bit for bit.  Decode writes recurrent and RWKV states in
@@ -62,7 +64,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.collectives import Piece, all_gather_dim, copy_to, merge_partials, reduce_from
+from ..parallel.collectives import (Piece, all_gather_dim, copy_to, gather_dim, merge_partials,
+                                    reduce_from, sum_over)
 from ..parallel.sharding import current_rules, mesh_axes
 
 __all__ = [
@@ -301,12 +304,21 @@ def _write_step(buf: torch.Tensor, new: torch.Tensor, slot: int, masked: bool,
 
 def _tp_shards(logical: str):
     """The step's ``Shards`` where the active rules split ``logical`` over
-    ``"model"`` on sharded params (a sharded step of the dense family),
+    ``"model"`` on sharded params (a sharded step, ``train_step._step_rules``),
     else None."""
     rules = current_rules()
     if rules is None or rules.shards is None or rules.resolve(logical) != "model":
         return None
     return rules.shards
+
+
+def _piece(t: torch.Tensor, dim: int, sh, size: int) -> torch.Tensor:
+    """This rank's ``size`` entries along ``dim`` of ``t``, a leaf that every
+    rank holds whole (model rank r reads r * size ..), or ``t`` itself where
+    it holds no more (one device, a group of one)."""
+    if sh is None or t.shape[dim] == size:
+        return t
+    return t.narrow(dim, sh.index["model"] * size, size)
 
 
 def _tp_kv_weights(p: Params, cfg: ModelConfig, sh, hl: int, kv_split: bool,
@@ -362,13 +374,16 @@ def attention_apply(
     buffer wraps) and returns it; ``"prefill"`` returns a new cache.
 
     Under rules that split ``heads`` over ``"model"`` on sharded params,
-    self-attention runs on this rank's query heads: ``wq`` column-split
-    behind ``copy_to``; ``wk`` and ``wv`` column-split where the rules split
-    ``kv_heads`` too, else whole (the block gathered them) and read for the
-    kv heads that the local query heads need; ``q_norm`` and ``k_norm``
-    replicated on local heads (their gradients sum over ``"model"``); ``wo``
-    row-split, then ``reduce_from``.  A prefill or decode caches every kv
-    head (gathered over ``"model"`` where the rules split them).
+    self-attention, cross-attention and the encoder's attention run on this
+    rank's query heads: ``wq`` column-split behind ``copy_to`` (the cross
+    context behind one too); ``wk`` and ``wv`` column-split where the rules
+    split ``kv_heads`` too, else whole (the block gathered them) and read
+    for the kv heads that the local query heads need; ``q_norm`` and
+    ``k_norm`` replicated on local heads (the block passes them through
+    ``copy_to``: their gradients sum over ``"model"``); ``wo`` row-split,
+    then ``reduce_from``.  A prefill or decode caches every kv head
+    (gathered over ``"model"`` where the rules split them), the cross
+    cache too; ``"decode_cross"`` reads the local query heads' kv heads.
 
     ``piece``: the decode caches are this rank's piece of the sequence
     (``parallel.collectives.Piece``, from ``cache_specs``' layout).  The
@@ -378,7 +393,7 @@ def attention_apply(
     softmaxes merge (``merge_partials``) before this rank's heads go on to
     ``wo``.  None: the whole sequence is here, and attention runs as on one
     device."""
-    sh = _tp_shards("heads") if kv_source is None and mode != "decode_cross" else None
+    sh = _tp_shards("heads")
     group = None if sh is None else sh.groups["model"]
     kv_split = sh is not None and current_rules().resolve("kv_heads") == "model"
     b, s, _ = x.shape
@@ -395,7 +410,7 @@ def attention_apply(
         v = cache.v.to(COMPUTE_DTYPE)
         sk_in = k.shape[1]
     else:
-        src = kv_source.to(COMPUTE_DTYPE) if kv_source is not None else xc
+        src = copy_to(kv_source.to(COMPUTE_DTYPE), group) if kv_source is not None else xc
         sk_in = src.shape[1]
         wk, wv = p["wk"], p["wv"]
         if sh is not None:
@@ -404,9 +419,9 @@ def attention_apply(
         k = (src @ wk.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
         v = (src @ wv.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, copy_to(p["q_norm"], group), cfg.norm_eps)
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         if mode != "decode_cross":
-            k = rmsnorm(k, copy_to(p["k_norm"], group), cfg.norm_eps)
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if not is_cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -500,16 +515,26 @@ def mla_apply(
     W_vup); train and prefill expand K and V per head and run causal
     self-attention at head dim nope + rope (the flash kernel, V padded to
     that width; ``_sdpa`` under ``attn_softmax_bf16``, with the float32
-    softmax the reference's MLA always takes).  With a ``piece`` the decode
-    cache is this rank's piece of the sequence: the slot is written where
-    it falls, and the ranks' partial softmaxes over their latents merge
-    (``merge_partials``, ``ctx_lat`` the partial output) before the W_vup
-    expansion; every head runs on every rank."""
+    softmax the reference's MLA always takes).
+
+    Under rules that split ``heads`` over ``"model"`` on sharded params MLA
+    runs on this rank's heads: ``wq``, ``w_kup`` and ``w_vup`` column-split
+    behind ``copy_to``, ``wo`` row-split, then ``reduce_from``; the latent
+    and rope key (``w_dkv``, ``w_krope``, ``kv_norm``, replicated: the block
+    passes them through ``copy_to``) are computed whole on every rank and
+    cached whole.  With a ``piece`` the decode cache is this rank's piece
+    of the sequence: the slot is written where it falls, every head attends
+    over the piece (the local heads' absorbed queries gathered over
+    ``"model"``), the ranks' partial softmaxes over their latents merge
+    (``merge_partials``, ``ctx_lat`` the partial output), and the merged
+    context is cut back to the local heads for W_vup and ``wo``."""
+    sh = _tp_shards("heads")
+    group = None if sh is None else sh.groups["model"]
     b, s, _ = x.shape
-    h = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    xc = x.to(COMPUTE_DTYPE)
-    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, h, nd + rd)
+    xc = copy_to(x.to(COMPUTE_DTYPE), group)
+    hl = p["wq"].shape[-1] // (nd + rd)  # this rank's heads (all of them off a sharded step)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, hl, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     c_kv = rmsnorm(xc @ p["w_dkv"].to(COMPUTE_DTYPE), p["kv_norm"], cfg.norm_eps)
@@ -524,8 +549,11 @@ def mla_apply(
             _write_step(buf_t, new_t, int(cache_index), cfg.masked_cache_update, piece)
         new_cache = cache
         ck, cr = cache.c_kv.to(COMPUTE_DTYPE), cache.k_rope.to(COMPUTE_DTYPE)
-        w_kup = p["w_kup"].to(COMPUTE_DTYPE).reshape(-1, h, nd)  # [lora, H, nd]
+        w_kup = p["w_kup"].to(COMPUTE_DTYPE).reshape(-1, hl, nd)  # [lora, H, nd]
         q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_kup)  # [B, 1, H, lora]
+        if piece is not None and sh is not None:  # every head over this rank's keys
+            q_lat, q_rope = (all_gather_dim(t, 2, group, sh.sizes["model"])
+                             for t in (q_lat, q_rope))
         s_lat = torch.einsum("bshl,bkl->bhsk", q_lat, ck)
         s_rope = torch.einsum("bshr,bkr->bhsk", q_rope, cr)
         scores = (s_lat + s_rope).float() * ((nd + rd) ** -0.5)
@@ -539,13 +567,15 @@ def mla_apply(
             m, l, e = (t.transpose(1, 2) for t in _partial_softmax(scores))  # [B, 1, H, .]
             o = torch.einsum("bshk,bkl->bshl", e, ck.float())
             ctx_lat = merge_partials(m, l, o, piece.group, COMPUTE_DTYPE)
-        w_vup = p["w_vup"].to(COMPUTE_DTYPE).reshape(-1, h, vd)
+            if sh is not None:
+                ctx_lat = ctx_lat[:, :, sh.index["model"] * hl:(sh.index["model"] + 1) * hl]
+        w_vup = p["w_vup"].to(COMPUTE_DTYPE).reshape(-1, hl, vd)
         ctx = torch.einsum("bshl,lhv->bshv", ctx_lat, w_vup)
     else:
-        k_nope = (c_kv @ p["w_kup"].to(COMPUTE_DTYPE)).reshape(b, s, h, nd)
-        vv = (c_kv @ p["w_vup"].to(COMPUTE_DTYPE)).reshape(b, s, h, vd)
+        k_nope = (c_kv @ p["w_kup"].to(COMPUTE_DTYPE)).reshape(b, s, hl, nd)
+        vv = (c_kv @ p["w_vup"].to(COMPUTE_DTYPE)).reshape(b, s, hl, vd)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        kk = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+        kk = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(b, s, hl, rd)], dim=-1)
         if cfg.attn_softmax_bf16:
             ctx = _sdpa(qq, kk, vv, _causal_mask(s, s, device=x.device))
         else:
@@ -556,8 +586,8 @@ def mla_apply(
         if mode == "prefill":
             new_cache = MLACache(c_kv=c_kv.to(COMPUTE_DTYPE), k_rope=k_rope_new.to(COMPUTE_DTYPE),
                                  kpos=positions.to(torch.int32))
-    out = (ctx.reshape(b, s, h * vd) @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
-    return out, new_cache
+    out = reduce_from(ctx.reshape(b, s, hl * vd) @ p["wo"].to(COMPUTE_DTYPE), group)
+    return out.to(x.dtype), new_cache
 
 
 # --------------------------------------------------------------------- MLPs
@@ -798,19 +828,6 @@ class RecState:
     conv: torch.Tensor
 
 
-def _whole_state(t: torch.Tensor, dim: int, piece: Optional[Piece]) -> torch.Tensor:
-    """A decode state whole: ``t`` itself, or this rank's ``piece`` of it
-    along ``dim`` gathered over ``"model"``."""
-    return t if piece is None else all_gather_dim(t, dim, piece.group, piece.n)
-
-
-def _keep_piece(state: torch.Tensor, new: torch.Tensor, dim: int,
-                piece: Optional[Piece]) -> None:
-    """Write the whole new state ``new`` into ``state`` in place: all of it,
-    or this rank's ``piece`` of it along ``dim``."""
-    state.copy_(new if piece is None else new.narrow(dim, piece.first, piece.size))
-
-
 def _associative_scan(combine, elems: tuple, dim: int) -> tuple:
     """``jax.lax.associative_scan`` over ``dim`` (>= 0), by its recursion:
     combine neighbour pairs, scan the reduced sequence, then combine each
@@ -844,13 +861,23 @@ def _lru_combine(lhs: tuple, rhs: tuple) -> tuple:
     return a1 * a2, b1 * a2 + b2
 
 
-def _rglru_core(u: torch.Tensor, p: Params, h0: torch.Tensor, c: float = 8.0):
+def _rglru_core(u: torch.Tensor, p: Params, h0: torch.Tensor, c: float = 8.0, sh=None):
     """u [B, S, W]; returns (y [B, S, W] in u's dtype, h_final [B, W]
-    float32), by the associative scan of h_t = a_t h_{t-1} + b_t."""
-    uc = u.float()
-    r = _sigmoid(uc @ p["wa"].float())
-    i = _sigmoid(uc @ p["wx"].float())
-    lam = p["lam"].float()
+    float32), by the associative scan of h_t = a_t h_{t-1} + b_t.  With
+    ``sh`` (the RG-LRU's channels split over ``"model"``) u, h0 and the
+    outputs are this rank's channels: u is gathered over ``"model"`` for
+    the gates (``wa`` and ``wx`` column-split read every channel; the
+    gather's backward sums the ranks' parts), ``lam`` is read for the local
+    channels, and the scan is per channel."""
+    wl = p["wa"].shape[-1]  # this rank's channels (all of them off a sharded step)
+    u = u.contiguous()  # the gates' products read one layout, gathered or not
+    if sh is not None:
+        u = gather_dim(u, -1, sh.groups["model"], sh.sizes["model"], sh.index["model"], True)
+    ua = u.float()
+    r = _sigmoid(ua @ p["wa"].float())
+    i = _sigmoid(ua @ p["wx"].float())
+    uc = _piece(ua, -1, sh, wl)
+    lam = _piece(p["lam"], 0, sh, wl).float()
     log_a0 = -torch.logaddexp(-lam, torch.zeros_like(lam))  # log sigmoid(lam); F.softplus cuts at 20
     a = torch.exp(c * r * log_a0[None, None, :])
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * uc)
@@ -873,31 +900,35 @@ def rglru_apply(
     *,
     mode: str,
     state: Optional[RecState] = None,
-    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[RecState]]:
     """The recurrent block: a gelu gate branch, a short causal depthwise
     conv and the RG-LRU on the input branch.  ``"decode"`` (one token)
     writes the new h and conv tail into ``state`` in place and returns it;
-    ``"prefill"`` returns a new state, ``"train"`` none.  With a ``piece``
-    the decode state is this rank's piece of the width: it is gathered
-    whole over ``"model"`` before the step and this rank keeps its piece
-    of the new one (the block's compute is not split yet; splitting it
-    over ``"model"`` removes these gathers)."""
+    ``"prefill"`` returns a new state, ``"train"`` none.
+
+    Under rules that split ``lru_width`` over ``"model"`` on sharded params
+    the block runs on this rank's channels: ``w_in_x`` and ``w_in_g``
+    column-split behind ``copy_to``, the depthwise ``conv``, ``lam`` and
+    the scan per channel, the gates as :func:`_rglru_core` says, and
+    ``w_out`` row-split, then ``reduce_from``.  Its prefill and decode
+    states are this rank's channels, the piece that ``cache_specs`` gives
+    it."""
+    sh = _tp_shards("lru_width")
+    group = None if sh is None else sh.groups["model"]
     b, s, _ = x.shape
-    w = cfg.lru_width or cfg.d_model
-    xc = x.to(COMPUTE_DTYPE)
-    u = xc @ p["w_in_x"].to(COMPUTE_DTYPE)  # [B, S, W]
+    xc = copy_to(x.to(COMPUTE_DTYPE), group)
+    u = xc @ p["w_in_x"].to(COMPUTE_DTYPE)  # [B, S, W], this rank's channels
+    w = u.shape[-1]
     g = _gelu(xc @ p["w_in_g"].to(COMPUTE_DTYPE))
     cw = cfg.conv_width
     conv = p["conv"].to(COMPUTE_DTYPE)
     if mode == "decode":
-        assert state is not None
-        h0, tail = (_whole_state(t, -1, piece) for t in (state.h, state.conv))
-        hist = torch.cat([tail.to(COMPUTE_DTYPE), u], dim=1)  # [B, cw, W]
+        assert state is not None and state.h.shape[-1] == w, (state.h.shape, w)
+        hist = torch.cat([state.conv.to(COMPUTE_DTYPE), u], dim=1)  # [B, cw, W]
         conv_out = torch.einsum("bcw,cw->bw", hist, conv)[:, None, :]
-        y_core, h_fin = _rglru_core(conv_out, p, h0)
-        _keep_piece(state.h, h_fin, -1, piece)
-        _keep_piece(state.conv, hist[:, 1:, :], -1, piece)
+        y_core, h_fin = _rglru_core(conv_out, p, state.h, sh=sh)
+        state.h.copy_(h_fin)
+        state.conv.copy_(hist[:, 1:, :])
         new_state = state
     else:
         up = torch.cat([torch.zeros((b, cw - 1, w), dtype=COMPUTE_DTYPE, device=x.device), u],
@@ -905,10 +936,10 @@ def rglru_apply(
         stacked = torch.stack([up[:, i : i + s, :] for i in range(cw)], dim=2)  # [B, S, cw, W]
         conv_out = torch.einsum("bscw,cw->bsw", stacked, conv)
         h0 = torch.zeros((b, w), dtype=torch.float32, device=x.device) if state is None else state.h
-        y_core, h_fin = _rglru_core(conv_out, p, h0)
+        y_core, h_fin = _rglru_core(conv_out, p, h0, sh=sh)
         new_state = (RecState(h=h_fin, conv=up[:, -(cw - 1):, :].to(COMPUTE_DTYPE))
                      if mode == "prefill" else None)
-    y = (y_core * g) @ p["w_out"].to(COMPUTE_DTYPE)
+    y = reduce_from((y_core * g) @ p["w_out"].to(COMPUTE_DTYPE), group)
     return y.to(x.dtype), new_state
 
 
@@ -991,6 +1022,19 @@ class RwkvState:
     shift_c: torch.Tensor
 
 
+def _norm_over_heads(y: torch.Tensor, scale: torch.Tensor, eps: float, sh, d: int) -> torch.Tensor:
+    """``rmsnorm`` of y [..., D] over the whole width ``d`` where y is this
+    rank's slice of it (``sh``): its sum of squares summed over ``"model"``
+    (forward and backward), divided by ``d``.  One device or a group of
+    one: ``rmsnorm`` itself (its mean and a sum / d may part in the last
+    bit)."""
+    if sh is None or sh.sizes["model"] == 1:
+        return rmsnorm(y, scale, eps)
+    yf = y.float()
+    var = sum_over(torch.sum(yf * yf, dim=-1, keepdim=True), sh.groups["model"]) / d
+    return (yf * torch.rsqrt(var + eps)).to(y.dtype) * scale.to(y.dtype)
+
+
 def rwkv_apply(
     p: Params,
     x: torch.Tensor,
@@ -998,28 +1042,45 @@ def rwkv_apply(
     *,
     mode: str,
     state: Optional[RwkvState] = None,
-    piece: Optional[Piece] = None,
 ) -> tuple[torch.Tensor, Optional[RwkvState]]:
     """RWKV6 (Finch) block: time-mix with a data-dependent decay, then
     channel-mix.  The WKV runs chunked when ``cfg.rwkv_chunked`` divides S
     and S is at least two chunks, else step by step (decode's one token).
     ``"decode"`` writes the new state into ``state`` in place and returns
-    it; ``"prefill"`` returns a new state, ``"train"`` none.  With a
-    ``piece`` the decode WKV state is this rank's piece of the heads: it is
-    gathered whole over ``"model"`` before the step and this rank keeps its
-    piece of the new one (splitting the block's compute over ``"model"``
-    removes the gather)."""
+    it; ``"prefill"`` returns a new state, ``"train"`` none.
+
+    Under rules that split ``heads`` over ``"model"`` on sharded params the
+    time-mix runs on this rank's heads: each token-shift lerp behind
+    ``copy_to``, ``wr``, ``wk``, ``wv`` and ``wg`` column-split, the decay
+    (``w_lora_b``'s columns, ``decay_base``'s rows), ``bonus_u`` and the WKV
+    per head, ``ln_x`` one RMSNorm over the whole width (its sum of squares
+    summed over ``"model"``), ``wo`` row-split, then ``reduce_from``; the
+    replicated leaves read for local heads (the lora, ``decay_base``,
+    ``bonus_u``, ``ln_x``) come through the block's ``copy_to``, while
+    ``mix_rkvwg`` and ``cm_mix`` feed the lerps, whose gradients
+    ``copy_to`` has already summed.  The channel-mix splits
+    ``cm_k`` by columns and ``cm_v`` by rows where the rules split ``ffn``
+    (then ``reduce_from``), and ``cm_r`` by columns where they split
+    ``heads`` (its output gathered over ``"model"`` for the product with
+    ``cm_v``'s whole one).  The WKV state in prefill and decode is this
+    rank's heads, the piece that ``cache_specs`` gives it; the token shifts
+    stay whole."""
+    sh = _tp_shards("heads")
+    shf = _tp_shards("ffn")
+    group = None if sh is None else sh.groups["model"]
+    fgroup = None if shf is None else shf.groups["model"]
     b, s, d = x.shape
     hk = cfg.rwkv_head_dim
-    h = d // hk
     xc = x.to(COMPUTE_DTYPE)
     zero = torch.zeros((b, 1, d), dtype=COMPUTE_DTYPE, device=x.device)
     prev_t = state.shift_t.to(COMPUTE_DTYPE)[:, None, :] if state is not None else zero
     x_prev = torch.cat([prev_t, xc[:, :-1, :]], dim=1)
     mix = p["mix_rkvwg"].to(COMPUTE_DTYPE)  # [5, D]
+    dl = p["wr"].shape[-1]  # this rank's width (all of it off a sharded step)
+    h = dl // hk
 
-    def lerp(i):
-        return xc + (x_prev - xc) * mix[i][None, None, :]
+    def lerp(i):  # each feeds a split product (the decay's through its lora's columns)
+        return copy_to(xc + (x_prev - xc) * mix[i][None, None, :], group)
 
     def proj(i, name):
         return (lerp(i) @ p[name].to(COMPUTE_DTYPE)).reshape(b, s, h, hk)
@@ -1027,11 +1088,15 @@ def rwkv_apply(
     r, kk, vv = proj(0, "wr"), proj(1, "wk"), proj(2, "wv")
     g = _silu(lerp(4) @ p["wg"].to(COMPUTE_DTYPE))
     # data-dependent decay (v6): w = exp(-exp(base + lora(x)))
-    dd = (lerp(3) @ p["w_lora_a"].to(COMPUTE_DTYPE)) @ p["w_lora_b"].to(COMPUTE_DTYPE)
+    dd = (lerp(3) @ p["w_lora_a"].to(COMPUTE_DTYPE)) @ _piece(p["w_lora_b"], 1, sh, dl).to(
+        COMPUTE_DTYPE)
     decay = torch.exp(-torch.exp(torch.clamp(
-        p["decay_base"].float().reshape(1, 1, d) + dd.float(), -20.0, 2.0))).reshape(b, s, h, hk)
-    u = p["bonus_u"].float()  # [H, K]
-    s0 = _whole_state(state.wkv, 1, piece).float() if state is not None else torch.zeros(
+        _piece(p["decay_base"], 0, sh, h).float().reshape(1, 1, dl) + dd.float(), -20.0,
+        2.0))).reshape(b, s, h, hk)
+    u = _piece(p["bonus_u"], 0, sh, h).float()  # [H, K]
+    if state is not None:
+        assert state.wkv.shape[-3] == h, (state.wkv.shape, h)
+    s0 = state.wkv.float() if state is not None else torch.zeros(
         (b, h, hk, hk), dtype=torch.float32, device=x.device)
 
     chunk = cfg.rwkv_chunked
@@ -1045,8 +1110,9 @@ def rwkv_apply(
                                    s_fin + u[None, :, :, None] * kv).to(COMPUTE_DTYPE))
             s_fin = s_fin * decay[:, t].float()[..., None] + kv
         y = torch.stack(ys, dim=1)
-    y = rmsnorm(y.reshape(b, s, d), p["ln_x"], cfg.norm_eps) * g
-    att = (y @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
+    y = _norm_over_heads(y.reshape(b, s, dl), _piece(p["ln_x"], 0, sh, dl), cfg.norm_eps, sh,
+                         d) * g
+    att = reduce_from(y @ p["wo"].to(COMPUTE_DTYPE), group).to(x.dtype)
 
     # channel-mix (with its own shift)
     xa = xc + att.to(COMPUTE_DTYPE)
@@ -1055,14 +1121,17 @@ def rwkv_apply(
     cmix = p["cm_mix"].to(COMPUTE_DTYPE)
     xk = xa + (xa_prev - xa) * cmix[0][None, None, :]
     xr = xa + (xa_prev - xa) * cmix[1][None, None, :]
-    kq = torch.square(torch.relu(xk @ p["cm_k"].to(COMPUTE_DTYPE)))
-    cm = _sigmoid(xr @ p["cm_r"].to(COMPUTE_DTYPE)) * (kq @ p["cm_v"].to(COMPUTE_DTYPE))
+    kq = torch.square(torch.relu(copy_to(xk, fgroup) @ p["cm_k"].to(COMPUTE_DTYPE)))
+    rr = _sigmoid(copy_to(xr, group) @ p["cm_r"].to(COMPUTE_DTYPE))
+    if sh is not None:  # every rank multiplies the whole width
+        rr = gather_dim(rr, -1, group, sh.sizes["model"], sh.index["model"], False)
+    cm = rr * reduce_from(kq @ p["cm_v"].to(COMPUTE_DTYPE), fgroup)
     out = (att.to(COMPUTE_DTYPE) + cm).to(x.dtype)
 
     new_state = None
     if mode == "decode":
         assert state is not None
-        _keep_piece(state.wkv, s_fin, 1, piece)
+        state.wkv.copy_(s_fin)
         state.shift_t.copy_(xc[:, -1, :])
         state.shift_c.copy_(xa[:, -1, :])
         new_state = state

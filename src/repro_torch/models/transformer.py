@@ -31,8 +31,9 @@ Under a sharded step's rules (``AxisRules.shards``, ``training.train_step``
 on a mesh) the params are this rank's shards: each block gathers its own
 leaves first, inside the remat (ZeRO-3: the backward gathers them again
 and reduce-scatters their gradients), over the axes its compute does not
-split (:func:`_gather_block`).  Where the rules map ``vocab`` to
-``"model"`` (the dense family), the embedding is a masked lookup in this
+split (:func:`_gather_block`, whose tables follow the reference's
+``param_specs``: every family's heads, width and ffn).  Where the rules
+map ``vocab`` to ``"model"``, the embedding is a masked lookup in this
 rank's rows of the table summed over ``"model"``, and the logits are this
 rank's vocabulary slice (:func:`logits_from`; :func:`whole_vocab` gathers
 a prefill's last position).
@@ -53,6 +54,7 @@ from torch.utils.checkpoint import (
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
 from ..parallel.collectives import all_gather_dim, copy_to, reduce_from
+from ..parallel.partition import model_axis
 from ..parallel.sharding import current_rules
 from .layers import (
     COMPUTE_DTYPE,
@@ -184,14 +186,13 @@ def block_apply(
                     new_cache["cross"] = cc
             x = x + yc
     elif kind == "rec":
-        y, st = rglru_apply(p["rec"], h, cfg, mode=mode, state=cache.get("rec") if cache else None,
-                            piece=piece.get("rec"))
+        y, st = rglru_apply(p["rec"], h, cfg, mode=mode, state=cache.get("rec") if cache else None)
         if st is not None:
             new_cache["rec"] = st
         x = x + y
     elif kind == "rwkv":
         y, st = rwkv_apply(p["rwkv"], h, cfg, mode=mode,
-                           state=cache.get("rwkv") if cache else None, piece=piece.get("rwkv"))
+                           state=cache.get("rwkv") if cache else None)
         if st is not None:
             new_cache["rwkv"] = st
         return x + y, (new_cache or None), aux
@@ -210,30 +211,46 @@ def _sharded():
     return rules, (None if rules is None else rules.shards)
 
 
+# replicated leaves (no "model" in their spec) that split compute reads:
+# each rank's gradient covers its heads or channels only, so they pass
+# through copy_to (the gradient summed over "model"); by parent and axis
+_SUMMED = {
+    "attn": dict.fromkeys(("q_norm", "k_norm", "w_dkv", "w_krope", "kv_norm"), "heads"),
+    "cross_attn": dict.fromkeys(("q_norm", "k_norm"), "heads"),
+    "rec": {"lam": "lru_width"},
+    "rwkv": dict.fromkeys(("w_lora_a", "w_lora_b", "decay_base", "bonus_u", "ln_x"), "heads"),
+}
+
+
 def _gather_block(p: Params, cfg: ModelConfig) -> Params:
     """A block's leaves for its compute.  Under a sharded step's rules each
-    leaf is gathered over the mesh axes that its compute does not split:
-    where the rules split heads, kv heads and ffn over ``"model"``,
-    attention's and the MLP's leaves keep it (``wk`` and ``wv`` are gathered
-    over it where the kv heads do not divide it, and each rank reads its
-    own kv heads, so their gradients sum over it); the expert-parallel MoE's
-    expert weights keep it too; every other leaf is gathered whole."""
+    leaf is gathered over the mesh axes that its compute does not split: a
+    leaf whose spec puts a dim on ``"model"`` keeps it where the rules map
+    that dim's logical axis (``parallel.partition.model_axis``) there (the
+    MoE's expert stacks where the expert-parallel route runs); ``wk`` and
+    ``wv``, gathered over it where the kv heads do not divide it while the
+    query heads do, are read for each rank's own kv heads, so their
+    gradients sum over it; a leaf of :data:`_SUMMED` goes through
+    ``copy_to``; every other leaf is gathered whole, its compute the same
+    on every rank."""
     rules, sh = _sharded()
     if sh is None:
         return p
-    heads, kv, ffn = (rules.resolve(n) == "model" for n in ("heads", "kv_heads", "ffn"))
     ep = expert_parallel(cfg, rules)
+    heads = rules.resolve("heads") == "model"
 
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         name, parent = path[-1], (path[-2] if len(path) > 1 else None)
-        split = ((parent == "attn" and ((name in ("wq", "wo") and heads)
-                                        or (name in ("wk", "wv") and kv)))
-                 or (parent == "mlp" and ffn)
-                 or (parent == "moe" and ep and name in ("wg", "wu", "wd")))
-        summed = parent == "attn" and name in ("wk", "wv") and heads
-        return sh.gather(tree, path, ("model",) if split else (), summed)
+        axis = model_axis(path, tree)
+        keep = axis is not None and (ep if axis == "experts" else rules.resolve(axis) == "model")
+        summed = parent in ("attn", "cross_attn") and name in ("wk", "wv") and heads
+        leaf = sh.gather(tree, path, ("model",) if keep else (), summed)
+        axis = _SUMMED.get(parent, {}).get(name)
+        if axis is not None and rules.resolve(axis) == "model":
+            leaf = copy_to(leaf, sh.groups["model"])
+        return leaf
 
     return walk(p, ())
 
@@ -245,7 +262,11 @@ def _vocab_split(rules) -> bool:
 # ------------------------------------------------------- prefill cross path
 def cross_prefill_cache(p_block: Params, source: torch.Tensor, cfg: ModelConfig) -> AttnCache:
     """Cross-attention K/V of a cross block over the (encoder or vision)
-    context [B, S, D]."""
+    context [B, S, D], on one device: the sharded steps make their cross
+    caches in the block's prefill, and a sharded step's rules raise here."""
+    if _sharded()[1] is not None:
+        raise ConfigError("cross_prefill_cache runs on one device; a sharded step makes its "
+                          "cross caches in the block's prefill")
     b, s, _ = source.shape
     hd = cfg.resolved_head_dim
     pa = p_block["cross_attn"]

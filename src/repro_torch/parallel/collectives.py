@@ -18,20 +18,34 @@ themselves:
   along the others (``"model"`` where every rank computes the same), so
   the leaf's gradient arrives as this rank's shard.
 * :func:`copy_to` and :func:`reduce_from`, Megatron-LM's f and g: identity
-  forward and all_reduce backward at the input of a column-split product;
-  all_reduce forward and identity backward after a row-split one.
-* :func:`all_gather_dim` (no gradient): a prefill's cache and last
-  logits made whole over ``"model"``, a decode's local query heads, and
-  the recurrent states that decode gathers whole.
+  forward and all_reduce backward at the input of a column-split product
+  (or on a replicated leaf that split compute reads: its gradient is
+  partial on each rank); all_reduce forward and identity backward after a
+  row-split one.  :func:`sum_over` sums forward and backward (a statistic
+  over a dim that the ranks split, RWKV's norm).
+* :func:`gather_dim`: an activation's pieces along a split dim gathered,
+  with a gradient that sums (the ranks read different slices of the whole)
+  or takes this rank's piece (the ranks compute the same from it).
+  :func:`all_gather_dim` (no gradient): a prefill's cache and last logits
+  made whole over ``"model"``, and a decode's local query heads.
 
 The decode caches live in ``cache_specs``' layout (the flash-decoding
 one): batch over the batch axes, the cache's sequence (a recurrent
 state's width or heads) over ``"model"`` where the axis divides it.
 :meth:`Shards.local` and :meth:`Shards.wrap` take a cache tree as they
 take params (dataclass instances are nodes), :meth:`Shards.cache_pieces`
-tells each layer where its piece sits (a :class:`Piece`, or None where the
-spec leaves the dim whole or ``"model"`` is 1), and :func:`merge_partials`
-is the flash-decoding combine of the ranks' partial softmaxes.
+tells each attention layer where its piece of the sequence sits (a
+:class:`Piece`, or None where the spec leaves the dim whole or
+``"model"`` is 1), and :func:`merge_partials` is the flash-decoding
+combine of the ranks' partial softmaxes.  A recurrent or WKV state's
+piece is what the layer's split compute reads and writes itself.
+
+A step's params are placed by :func:`step_specs`: ``param_specs``, but
+the vocabulary tables stay whole over ``"model"`` where the axis does not
+divide the padded vocabulary (:func:`vocab_whole`; the rules then leave
+``vocab`` whole, where JAX's shardings would refuse the split).  No
+configured model takes that route: each pads its vocabulary to a multiple
+of 128.
 
 A group of one still runs its collectives (each then copies), and every
 gathered tensor is contiguous in the leaf's own layout, so a one-rank mesh
@@ -50,7 +64,10 @@ from ..configs.base import ModelConfig
 from .partition import _spec_for_leaf, fsdp_axes_for, param_specs, shard_shape
 from .sharding import P, local_shard, mesh_axes, spec_placements
 
-__all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "merge_partials", "reduce_from"]
+__all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "gather_dim", "merge_partials",
+           "reduce_from", "step_specs", "sum_over", "vocab_whole"]
+
+_TABLES = {"embed": 0, "head": 1}  # the vocabulary tables: name -> their vocabulary dim
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -130,6 +147,24 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _SumOver(torch.autograd.Function):
+    """Summed over the group forward and backward: a partial sum that every
+    rank's outputs read whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron-LM's f over ``group``; ``x`` itself where ``group`` is None
     (no tensor parallelism)."""
@@ -140,6 +175,22 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron-LM's g over ``group``; ``x`` itself where ``group`` is
     None."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, forward and backward (each rank's
+    outputs depend on the sum of every rank's part)."""
+    return _SumOver.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, n: int, index: int,
+               summed: bool) -> torch.Tensor:
+    """This rank's piece ``x`` (rank ``index`` of ``n``) of an activation
+    gathered along ``dim`` over ``group``, with a gradient: the group's sum
+    scattered back (``summed``: each rank's compute reads its own slice of
+    the whole) or this rank's piece of it (every rank computes the same
+    from the whole)."""
+    return _Gather.apply(x, ((dim % x.ndim, group, n, index, summed),))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,17 +245,18 @@ class Shards:
         self.index = dict(zip(self.sizes, mesh.get_coordinate()))
         self.groups = {a: mesh.get_group(a) for a in self.sizes}
         self.fsdp = fsdp_axes_for(cfg, mesh)
+        self.whole_vocab = vocab_whole(cfg, mesh)
         self._specs: dict = {}  # a tree's leaf shapes -> its specs
         self._placements: dict = {}  # spec -> placements
         self._plans: dict = {}  # (path, ndim, keep, summed_model) -> gather steps
         self._shapes: set = set()  # (shape, spec) checked by shard_shape
 
     def specs(self, params):
-        """``param_specs`` of ``params``, made once for each structure of
+        """:func:`step_specs` of ``params``, made once for each structure of
         leaf shapes."""
         key = _shape_key(params)
         if key not in self._specs:
-            self._specs[key] = param_specs(params, self.cfg, self.mesh)
+            self._specs[key] = step_specs(params, self.cfg, self.mesh)
         return self._specs[key]
 
     def placements(self, spec: P) -> tuple:
@@ -224,7 +276,10 @@ class Shards:
         steps = self._plans.get(key)
         if steps is None:
             steps = []
-            for dim, part in enumerate(_spec_for_leaf(path, x, self.fsdp)):
+            spec = _spec_for_leaf(path, x, self.fsdp)
+            if self.whole_vocab and len(path) == 1 and path[0] in _TABLES:
+                spec = _whole_dim(spec, _TABLES[path[0]])
+            for dim, part in enumerate(spec):
                 for name in reversed(_names(part)):  # the inner axis first
                     if name not in keep:
                         steps.append((dim, self.groups[name], self.sizes[name],
@@ -272,12 +327,12 @@ class Shards:
         return _zip_map(one, tree, specs, like)
 
     def cache_pieces(self, caches, specs):
-        """Each cache of a decode tree (a dataclass instance) as the
-        :class:`Piece` of its split dim that this rank holds, or None where
-        ``specs`` (``cache_specs``') leave that dim whole or ``"model"`` is 1:
-        the sequence of an attention or latent cache (``kpos``' last dim),
-        a recurrent state's width (``h``'s last) or a WKV state's heads
-        (``wkv``'s third from last).  ``caches`` has the global shapes."""
+        """Each attention or latent cache of a decode tree (a dataclass
+        instance with ``kpos``) as the :class:`Piece` of its sequence that
+        this rank holds, or None where ``specs`` (``cache_specs``') leave
+        the sequence whole or ``"model"`` is 1; None for a recurrent or WKV
+        state (the layer's split compute holds its own piece).  ``caches``
+        has the global shapes."""
         n = self.sizes.get("model", 1)
 
         def walk(tree, spec):
@@ -285,11 +340,10 @@ class Shards:
                 return {k: walk(tree[k], spec[k]) for k in tree}
             if isinstance(tree, (list, tuple)):
                 return type(tree)(walk(t, s) for t, s in zip(tree, spec, strict=True))
-            names = {f.name for f in dataclasses.fields(tree)}
-            name, dim = next((k, d) for k, d in (("kpos", -1), ("h", -1), ("wkv", -3))
-                             if k in names)
-            total = getattr(tree, name).shape[dim]
-            if n == 1 or "model" not in _names(getattr(spec, name)[dim]):
+            if not hasattr(tree, "kpos"):
+                return None
+            total = tree.kpos.shape[-1]
+            if n == 1 or "model" not in _names(spec.kpos[-1]):
                 return None
             size = total // n
             return Piece(self.index["model"] * size, size, total, self.groups["model"], n)
@@ -302,6 +356,33 @@ class Shards:
         axis along which the piece is replicated."""
         split = {n for part in spec for n in _names(part)}
         return all(self.index[a] == 0 for a in self.sizes if a not in split)
+
+
+def vocab_whole(cfg: ModelConfig, mesh) -> bool:
+    """Whether a sharded step keeps the vocabulary whole over ``"model"``:
+    the axis does not divide ``cfg.padded_vocab`` (510 on 4 ranks).  The
+    step's rules then leave ``vocab`` whole (``train_step._step_rules``)
+    and :func:`step_specs` places the tables so."""
+    return cfg.padded_vocab % mesh_axes(mesh).get("model", 1) != 0
+
+
+def _whole_dim(spec: P, dim: int) -> P:
+    return P(*(None if d == dim else part for d, part in enumerate(spec)))
+
+
+def step_specs(params, cfg: ModelConfig, mesh):
+    """``param_specs`` as a sharded step places its params: where
+    :func:`vocab_whole`, the vocabulary tables (``embed``, ``head``) whole
+    over their vocabulary dim, split over their other axes as the spec
+    says.  Every other leaf keeps ``param_specs``' spec, and a dim that its
+    axes do not divide raises, as JAX's shardings refuse it
+    (:meth:`Shards.local`)."""
+    specs = param_specs(params, cfg, mesh)
+    if vocab_whole(cfg, mesh):
+        for name, dim in _TABLES.items():
+            if name in specs:
+                specs[name] = _whole_dim(specs[name], dim)
+    return specs
 
 
 def _shape_key(tree):

@@ -24,8 +24,8 @@ from typing import Any
 from ..configs.base import ModelConfig
 from .sharding import P, mesh_axes, spec_placements, tree_map_with_path
 
-__all__ = ["MeshSharding", "fsdp_axes_for", "param_shardings", "param_specs", "shard_shape",
-           "spec_axes"]
+__all__ = ["MeshSharding", "fsdp_axes_for", "model_axis", "param_shardings", "param_specs",
+           "shard_shape", "spec_axes"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -124,6 +124,34 @@ def _base_rule(name: str, ndim: int, F, in_moe: bool = False):
     if name in two:
         return two[name]
     return tuple([None] * ndim)
+
+
+# the logical axis of the dim that _base_rule puts on "model", by leaf name,
+# and by parent dict where a family names its leaves alike (RWKV6's wk, wv
+# and wg split its heads; the MoE's expert stacks split its experts): a
+# sharded step's compute reads that dim's piece where its rules map the axis
+# to "model" (models.transformer._gather_block)
+_MODEL_AXIS = {
+    "embed": "vocab", "head": "vocab",
+    "wq": "heads", "wo": "heads", "wk": "kv_heads", "wv": "kv_heads",
+    "w_kup": "heads", "w_vup": "heads", "wr": "heads", "cm_r": "heads",
+    "wg": "ffn", "wu": "ffn", "wd": "ffn", "cm_k": "ffn", "cm_v": "ffn",
+    **dict.fromkeys(("w_in_x", "w_in_g", "wa", "wx", "conv", "w_out"), "lru_width"),
+}
+_MODEL_AXIS_UNDER = {"rwkv": dict.fromkeys(("wk", "wv", "wg"), "heads"),
+                     "moe": dict.fromkeys(("wg", "wu", "wd"), "experts")}
+
+
+def model_axis(path, leaf) -> str | None:
+    """The logical axis of the dim of ``leaf`` (at ``path``) that its spec
+    puts on ``"model"``, or None where the spec names no ``"model"``.  A
+    leaf whose spec names it and that no table here gives an axis raises
+    ``KeyError``."""
+    if "model" not in spec_axes(_spec_for_leaf(path, leaf, None)):
+        return None
+    keys = [k for k in path if isinstance(k, str)]
+    parent = keys[-2] if len(keys) > 1 else None
+    return _MODEL_AXIS_UNDER.get(parent, {}).get(keys[-1]) or _MODEL_AXIS[keys[-1]]
 
 
 def _spec_for_leaf(path, leaf, F) -> P:

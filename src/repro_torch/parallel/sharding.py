@@ -25,8 +25,8 @@ partitions every op.  torch has no partitioner to act on a hint, so the
 port's parallelism is explicit: the steps on a mesh (``training.train_step``)
 set rules that carry :class:`~repro_torch.parallel.collectives.Shards`
 (``AxisRules.shards``), and under them each block gathers its params'
-shards, the dense family's attention, MLP, embedding and loss split heads,
-ffn and vocab over ``"model"`` where the rules map them there, and the MoE
+shards, every family's layers, embedding and loss split heads, width, ffn
+and vocab over ``"model"`` where the rules map them there, and the MoE
 takes its expert-parallel route (``models.layers``, ``models.transformer``,
 ``parallel.collectives``).  ``shard`` itself redistributes a DTensor to
 the spec's placements and leaves a plain tensor as it is.

@@ -14,13 +14,16 @@
   reduce-scatters the gradients; a leaf replicated along a batch axis has
   its gradient summed over it in one flat float32 all_reduce (the metrics
   ride with the leaves replicated along every batch axis), and every
-  gradient and metric is then the batch ranks' mean.  The dense family
-  splits heads, ffn and vocab over ``"model"`` as the rules map them
-  (``models.layers``, ``models.transformer``, ``models.model``); every
-  other family gathers its blocks whole and runs the same compute on the
-  ranks along ``"model"``.  The clip's norm sums each shard once over the
-  mesh (one all_reduce), and AdamW is elementwise on the shards, so a
-  one-rank mesh gives the one-device step's bits.  What depends on the
+  gradient and metric is then the batch ranks' mean.  Every family splits
+  heads, width, ffn and vocab over ``"model"`` as the rules map them
+  (``_step_rules``; ``models.layers``, ``models.transformer``,
+  ``models.model``): attention's and MLA's heads, the RG-LRU's channels,
+  RWKV6's heads and channel-mix, cross-attention, the encoder, the MLP
+  and the MoE's shared experts; a dim that the axis does not divide stays
+  whole, and its leaves are gathered over ``"model"``.  The clip's norm
+  sums each shard once over the mesh (one all_reduce), and AdamW is
+  elementwise on the shards, so a one-rank mesh gives the one-device
+  step's bits.  What depends on the
   params' specs alone (the specs, placements, gather plans and the mean's
   buckets) is worked out on the first call and kept; later calls repeat
   only the collectives and the DTensors' wrapping.
@@ -33,14 +36,17 @@
   as the train step does (shards) and the **global** batch, as the train
   step does: each slices dim 0 of every batch leaf (``_DataParallel.slice``;
   a dim the batch axes do not divide stays whole on every rank, as
-  ``batch_specs`` replicates it).  Both run the dense family's
-  tensor-parallel layers (heads, ffn and vocab over ``"model"``; the
-  blocks gather only over their fsdp axes) and return DTensors of the
+  ``batch_specs`` replicates it).  Both run the train step's
+  tensor-parallel layers (heads, width, ffn and vocab over ``"model"``;
+  the split leaves are gathered only over their fsdp axes) and return
+  DTensors of the
   global shapes: the logits as this rank's rows (``batch_specs``), the
   caches as this rank's pieces under ``cache_specs`` (batch over the batch
   axes, the sequence, or a recurrent state's width or heads, over
   ``"model"`` where it divides), so ``full_tensor()`` gives the
-  reference's global arrays.  The prefill cuts its caches to that layout;
+  reference's global arrays.  The prefill cuts its sequence caches to
+  that layout (a recurrent or WKV state is this rank's piece as the split
+  layer computes it, and decode reads and writes that piece);
   the decode takes caches so placed (DTensors, or whole plain tensors of
   which each rank takes its pieces), writes the step into its local
   pieces in place (the reference donates them) and attends over its piece
@@ -70,7 +76,7 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
 from ..models import Model
-from ..parallel.collectives import Shards
+from ..parallel.collectives import Shards, vocab_whole
 from ..parallel.partition import param_specs, spec_axes
 from ..parallel.sharding import P, axis_rules, make_rules, mesh_axes, tree_map_with_path
 from ._tree import leaves, tree_map, unflatten
@@ -276,18 +282,41 @@ def _mesh_group(mesh):
     return dist.new_group(sorted(ranks))
 
 
-def _step_rules(mesh, cfg: ModelConfig, shards: Shards, tp: bool, overrides=None):
+def _step_rules(mesh, cfg: ModelConfig, shards: Shards, overrides=None):
     """The rules of a sharded step: ``make_rules``' with this rank's
-    ``shards``.  ``heads``, ``kv_heads``, ``ffn`` and ``vocab`` stay on
-    ``"model"`` only where the step splits the dense family over it (``tp``;
-    heads the axis does not divide, as ``force_head_sharding`` may ask,
-    stay whole), else they map to nothing and the blocks gather whole."""
+    ``shards``, and every family's heads, width, ffn and vocabulary split
+    over ``"model"`` as they map there, except where the axis does not
+    divide the dim, which then stays whole (each rank gathers its leaves
+    whole over ``"model"`` and computes all of it):
+
+    * ``heads`` and ``kv_heads``: query heads (RWKV's ``d_model //
+      rwkv_head_dim``, as ``cache_specs`` splits its state) that
+      ``force_head_sharding`` may ask to split unevenly stay whole, their
+      kv heads with them;
+    * ``ffn``: ``d_ff`` and the shared experts' width;
+    * ``lru_width`` (the RG-LRU's channels; the reference shards its input
+      branch on ``ffn``);
+    * ``vocab``: the padded vocabulary (``parallel.collectives.vocab_whole``;
+      its tables then whole over ``"model"``, ``step_specs``; every
+      configured model pads it to a multiple of 128).
+
+    Which leaf's dim carries which of these axes is
+    ``parallel.partition.model_axis``'s table."""
     rules = make_rules(mesh, cfg, overrides)
     msize = mesh_axes(mesh).get("model", 1)
-    if not (tp and cfg.family == "dense"):
-        rules.mapping.update(dict.fromkeys(("heads", "kv_heads", "ffn", "vocab")))
-    elif cfg.n_heads % msize:
+
+    def whole(*dims) -> bool:
+        return any(n % msize for n in dims if n)
+
+    heads = cfg.d_model // cfg.rwkv_head_dim if "rwkv" in cfg.block_group else cfg.n_heads
+    if whole(heads):
         rules.mapping.update(heads=None, kv_heads=None)
+    if whole(cfg.d_ff, cfg.moe_d_ff * cfg.n_shared_experts):
+        rules.mapping["ffn"] = None
+    split = "model" in mesh_axes(mesh) and not whole(cfg.lru_width or cfg.d_model)
+    rules.mapping["lru_width"] = "model" if split else None
+    if vocab_whole(cfg, mesh):
+        rules.mapping["vocab"] = None
     rules.shards = shards
     return rules
 
@@ -306,7 +335,7 @@ def make_train_step(model: Model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig(
         raise ConfigError("the sharded step runs the MoE's dense dispatch; expert parallelism "
                           "(moe_ep over a model axis) runs in prefill and decode")
     sh, dp, world = Shards(mesh, cfg), _DataParallel(mesh), _mesh_group(mesh)
-    rules = _step_rules(mesh, cfg, sh, tp=True)
+    rules = _step_rules(mesh, cfg, sh)
 
     def mesh_norm(specs):
         def norm(grads):
@@ -409,13 +438,27 @@ def _rows(sh: Shards, dp: _DataParallel, x: torch.Tensor, rows: int) -> DTensor:
     return sh.wrap(x, batch_specs(like, sh.mesh, dp.names), like)
 
 
-def _global_caches(caches, rows: int):
+# the decode states that the layers compute on this rank's piece of their
+# width or heads where the rules split them: name -> (dim, logical axis)
+_SPLIT_STATES = {"h": (-1, "lru_width"), "conv": (-1, "lru_width"), "wkv": (-3, "heads")}
+
+
+def _split_state(path, rules) -> bool:
+    name = path[-1]
+    return name in _SPLIT_STATES and rules.resolve(_SPLIT_STATES[name][1]) == "model"
+
+
+def _global_caches(caches, rows: int, rules, n: int):
     """The global shapes of a prefill's caches, computed from this rank's
     slice of a global batch of ``rows``: each leaf's with its batch dim
-    (dim 1 of the stacked groups', dim 0 of the others) at ``rows``."""
+    (dim 1 of the stacked groups', dim 0 of the others) at ``rows``, and a
+    state that the layers split over ``"model"`` (``_SPLIT_STATES``) at
+    ``n`` times its piece."""
     def one(path, t):
         shape = list(t.shape)
         shape[1 if path[0] == "groups" else 0] = rows
+        if _split_state(path, rules):
+            shape[_SPLIT_STATES[path[-1]][0]] *= n
         return _Global(shape)
 
     return tree_map_with_path(one, caches)
@@ -429,17 +472,21 @@ def make_prefill_step(model: Model, mesh=None):
 
         return one_device
     sh, dp = Shards(mesh, model.cfg), _DataParallel(mesh)
-    rules = _step_rules(mesh, model.cfg, sh, tp=True)
+    rules = _step_rules(mesh, model.cfg, sh)
 
     def step(params, batch):
         rows = batch["tokens"].shape[0]
         with axis_rules(rules):
             logits, caches = model.prefill(sh.local(params, sh.specs(params)),
                                            {k: dp.slice(v) for k, v in batch.items()})
-        like = _global_caches(caches, rows)
+        like = _global_caches(caches, rows, rules, sh.sizes.get("model", 1))
         specs = cache_specs(like, mesh, dp.names)
+        # the sequence caches are whole over "model" (cut here); the split
+        # states are this rank's pieces already
+        cuts = tree_map_with_path(lambda path, s: P(*[None] * len(s)) if _split_state(
+            path, rules) else s, specs)
         return (_rows(sh, dp, logits, rows),
-                sh.wrap(sh.cut(caches, specs, ("model",)), specs, like))
+                sh.wrap(sh.cut(caches, cuts, ("model",)), specs, like))
 
     return step
 
@@ -454,7 +501,7 @@ def make_decode_step(model: Model, mesh=None):
     sh, dp = Shards(mesh, model.cfg), _DataParallel(mesh)
     # the reference's decode rules: seq_model on "model" (its caches'
     # sequence), heads, ffn and vocab on "model" as in prefill
-    rules = _step_rules(mesh, model.cfg, sh, tp=True, overrides={"seq_model": "model"})
+    rules = _step_rules(mesh, model.cfg, sh, overrides={"seq_model": "model"})
 
     def step(params, tokens, caches, cache_index):
         specs = cache_specs(caches, mesh, dp.names)

@@ -13,6 +13,7 @@ compared leaf by leaf by path, as ``tuple(spec)``, which must be equal.
 placements are its spec's.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -155,3 +156,38 @@ def test_spec_matches_partition_spec_by_tuple():
         assert tuple(P(*parts)) == tuple(JP(*parts))
     assert P(("data",)) == P("data") and hash(P("a", None)) == hash(P("a", None))
     assert np.array_equal(len(P(None, "model")), 2)
+
+
+def _axis_sizes(cfg) -> dict:
+    """The count of units along each logical axis that a "model" dim of a
+    param carries (a dim holds a whole number of them)."""
+    heads = cfg.d_model // cfg.rwkv_head_dim if "rwkv" in cfg.block_group else cfg.n_heads
+    return {"vocab": cfg.padded_vocab, "heads": heads, "kv_heads": cfg.n_kv_heads,
+            "ffn": math.gcd(cfg.d_ff, cfg.moe_d_ff * cfg.n_shared_experts),
+            "lru_width": cfg.lru_width or cfg.d_model, "experts": cfg.n_experts}
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_model_axis_names_the_axis_of_every_model_dim(arch):
+    """``model_axis`` gives every full-shape param whose spec names
+    ``"model"`` a logical axis (and no other param one), and the dim that
+    the spec puts on ``"model"`` holds a whole number of that axis's units
+    (heads, kv heads, ffn, RG-LRU channels, vocabulary, experts)."""
+    rc, pc = _configs(arch, False)
+    params = _meta(ref_build(rc).init_shapes())
+    specs = PPt.param_specs(params, pc, abstract_mesh(*MESHES["16x16"]))
+    sizes, seen = _axis_sizes(pc), {}
+
+    def check(path, spec):
+        node = params
+        for k in path:
+            node = node[k]
+        axis = PPt.model_axis(path, node)
+        dims = [d for d, part in enumerate(spec) if part == "model"]
+        assert (axis is None) == (not dims), (path, spec, axis)
+        if dims:
+            assert sizes[axis] and node.shape[dims[0]] % sizes[axis] == 0, (path, axis)
+            seen[axis] = seen.get(axis, 0) + 1
+
+    tree_map_with_path(check, specs)
+    assert all(seen.get(a) for a in ("vocab", "heads", "ffn")), seen

@@ -40,6 +40,9 @@ heads), and 2 kv heads, which it splits.
   gathers) crashes at step 3 and resumes from its step-2 checkpoint onto
   its shards, landing on the uninterrupted run's state and losses bit for
   bit; each checkpoint file equals a save of the same state made whole.
+* The other families' cases are in
+  ``tests/test_torch_tensor_parallel_families.py`` (a file of their own,
+  so that a pytest run distributed by file runs the two side by side).
 * The replicated leaves on their own, one step on a (1, 2) mesh (tensor
   parallelism only): ``q_norm`` and ``k_norm`` act on each rank's heads and
   their gradients sum over ``"model"``; ``wk``/``wv`` (1 kv head, gathered
@@ -48,6 +51,7 @@ heads), and 2 kv heads, which it splits.
   block norms, replicated and computed the same on both ranks, equal on
   both ranks bit for bit.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -59,8 +63,8 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch_dist_helpers import ROOT, RANK_TIMEOUT, dist_guard, one_rank, run_ranks  # noqa: F401
 from torch_dist_helpers import whole
-from torch_tp_case import GRAD_REL, OPT, TINY, cache_tensors, gaps, leaf_names, one_device
-from torch_tp_case import run, run_workers, setup, within
+from torch_tp_case import GRAD_REL, OPT, cache_tensors, gaps, leaf_names, one_device, run
+from torch_tp_case import run_workers, setup, within
 
 from repro import configs as RC
 from repro import models as RM
@@ -98,7 +102,7 @@ from repro.parallel.partition import param_specs
 from repro.parallel.sharding import axis_rules, make_rules
 from repro.training.optimizer import AdamWConfig, adamw_init
 from repro.training.train_step import make_train_step, train_state_specs
-d, tiny, opt = sys.argv[1], eval(sys.argv[2]), eval(sys.argv[3])
+d, tiny, opt, keys = sys.argv[1], eval(sys.argv[2]), eval(sys.argv[3]), eval(sys.argv[4])
 model = build_model(ModelConfig(**tiny))
 inp = np.load(f"{d}/ref_in.npz")
 like = jax.eval_shape(model.init, jax.random.PRNGKey(0))
@@ -113,7 +117,7 @@ def named(specs):
 p_sh = named(param_specs(params, model.cfg, mesh))
 o_sh = named(train_state_specs(params, model.cfg, mesh))
 b_sh = NamedSharding(mesh, PartitionSpec("data"))
-batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "labels")}
+batch = {k: jnp.asarray(inp[k]) for k in keys}
 rules = make_rules(mesh, model.cfg)
 
 def loss(p, b):
@@ -132,24 +136,24 @@ np.savez(f"{d}/ref_out.npz", *[np.asarray(t) for t in jax.tree.leaves(new)],
 """
 
 
-@pytest.mark.parametrize("kv", [1, 2])
-def test_sharded_step_matches_the_references_sharded_step(kv, tmp_path):
+def _against_the_reference(case, tmp_path):
     """The port's step on 4 gloo ranks against the reference's jitted with
     its shardings on 4 host devices, from the reference's params, one step
-    of the global batch."""
-    tiny = dict(TINY, n_kv_heads=kv)
-    rp = RM.build_model(RC.ModelConfig(**tiny)).init(jax.random.PRNGKey(0))
-    _, _, batches = setup(kv)
+    of the global batch (``setup(case)``'s first)."""
+    model, _, batches = setup(case)
+    config = dataclasses.asdict(model.cfg)
+    rp = RM.build_model(RC.ModelConfig(**config)).init(jax.random.PRNGKey(0))
     batch = {k: v.numpy() for k, v in batches[0].items()}
     np.savez(tmp_path / "ref_in.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)], **batch)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    ref = subprocess.run([sys.executable, "-c", _REF_STEP, str(tmp_path), repr(tiny), repr(OPT)],
+    ref = subprocess.run([sys.executable, "-c", _REF_STEP, str(tmp_path), repr(config),
+                          repr(OPT), repr(sorted(batch))],
                          env=env, capture_output=True, text=True, timeout=RANK_TIMEOUT)
     assert ref.returncode == 0, ref.stdout + ref.stderr
     np.savez(tmp_path / "params.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)])
-    got, want = run_workers(tmp_path, kv, steps=1)[0], np.load(tmp_path / "ref_out.npz")
+    got, want = run_workers(tmp_path, case, steps=1)[0], np.load(tmp_path / "ref_out.npz")
     assert abs(float(got["loss"][0]) - float(want["loss"])) < REF_LOSS_TOL
     np.testing.assert_allclose(float(got["gnorm"][0]), float(want["gnorm"]), rtol=REF_GNORM_RTOL)
     lr = float(_schedule(AdamWConfig(**OPT), torch.tensor(1)))
@@ -157,6 +161,11 @@ def test_sharded_step_matches_the_references_sharded_step(kv, tmp_path):
         g, w = got[f"g{i}"], want[f"g{i}"]
         assert g.shape == w.shape and np.abs(g - w).max() <= GRAD_REL * np.abs(w).max(), i
         np.testing.assert_allclose(got[f"arr_{i}"], want[f"arr_{i}"], rtol=0, atol=2.1 * lr)
+
+
+@pytest.mark.parametrize("kv", [1, 2])
+def test_sharded_step_matches_the_references_sharded_step(kv, tmp_path):
+    _against_the_reference(kv, tmp_path)
 
 
 @pytest.mark.parametrize("kv", [1, 2])

@@ -36,6 +36,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.parallel import param_specs
+from repro_torch.parallel.collectives import step_specs
 from repro_torch.parallel.sharding import spec_placements
 from repro_torch.training import train_step as TS
 from repro_torch.training._tree import leaves
@@ -113,8 +114,9 @@ def placed_as_specs(model, params, mesh, tree) -> bool:
 
 
 def whole_grads(model, params, mesh, local: list) -> list:
-    """Gradients recorded as this rank's shards, made whole over ``mesh``."""
-    specs = leaves(param_specs(params, model.cfg, mesh))
+    """Gradients recorded as this rank's shards (placed by the step's
+    ``step_specs``), made whole over ``mesh``."""
+    specs = leaves(step_specs(params, model.cfg, mesh))
     return [DTensor.from_local(g, mesh, spec_placements(mesh, s), run_check=False,
                                shape=p.shape, stride=p.stride()).full_tensor()
             for g, s, p in zip(local, specs, leaves(params), strict=True)]

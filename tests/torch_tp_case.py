@@ -79,8 +79,9 @@ PROMPT, DECODE_LEN, DECODE_STEPS = 4, 16, 6  # the decode case: slots 4 .. 9 of 
 # the (1, 2) model-only cases: (arch, None for TINY; config changes; prompt,
 # decode buffer, steps) and the merges a decode step makes (one a layer whose
 # caches are split: MLA's two, the ring's one local layer, the VLM's five
-# self caches and its cross cache; none for RWKV's state, which is gathered,
-# nor for a buffer of 15, which the axis does not divide)
+# self caches and its cross cache, seamless's two; none for RWKV's state,
+# which its split heads read as they hold it, nor for a buffer of 15, which
+# the axis does not divide)
 MODEL_CASES = {
     "mla": ("deepseek-v2-lite-16b", {}, 6, 16, 4),  # slots 6 .. 9 over the boundary at 8
     "ring": ("recurrentgemma-9b", {}, 30, 40, 4),  # a ring of 32: slots 30, 31, then 0, 1
@@ -88,17 +89,95 @@ MODEL_CASES = {
     "rwkv6": ("rwkv6-1.6b", {}, 6, 16, 4),  # 4 WKV heads, 2 a rank
     "masked": (None, {"masked_cache_update": True}, 6, 16, 4),
     "undivided": (None, {"n_kv_heads": 2}, 6, 15, 4),
+    "seamless": ("seamless-m4t-medium", {}, 6, 16, 4),  # its 2 decoder layers
 }
-MERGES_A_STEP = {"mla": 2, "ring": 1, "cross": 6, "rwkv6": 0, "masked": 2, "undivided": 0}
+MERGES_A_STEP = {"mla": 2, "ring": 1, "cross": 6, "rwkv6": 0, "masked": 2, "undivided": 0,
+                 "seamless": 2}
+# the (1, 2) chains' compute dtypes and their files' tags: the port's
+# bfloat16, and float32, the witness that the bfloat16 gaps are rounding
+CHAIN_DTYPES = {"bfloat16": "", "float32": "_f32"}
+# the (1, 2) cases whose bfloat16 caches are held to FAMILY_BF16's share of
+# each cache's largest |value|, not CACHE_TOL: a few elements of a cache
+# behind several split layers (the ring's K cache after two RG-LRU blocks,
+# the VLM's, RWKV6's float32 WKV state of its second layer) part from one
+# device's by more, and the float32 chains of the same cases hold 1e-5
+CACHE_REL_CASES = ("ring", "cross", "rwkv6")
+# the families' train cases (reduced configs; ``setup`` takes the key):
+# MLA with its shared expert (the dense MoE dispatch: the sharded step
+# refuses moe_ep over a model axis > 1), RG-LRU with local attention, RWKV6
+# on its chunked WKV (chunks of 8 in a sequence of 32), the VLM's cross
+# layer, seamless's encoder, and a vocabulary of 510 that a model axis of 4
+# (or 2 x 2's 2: 510 = 2 x 255) does not divide
+# the families' bfloat16 bounds on the 2 x 2 mesh (and the uneven
+# vocabulary's on 1 x 4): TINY's do not hold there, by the rounding of bf16
+# partial sums (each rank's row-split product rounded, then their bf16 sum)
+# through more layers, recurrences and a shared expert; the float32 witness
+# holds every family's first-step gradients and losses within 1e-5, so the
+# gaps are rounding.  Measured on this CPU (worst family): first-step
+# gradient 8.3% of the leaf's largest |gradient| (the RG-LRU's lam, |g| at
+# most 1.1e-3), params 8.2% (RWKV6), movement 6.5% (the VLM), grad norms
+# 3.0e-3 / 3.8e-3 / 9.9e-3 (RWKV6), losses 4.0e-4, a cache element 1.5% of
+# its cache's largest |value|; the bounds about 1.5x of those
+FAMILY_BF16 = dict(grad=0.12, param=0.12, moved=0.10, gnorm=(5e-3, 6e-3, 1.5e-2), caches=0.03)
+FAMILY_CASES = {
+    "mla": ("deepseek-v2-lite-16b", {"moe_ep": False, "top_k": 4}),
+    "rglru": ("recurrentgemma-9b", {}),
+    "rwkv6": ("rwkv6-1.6b", {"rwkv_chunked": 8}),
+    "vlm": ("llama-3.2-vision-11b", {}),
+    "seamless": ("seamless-m4t-medium", {}),
+    "uneven": ("seamless-m4t-medium", {"vocab_size": 510, "vocab_pad_multiple": 2}),
+}
 
 
-def setup(kv: int):
-    model = build_model(PC.ModelConfig(**dict(TINY, n_kv_heads=kv)))
+def setup(case):
+    """(model, params, batches) of a train case: ``TINY`` with ``case`` kv
+    heads (an int), or the reduced family of ``FAMILY_CASES[case]``."""
+    if isinstance(case, str):
+        return family_setup(case)
+    model = build_model(PC.ModelConfig(**dict(TINY, n_kv_heads=case)))
     params = model.init(0, device="cpu")
     pipe = TokenPipeline(vocab_size=TINY["vocab_size"], batch=8, seq_len=32, seed=5)
     batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(s).items()}
                for s in range(STEPS)]
     return model, params, batches
+
+
+def family_config(case: str):
+    arch, changes = FAMILY_CASES[case]
+    return dataclasses.replace(PC.reduced_config(PC.ARCHS[arch]), **changes)
+
+
+def family_batches(cfg, steps: int = STEPS, batch: int = 8, seq: int = 32, seed: int = 5) -> list:
+    """``steps`` global batches of ``batch`` x ``seq`` from a numpy
+    generator: uniform tokens (every model rank's vocabulary slice is hit)
+    and their next tokens as labels; an encoder-decoder's frames take
+    ``audio_frames_ratio`` of ``seq`` (the reference's ``input_specs``
+    split), a VLM adds its vision embeddings."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        b, s = {}, seq
+        if cfg.family == "encdec":
+            se = int(seq * cfg.audio_frames_ratio)
+            b["frames"] = rng.standard_normal((batch, se, cfg.d_model)).astype(np.float32)
+            s -= se
+        toks = rng.integers(0, cfg.vocab_size, (batch, s + 1)).astype(np.int32)
+        b["tokens"], b["labels"] = toks[:, :-1].copy(), toks[:, 1:].copy()
+        if cfg.family == "vlm":
+            b["vision"] = rng.standard_normal((batch, cfg.vision_tokens,
+                                               cfg.d_model)).astype(np.float32)
+        out.append({k: torch.from_numpy(v) for k, v in b.items()})
+    return out
+
+
+def family_setup(case: str):
+    model = build_model(family_config(case))
+    return model, model.init(0, device="cpu"), family_batches(model.cfg)
+
+
+def prompt_of(batch: dict) -> dict:
+    """A train batch as a prefill's: its inputs without the labels."""
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def run(step, params, batches):
@@ -200,46 +279,60 @@ def leaf_names(tree, path=()) -> list:
     return [".".join(path)]
 
 
-# the worker (torch_dist_helpers.run_ranks' body): params from params.npz
-# where given (else setup's), {steps} sharded steps on a 2 x 2 mesh, then a
-# prefill of the global batch, in {dtype} compute
-WORKER = """
-    import json, os
+def train_rank(d, rank: int, case, dtype: str = "bfloat16", steps: int = STEPS,
+               mesh: tuple = (2, 2)) -> None:
+    """One rank's part of a train case (a ``torch_dist_helpers.run_ranks``
+    body calls it): params from ``params.npz`` in ``d`` where given (else
+    ``setup(case)``'s), ``steps`` sharded steps on a ("data", "model") mesh
+    of ``mesh``, then a prefill of the global batch, in ``dtype`` compute;
+    saves the whole state, the first step's mean gradient, the metrics,
+    the prefill's logits and caches made whole and this rank's local shard
+    shapes to ``d/out<rank>.npz``."""
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.training import AdamWConfig, make_prefill_step, make_train_step
-    from repro_torch.training import train_step as TS
-    from repro_torch.training._tree import leaves, unflatten
-    from torch_dist_helpers import recording_update, whole, whole_grads
-    from torch_tp_case import OPT, cache_tensors, compute_in, leaf_names, run, setup
-    model, params, batches = setup({kv})
-    if os.path.exists(f"{{d}}/params.npz"):
-        given = np.load(f"{{d}}/params.npz")
-        params = unflatten(params, [torch.from_numpy(given[f"arr_{{i}}"])
+
+    from torch_dist_helpers import whole, whole_grads
+    from repro_torch.training._tree import unflatten
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    model, params, batches = setup(case)
+    if os.path.exists(f"{d}/params.npz"):
+        given = np.load(f"{d}/params.npz")
+        params = unflatten(params, [torch.from_numpy(given[f"arr_{i}"])
                                     for i in range(len(given.files))])
-    seen = []
+    seen, update = [], TS._update
     TS._update = recording_update(seen)
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-    with compute_in("{dtype}"):
-        p, opt, metrics = run(make_train_step(model, mesh, AdamWConfig(**OPT)), params,
-                              batches[:{steps}])
-        with torch.no_grad():
-            logits, caches = make_prefill_step(model, mesh)(params,
-                                                            {{"tokens": batches[0]["tokens"]}})
-    grads = whole_grads(model, params, mesh, seen[0])
-    shapes = {{n: list(t.to_local().shape) for n, t in zip(leaf_names(params), leaves(p))}}
-    np.savez(f"{{d}}/out{{rank}}.npz", *[t.numpy() for t in whole((p, opt))],
-             **{{f"g{{i}}": g.numpy() for i, g in enumerate(grads)}},
-             **{{f"c{{i}}": t.float().numpy() for i, t in enumerate(cache_tensors(caches))}},
+    try:
+        grid = init_device_mesh("cpu", mesh, mesh_dim_names=("data", "model"))
+        with compute_in(dtype):
+            p, opt, metrics = run(make_train_step(model, grid, AdamWConfig(**OPT)), params,
+                                  batches[:steps])
+            with torch.no_grad():
+                logits, caches = make_prefill_step(model, grid)(params, prompt_of(batches[0]))
+    finally:
+        TS._update = update
+    grads = whole_grads(model, params, grid, seen[0])
+    shapes = {n: list(t.to_local().shape) for n, t in zip(leaf_names(params), leaves(p))}
+    np.savez(f"{d}/out{rank}.npz", *[t.numpy() for t in whole((p, opt))],
+             **{f"g{i}": g.numpy() for i, g in enumerate(grads)},
+             **{f"c{i}": t.float().numpy() for i, t in enumerate(cache_tensors(caches))},
              logits=logits.full_tensor().float().numpy(), shapes=np.array(json.dumps(shapes)),
              loss=np.array([float(m["loss"]) for m in metrics]),
              gnorm=np.array([float(m["grad_norm"]) for m in metrics]))
+
+
+# the worker (torch_dist_helpers.run_ranks' body): one train case
+WORKER = """
+    from torch_tp_case import train_rank
+    train_rank(d, rank, {kv!r}, "{dtype}", {steps}, {mesh})
 """
 
 
-def run_workers(directory: pathlib.Path, kv: int, dtype: str = "bfloat16",
-                steps: int = STEPS) -> list:
-    """:data:`WORKER` on 4 gloo ranks; each rank's saved arrays."""
-    run_ranks(WORKER.format(kv=kv, steps=steps, dtype=dtype), 4, directory)
+def run_workers(directory: pathlib.Path, kv, dtype: str = "bfloat16", steps: int = STEPS,
+                mesh: tuple = (2, 2)) -> list:
+    """:data:`WORKER` on 4 gloo ranks (a ("data", "model") mesh of
+    ``mesh``) for the case ``kv`` (``setup``'s); each rank's saved
+    arrays."""
+    run_ranks(WORKER.format(kv=kv, steps=steps, dtype=dtype, mesh=mesh), 4, directory)
     return [np.load(directory / f"out{r}.npz") for r in range(4)]
 
 
@@ -257,7 +350,7 @@ def one_device(model, params, batches, dtype: str = "bfloat16"):
     return p, opt, metrics, [g.float().numpy() for g in seen[0]]
 
 
-def gaps(outs: list, kv: int, dtype: str = "bfloat16") -> dict:
+def gaps(outs: list, kv, dtype: str = "bfloat16") -> dict:
     """The ranks' saved arrays against the one-device step: the worst
     gradient, param and movement gaps over the leaves, each step's loss and
     grad-norm gap (relative), whether every rank holds the same state, and
@@ -272,7 +365,10 @@ def gaps(outs: list, kv: int, dtype: str = "bfloat16") -> dict:
     out = {"grad": 0.0, "param": 0.0, "moved": 0.0, "same_state": same}
     for i, g in enumerate(grads):
         assert got[f"g{i}"].shape == g.shape, (i, got[f"g{i}"].shape, g.shape)
-        out["grad"] = max(out["grad"], float(np.abs(got[f"g{i}"] - g).max() / np.abs(g).max()))
+        # a leaf whose gradient is 0 (seamless's encoder: no cross layer reads
+        # it) is held to 0 itself
+        out["grad"] = max(out["grad"], float(np.abs(got[f"g{i}"] - g).max()
+                                             / (np.abs(g).max() or 1.0)))
     for i, (p0, w) in enumerate(zip(leaves(params), want)):
         a, moved = got[f"arr_{i}"], np.abs(w - p0.float().numpy()).mean()
         out["param"] = max(out["param"], float(np.abs(a - w).max() / np.abs(w).max()))
@@ -282,38 +378,90 @@ def gaps(outs: list, kv: int, dtype: str = "bfloat16") -> dict:
     out["loss_rel"] = (np.abs(got["loss"] - loss) / loss).tolist()
     out["gnorm_rel"] = (np.abs(got["gnorm"] - gnorm) / gnorm).tolist()
     with torch.no_grad(), compute_in(dtype):  # every rank's prefill against one device's
-        logits, caches = make_prefill_step(model, None)(params, {"tokens": batches[0]["tokens"]})
-    out["prefill_within"] = all(
-        np.allclose(o["logits"], logits.float().numpy(), **LOGIT_TOL)
-        and all(np.allclose(o[f"c{i}"], c.float().numpy(), **CACHE_TOL)
-                for i, c in enumerate(cache_tensors(caches))) for o in outs)
+        logits, caches = make_prefill_step(model, None)(params, prompt_of(batches[0]))
+    want_c = [c.float().numpy() for c in cache_tensors(caches)]
+    out["logits_within"] = all(np.allclose(o["logits"], logits.float().numpy(), **LOGIT_TOL)
+                               for o in outs)
+    out["caches_within"] = all(np.allclose(o[f"c{i}"], c, **CACHE_TOL)
+                               for o in outs for i, c in enumerate(want_c))
+    out["caches_rel"] = max((float(np.abs(o[f"c{i}"] - c).max() / (np.abs(c).max() or 1.0))
+                             for o in outs for i, c in enumerate(want_c)), default=0.0)
+    out["prefill_within"] = out["logits_within"] and out["caches_within"]
     out["local_shapes"] = {r: json.loads(str(o["shapes"])) for r, o in enumerate(outs)}
     return out
 
 
-def within(g: dict, dtype: str = "bfloat16") -> bool:
-    """Whether :func:`gaps`' ``g`` keeps every bound."""
-    return (g["same_state"] and g["prefill_within"] and g["grad"] <= GRAD_REL
-            and g["param"] <= GRAD_REL and g["moved"] <= MOVED_REL
-            and all(x <= LOSS_REL for x in g["loss_rel"])
-            and all(x <= b for x, b in zip(g["gnorm_rel"], GNORM_REL[dtype], strict=True)))
+def bounds(case, dtype: str = "bfloat16") -> dict:
+    """The bounds of a train case (``setup``'s): ``TINY``'s above, and for
+    a family in bfloat16 :data:`FAMILY_BF16` (the prefill's caches then
+    within ``caches`` of each cache's largest |value|, not CACHE_TOL)."""
+    b = dict(grad=GRAD_REL, param=GRAD_REL, moved=MOVED_REL, loss=LOSS_REL,
+             gnorm=GNORM_REL[dtype], caches=None)
+    if isinstance(case, str) and dtype == "bfloat16":
+        b.update(FAMILY_BF16)
+    return b
 
 
-def check_in_subprocesses(directory: pathlib.Path, kv: int, dtype: str = "bfloat16") -> dict:
-    """:func:`run_workers` then :func:`gaps`, with the gaps and ``within``;
-    the workers see no card and take 2 threads each."""
+def within(g: dict, dtype: str = "bfloat16", case=1) -> bool:
+    """Whether :func:`gaps`' ``g`` keeps every bound of ``case``."""
+    b = bounds(case, dtype)
+    caches = g["caches_within"] if b["caches"] is None else g["caches_rel"] <= b["caches"]
+    return (g["same_state"] and g["logits_within"] and caches and g["grad"] <= b["grad"]
+            and g["param"] <= b["param"] and g["moved"] <= b["moved"]
+            and all(x <= b["loss"] for x in g["loss_rel"])
+            and all(x <= y for x, y in zip(g["gnorm_rel"], b["gnorm"], strict=True)))
+
+
+@contextlib.contextmanager
+def _no_card():
+    """The environment of worker processes that see no card and take 2
+    threads each (put back after)."""
     env = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES", "OMP_NUM_THREADS")}
     os.environ.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     try:
-        outs = run_workers(directory, kv, dtype)
+        yield
     finally:
         for k, v in env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def check_in_subprocesses(directory: pathlib.Path, kv, dtype: str = "bfloat16",
+                          mesh: tuple = (2, 2)) -> dict:
+    """:func:`run_workers` then :func:`gaps`, with the gaps and ``within``;
+    the workers see no card."""
+    with _no_card():
+        outs = run_workers(directory, kv, dtype, mesh=mesh)
     g = gaps(outs, kv, dtype)
-    return dict(g, within=within(g, dtype))
+    return dict(g, within=within(g, dtype, kv))
+
+
+def check_cases_in_one_launch(directory: pathlib.Path, train: dict, decode: tuple) -> dict:
+    """Bfloat16 train cases ``train`` (name -> (``setup``'s case, mesh,
+    the case whose bounds hold it)) and the decode cases of ``decode`` (kv
+    head counts) on one launch of 4 gloo processes that see no card (one
+    start-up for them all): each case's :func:`gaps` with ``within``, and
+    :func:`decode_gaps`' result, by name (``decode kv <n>``)."""
+    for kv in decode:
+        (directory / f"decode_kv{kv}").mkdir(parents=True)
+        decode_reference(directory / f"decode_kv{kv}", kv)
+    body = "from torch_tp_case import decode_rank, train_rank\n"
+    for name, (case, mesh, _) in train.items():
+        (directory / name).mkdir(parents=True)
+        body += f"train_rank(d + '/{name}', rank, {case!r}, 'bfloat16', {STEPS}, {mesh})\n"
+    for kv in decode:
+        body += f"decode_rank(d + '/decode_kv{kv}', rank, {kv})\n"
+    with _no_card():
+        run_ranks(body, 4, directory)
+    out = {}
+    for name, (case, _, held) in train.items():
+        g = gaps([np.load(directory / name / f"out{r}.npz") for r in range(4)], case)
+        out[name] = dict(g, within=within(g, "bfloat16", held))
+    for kv in decode:
+        out[f"decode kv {kv}"] = decode_result(directory / f"decode_kv{kv}")
+    return out
 
 
 def family_case(arch, changes: dict, prompt: int, batch: int = 4, seed: int = 0) -> tuple:
@@ -325,6 +473,8 @@ def family_case(arch, changes: dict, prompt: int, batch: int = 4, seed: int = 0)
     cfg = model.cfg
     g = torch.Generator().manual_seed(seed)
     out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, prompt, cfg.d_model), generator=g)
     if cfg.family == "vlm":
         out["vision"] = torch.randn((batch, cfg.vision_tokens, cfg.d_model), generator=g)
     return model, model.init(seed, device="cpu"), out
@@ -371,20 +521,26 @@ def save_chain(path, chain) -> None:
              **{f"c{i}": arr(t) for i, t in enumerate(caches)})
 
 
-# the decode worker: the decode case's prefill and DECODE_STEPS sharded
-# decode steps on a 2 x 2 mesh, saved made whole
-DECODE_WORKER = """
+def decode_rank(d, rank: int, kv: int) -> None:
+    """One rank's part of the decode case: its prefill and DECODE_STEPS
+    sharded decode steps on a 2 x 2 mesh, fed ``forced.npy`` in ``d``,
+    saved made whole to ``d/dec<rank>.npz`` with the merges it made."""
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.training import make_decode_step, make_prefill_step
-    from repro_torch.models import layers as L
-    from torch_tp_case import counting, decode_chain, decode_inputs, save_chain
-    model, params, prompt, forced = decode_inputs({kv}, d)
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    model, params, prompt, forced = decode_inputs(kv, d)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     with counting(L, "merge_partials") as merges:
         chain = decode_chain(model, params, make_prefill_step(model, mesh),
                              make_decode_step(model, mesh), prompt, forced)
-    save_chain(f"{{d}}/dec{{rank}}.npz", chain)
-    np.save(f"{{d}}/merges{{rank}}.npy", np.array(len(merges)))
+    save_chain(f"{d}/dec{rank}.npz", chain)
+    np.save(f"{d}/merges{rank}.npy", np.array(len(merges)))
+
+
+# the decode worker (run_ranks' body): the decode case
+DECODE_WORKER = """
+    from torch_tp_case import decode_rank
+    decode_rank(d, rank, {kv})
 """
 
 
@@ -404,46 +560,87 @@ def counting(module, name: str):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def state_gathers():
+    """Yields [decode calls of the RG-LRU and RWKV6 blocks, all_gathers
+    they made, all_gathers of a tensor of their states' shape and dtype]:
+    ``models.transformer``'s ``rglru_apply`` and ``rwkv_apply`` wrapped to
+    record, while a decode step's block runs, every input of
+    ``torch.distributed.all_gather_into_tensor`` against its state's
+    tensors (``h`` and ``conv``, or ``wkv``)."""
+    import torch.distributed as dist
+
+    counts = [0, 0, 0]
+    saved = {n: getattr(T, n) for n in ("rglru_apply", "rwkv_apply")}
+    gather = dist.all_gather_into_tensor
+
+    def wrap(fn, fields):
+        def wrapped(*args, state=None, **kwargs):
+            if kwargs.get("mode") != "decode":
+                return fn(*args, state=state, **kwargs)
+            held = {(tuple(getattr(state, f).shape), getattr(state, f).dtype) for f in fields}
+
+            def recorded(out, x, *a, **k):
+                counts[1] += 1
+                counts[2] += (tuple(x.shape), x.dtype) in held
+                return gather(out, x, *a, **k)
+
+            counts[0] += 1
+            dist.all_gather_into_tensor = recorded
+            try:
+                return fn(*args, state=state, **kwargs)
+            finally:
+                dist.all_gather_into_tensor = gather
+        return wrapped
+
+    T.rglru_apply = wrap(saved["rglru_apply"], ("h", "conv"))
+    T.rwkv_apply = wrap(saved["rwkv_apply"], ("wkv",))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(T, n, fn)
+
+
 def chain_gaps(got, want) -> dict:
     """Two saved chains (``np.load`` of :func:`save_chain`'s files) against
     each other: the largest |difference| of the prefill's and every step's
-    logits and of the caches, whether each keeps LOGIT_TOL / CACHE_TOL,
-    and whether the same tokens were fed."""
+    logits and of the caches, the largest of each over the largest |value|
+    of its tensor (``logits_rel``, ``caches_rel``), whether each keeps
+    LOGIT_TOL / CACHE_TOL, and whether the same tokens were fed."""
     def diff(keys):
         return max(float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in keys)
 
     steps = [k for k in want.files if k[0] == "s"]
     caches = [k for k in want.files if k[0] in "pc"]
+    rel = max((float(np.abs(got[k].astype(np.float64) - want[k]).max()
+                     / (np.abs(want[k]).max() or 1.0)) for k in caches), default=0.0)
+    lrel = max(float(np.abs(got[k].astype(np.float64) - want[k]).max() / np.abs(want[k]).max())
+               for k in ["logits"] + steps)
     return {"logits_max_abs": diff(["logits"] + steps), "caches_max_abs": diff(caches),
+            "caches_rel": rel, "logits_rel": lrel,
             "same_tokens": bool(np.array_equal(got["fed"], want["fed"])),
             "logits_within": all(np.allclose(got[k], want[k], **LOGIT_TOL)
                                  for k in ["logits"] + steps),
             "caches_within": all(np.allclose(got[k], want[k], **CACHE_TOL) for k in caches)}
 
 
-def decode_gaps(directory: pathlib.Path, kv: int) -> dict:
-    """One device's chain (greedy, unless ``forced.npy`` in ``directory``
-    gives the tokens, which it then saves there), then :data:`DECODE_WORKER`
-    on 4 gloo ranks fed the same tokens (the workers see no card and take
-    2 threads each), each rank's chain against one device's:
-    :func:`chain_gaps` of the worst rank, whether every rank saved the same
-    arrays, and ``within``.  A greedy step's near tie would otherwise part
-    the chains for good."""
+def decode_reference(directory: pathlib.Path, kv: int) -> None:
+    """One device's chain of the decode case (greedy, unless ``forced.npy``
+    in ``directory`` gives the tokens), saved as ``one.npz`` with the tokens
+    it fed as ``forced.npy`` (which the ranks then feed: a greedy step's
+    near tie would otherwise part the chains for good)."""
     model, params, prompt, forced = decode_inputs(kv, directory)
     chain = decode_chain(model, params, make_prefill_step(model, None),
                          make_decode_step(model, None), prompt, forced)
     save_chain(directory / "one.npz", chain)
     np.save(directory / "forced.npy", chain[3].numpy())
-    env = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES", "OMP_NUM_THREADS")}
-    os.environ.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
-    try:
-        run_ranks(DECODE_WORKER.format(kv=kv), 4, directory)
-    finally:
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+
+
+def decode_result(directory: pathlib.Path) -> dict:
+    """Each rank's saved chain (:func:`decode_rank`) against one device's:
+    :func:`chain_gaps` of the worst rank, whether every rank saved the same
+    arrays, the merges each rank made, and ``within``."""
     want = np.load(directory / "one.npz")
     outs = [np.load(directory / f"dec{r}.npz") for r in range(4)]
     per = [chain_gaps(o, want) for o in outs]
@@ -459,23 +656,38 @@ def decode_gaps(directory: pathlib.Path, kv: int) -> dict:
     return g
 
 
-# the (1, 2) worker: every MODEL_CASES chain fed forced_<case>.npy, with its
-# merges counted, then the merge of empty_piece_inputs over the two ranks
+def decode_gaps(directory: pathlib.Path, kv: int) -> dict:
+    """:func:`decode_reference`, then :data:`DECODE_WORKER` on 4 gloo ranks
+    that see no card, fed the same tokens, then :func:`decode_result`."""
+    decode_reference(directory, kv)
+    with _no_card():
+        run_ranks(DECODE_WORKER.format(kv=kv), 4, directory)
+    return decode_result(directory)
+
+
+# the (1, 2) worker: every MODEL_CASES chain in each of CHAIN_DTYPES, fed
+# forced_<case><tag>.npy, with its merges and state gathers counted in
+# bfloat16, then the merge of empty_piece_inputs over the two ranks
 MODEL_WORKER = """
+    torch.set_num_threads(1)  # the ranks share the host's cores
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models import layers as L
     from repro_torch.training import make_decode_step, make_prefill_step
-    from torch_tp_case import (MODEL_CASES, counting, decode_chain, empty_piece_inputs,
-                               family_case, save_chain)
+    from torch_tp_case import (CHAIN_DTYPES, MODEL_CASES, compute_in, counting, decode_chain,
+                               empty_piece_inputs, family_case, save_chain, state_gathers)
     mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
-    for name, (arch, changes, prompt, length, steps) in MODEL_CASES.items():
-        model, params, batch = family_case(arch, changes, prompt)
-        forced = torch.from_numpy(np.load(f"{d}/forced_{name}.npy"))
-        with counting(L, "merge_partials") as merges:
-            chain = decode_chain(model, params, make_prefill_step(model, mesh),
-                                 make_decode_step(model, mesh), batch, forced, steps, length)
-        save_chain(f"{d}/{name}{rank}.npz", chain)
-        np.save(f"{d}/{name}_merges{rank}.npy", np.array(len(merges)))
+    for dtype, tag in CHAIN_DTYPES.items():
+        for name, (arch, changes, prompt, length, steps) in MODEL_CASES.items():
+            forced = torch.from_numpy(np.load(f"{d}/forced_{name}{tag}.npy"))
+            with compute_in(dtype), counting(L, "merge_partials") as merges, \\
+                    state_gathers() as gathers:
+                model, params, batch = family_case(arch, changes, prompt)
+                chain = decode_chain(model, params, make_prefill_step(model, mesh),
+                                     make_decode_step(model, mesh), batch, forced, steps, length)
+            save_chain(f"{d}/{name}{rank}{tag}.npz", chain)
+            if not tag:
+                np.save(f"{d}/{name}_merges{rank}.npy", np.array(len(merges)))
+                np.save(f"{d}/{name}_gathers{rank}.npy", np.array(gathers))
     q, k, v, mask = empty_piece_inputs()
     mine = slice(rank * 8, rank * 8 + 8)
     y = L.merge_partials(*L._sdpa_partials(q, k[:, mine], v[:, mine], mask[..., mine]),
