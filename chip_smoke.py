@@ -211,8 +211,12 @@ result line):
    ``make_compressed_train_step`` steps on a one-rank NCCL DeviceMesh with
    a "pod" dimension: ``base_fit`` launched and equal to its plain version
    on the step's first blocks, the elements where the exchange differs
-   from the CPU route's printed, the wire bytes.  (f) a ``shrink:1e-3``
-   checkpoint of (d)'s leaves of at most 65,536 elements (the per-series
+   from the CPU route's printed, the wire bytes; then the same two steps
+   on a one-rank ("pod", "data", "model") mesh from params placed by
+   ``param_shardings`` (the step on each rank's ``param_specs`` shards, the
+   exchange on whole blocks of each leaf): every state leaf, the error
+   feedback and the losses bit-equal to the whole-params run.  (f) a
+   ``shrink:1e-3`` checkpoint of (d)'s leaves of at most 65,536 elements (the per-series
    codec takes minutes on a leaf of 10^8) on the card and the CPU route:
    every SHRK leaf file equal, read back within eps; a ``MetricsLogger``
    flush of (c)'s and (d)'s losses, read back losslessly; ``cone_scan``,
@@ -297,7 +301,9 @@ result line):
    capacity and tokens fed) through the sharded prefill and 16 steps of
    ``make_decode_step``, each step's logits bit-equal to phase 12's; one
    sharded train step of the first group of layers at full width (2 x
-   2048; llama4 at 2 experts) bit-equal to the one-device step; each
+   2048; llama4 at 2 experts) bit-equal to the one-device step, deepseek's
+   and llama4's through the expert-parallel MoE (their ``moe_ep``; its
+   calls counted); each
    run's seconds beside phase 12's; then the flash pair against its plain
    versions at a rank's shapes under 16-way TP (deepseek's 1 MLA head at
    d 192, V padded from 128; the VLM's 2 heads of 128; seamless's 1 head
@@ -305,19 +311,25 @@ result line):
    4 gloo processes for all its cases:
    ``tests/torch_tp_case.py``'s reduced dense config (4 heads, 1 kv head
    replicated over "model" and 2 split) and its family cases (deepseek's
-   MLA and shared expert, recurrentgemma, rwkv6, the VLM, seamless on 2 x
-   2; a vocabulary of 510 on 1 x 4) on 4 gloo processes, 3 sharded steps
+   MLA and shared expert, its expert-parallel MoE (``mla_ep``),
+   recurrentgemma, rwkv6, the VLM, seamless on 2 x 2; a vocabulary of 510
+   on 1 x 4) on 4 gloo processes, 3 sharded steps
    and a prefill of the global batch against the one-device step within
    the bounds that ``tests/test_torch_tensor_parallel.py`` holds, then
    for the dense config a prefill and 6 sharded decode steps (the caches'
    sequence split over "model", one step with a rank holding no written
    slot, two either side of the pieces' boundary) against one device
    within the logit and cache bounds that
-   ``tests/test_torch_decode_parallel.py`` holds; (d) the dense configs'
-   and the five families' ``train_4k``, ``prefill_32k`` and
+   ``tests/test_torch_decode_parallel.py`` holds, then the compressed
+   step on a sharded state on a (pod 2, data 2) mesh against the
+   whole-params step (its exchange bit-equal to ``compressed_psum_tree``
+   on whole leaves; ``tests/test_torch_crosspod.py``'s bounds); (d) the
+   dense configs' and the five families' ``train_4k``, ``prefill_32k`` and
    ``decode_32k`` cells of phase 15 (a)'s 16x16 sweep: per-rank argument
    and temporary bytes, fit and collective bytes (the families' beside
-   the parent tree's).  The flash rows gain ``launches_by_path["sharded
+   the tree's before their TP), and deepseek's and llama4's ``train_4k``
+   on both meshes through EP beside the tree's before it (each must
+   fit).  The flash rows gain ``launches_by_path["sharded
    (phase 16)"]`` ((a)'s 3 steps and (b)) and ``["sharded families (phase
    16)"]`` ((f)'s prefills and train steps).  The card's name and power
    limit open the phase's summary line.
@@ -2618,15 +2630,20 @@ def crash_resume(TS, FT, opt_mod, m, params, pipe, tmp: pathlib.Path, dev) -> tu
             "param_leaves_equal": len(same), "losses": [h["loss"] for h in hist]}, r1
 
 
-def compressed_steps(ops, BF, GC, TS, opt_mod, m, params, pipe, dev) -> dict:
+def compressed_steps(ops, BF, GC, TS, PP, opt_mod, m, params, pipe, dev) -> dict:
     """(e): ``make_compressed_train_step`` on a one-rank NCCL DeviceMesh with
-    a "pod" dimension; base_fit against its plain version on the step's own
-    blocks, the exchange against the CPU route's."""
+    a "pod" dimension (the params whole); base_fit against its plain version
+    on the step's own blocks, the exchange against the CPU route's; then
+    the same steps on a one-rank ("pod", "data", "model") mesh from params
+    placed by ``param_shardings`` (each rank's ``param_specs`` shards, the
+    exchange on whole blocks of each leaf), every state leaf, error feedback
+    and loss bit-equal to the whole-params run."""
     import socket
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.parallel.sharding import place
     from repro_torch.training._tree import leaves, tree_map
 
     with socket.socket() as sock:
@@ -2634,31 +2651,48 @@ def compressed_steps(ops, BF, GC, TS, opt_mod, m, params, pipe, dev) -> dict:
         port = sock.getsockname()[1]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
                             device_id=torch.device("cuda", torch.cuda.current_device()))
-    try:
-        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
-        comp_cfg = GC.GradCompressConfig()
+    comp_cfg = GC.GradCompressConfig()
+
+    def run(mesh, p, record: bool):
         step = TS.make_compressed_train_step(m, mesh, opt_mod.AdamWConfig(lr=1e-3), comp_cfg)
-        fit = Recorder(ops, "base_fit")
-        exchange = Recorder(TS, "compressed_psum_tree")
-        before = ops.launches["base_fit"]
-        opt, ef = opt_mod.adamw_init(params), TS.make_ef_state(params)
-        p = params
-        losses = []
+        opt, ef, losses = opt_mod.adamw_init(p), TS.make_ef_state(p), []
         for s in range(COMPRESSED_STEPS):
+            if record and s == 0:
+                recorders = Recorder(ops, "base_fit"), Recorder(TS, "compressed_psum_shards")
             p, opt, ef, metrics = step(p, opt, ef, train_batch(pipe, s, dev))
+            if record and s == 0:
+                for r in recorders:
+                    r.restore()
             losses.append(float(metrics["loss"]))
-        fit.restore()
-        exchange.restore()
+        return (p, opt, ef), losses, (recorders if record else None)
+
+    try:
+        before = ops.launches["base_fit"]
+        whole_state, losses, (fit, exchange) = run(
+            init_device_mesh("cuda", (1,), mesh_dim_names=("pod",)), params, True)
         fit_launches = ops.launches["base_fit"] - before
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        placed = tree_map(lambda p, s: place(p, *s), params,
+                          PP.param_shardings(params, m.cfg, mesh))
+        before = ops.launches["base_fit"]
+        (sharded_state, sharded_losses, _), sharded_s = sync_time(lambda: run(mesh, placed, False))
+        sharded_fit = ops.launches["base_fit"] - before
+        equal = sum(torch.equal(local(a), local(b)) for a, b in zip(leaves(sharded_state),
+                                                             leaves(whole_state), strict=True))
+        n_state = len(leaves(whole_state))
+        del sharded_state, placed
     finally:
         dist.destroy_process_group()
-    check(fit_launches > 0, "base_fit was not launched by the compressed step")
+    check(fit_launches > 0 and sharded_fit > 0, "base_fit was not launched by the compressed step")
     check(all(np.isfinite(losses)), f"compressed step losses {losses}")
+    check(equal == n_state and sharded_losses == losses,
+          f"compressed step on a (1, 1, 1) mesh: {n_state - equal} of {n_state} state leaves "
+          f"differ from the whole-params run, losses {sharded_losses} vs {losses}")
     (xb,), _ = fit.args
     got, want = BF.base_fit_cuda(xb), BF.base_fit_plain(xb)
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "base_fit differs from its plain version on the compressed step's blocks")
-    (grads, ef0, cfg), kw = exchange.args
+    (grads, ef0, _, _, cfg, _), _ = exchange.args
     card, card_ef = GC.compressed_psum_tree(grads, ef0, cfg)
     to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)
     (cpu, cpu_ef), cpu_s = sync_time(lambda: GC.compressed_psum_tree(to_cpu(grads),
@@ -2670,7 +2704,10 @@ def compressed_steps(ops, BF, GC, TS, opt_mod, m, params, pipe, dev) -> dict:
     return {"steps": COMPRESSED_STEPS, "losses": losses, "base_fit_launches": fit_launches,
             "base_fit_blocks": list(xb.shape), "elements_differing_from_cpu_route": differ,
             "elements": total, "cpu_route_s": cpu_s, "wire_bytes": comp, "raw_bytes": raw,
-            "ratio": raw / comp}
+            "ratio": raw / comp,
+            "sharded_mesh": {"pod": 1, "data": 1, "model": 1},
+            "sharded_state_leaves_equal": equal, "sharded_losses_equal": True,
+            "sharded_base_fit_launches": sharded_fit, "sharded_s": sharded_s}
 
 
 def codec_in_training(ops, CK, ML, state, losses: dict, tmp: pathlib.Path, dev) -> dict:
@@ -2761,6 +2798,7 @@ def training_path(ops, FA, BF, seed: int, dev,
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import train as train_mod
     from repro_torch.models import build_model
+    from repro_torch.parallel import partition as PP
     from repro_torch.training import checkpoint as CK
     from repro_torch.training import fault_tolerance as FT
     from repro_torch.training import grad_compress as GC
@@ -2813,7 +2851,7 @@ def training_path(ops, FA, BF, seed: int, dev,
         print("train crash and resume: " + json.dumps(stats["crash_resume"]), flush=True)
 
         (stats["compressed"], stats["e_s"]) = sync_time(lambda: compressed_steps(
-            ops, BF, GC, TS, opt_mod, m, params, pipe, dev))
+            ops, BF, GC, TS, PP, opt_mod, m, params, pipe, dev))
         print("train compressed step: " + json.dumps(stats["compressed"]), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3492,6 +3530,11 @@ def dryrun_path(P, ops, get_config, seed: int, dev, meanwhile=None) -> tuple[dic
 # (c) on 4 gloo ranks on the CPU, (d) the dense cells of phase 15's dry-run
 # sweep
 TP_KV = (1, 2)  # (c): kv heads replicated over "model" (1), split (2)
+# (c): the expert-parallel MoE's top-2 case, held to one device in float32
+# only (its near-uniform router flips experts under bf16 TP rounding); the
+# compressed step on a sharded state, (pod 2, data 2) ("pod", "data", "model")
+TP_FLOAT32_ONLY = ("mla_ep_k2",)
+TP_COMPRESSED = {"pod2_data2": (2, 2, 1)}
 # (c): the families' train cases (tests/torch_tp_case.py's FAMILY_CASES) and
 # their meshes: 2 x 2, and 1 x 4 for the vocabulary that 4 does not divide
 TP_FAMILY_MESH = {"uneven": (1, 4)}
@@ -3522,6 +3565,14 @@ FAMILY_DRY_BEFORE = {
                             "decode_32k": (0.76, 2.02)},
     "llama-3.2-vision-11b": {"train_4k": (0.76, 179.74), "prefill_32k": (0.12, 21.61),
                              "decode_32k": (2.60, 2.02)}}
+# (d): the expert-parallel configs' train cells before their EP backward (GiB
+# of a rank's arguments + peak temporaries, and collective bytes a step, on
+# 16x16 and 2x16x16; launch/dryrun.py on the tree before it, PERF.md section 6):
+# the sharded step then ran the dense dispatch, every expert gathered whole
+EP_DRY_BEFORE = {
+    "deepseek-v2-lite-16b": {"16x16": (0.62, 30.68, 1.384e11), "2x16x16": (0.62, 15.86, 1.024e11)},
+    "llama4-maverick-400b-a17b": {"16x16": (14.48, 101.38, 1.886e12),
+                                  "2x16x16": (7.24, 95.12, 3.277e12)}}
 SHARDED_ROUNDS = 3  # (a): rounds of one device, sharded, control, control, sharded, one device
 DENSE_ARCHS = ("qwen3-0.6b", "llama3-8b", "stablelm-12b", "command-r-35b")
 
@@ -3533,8 +3584,11 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
     ``tests/test_torch_decode_parallel.py`` hold) against one device on
     this host's CPU, all on one launch of 4 gloo processes: the sharded
     train steps and prefill of the dense config for each kv case and of
-    each family (the vocabulary of 510 on 1 x 4, held to the dense bounds),
-    then the dense prefill and 6 sharded decode steps for each kv case."""
+    each family (the vocabulary of 510 on 1 x 4, held to the dense bounds;
+    deepseek's expert-parallel MoE, ``mla_ep``), then the dense prefill and
+    6 sharded decode steps for each kv case, then the compressed step on a
+    (pod 2, data 2) mesh against the whole-params step (and its exchange
+    against ``compressed_psum_tree`` on whole leaves, bit for bit)."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_tp_case as TPC
 
@@ -3547,9 +3601,11 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
              "decode": {"prompt": TPC.PROMPT, "buffer": TPC.DECODE_LEN,
                         "steps": TPC.DECODE_STEPS}}
     train = {f"family {c}": (c, TP_FAMILY_MESH.get(c, (2, 2)), 1 if c == "uneven" else c)
-             for c in TPC.FAMILY_CASES}
+             for c in TPC.FAMILY_CASES if c not in TP_FLOAT32_ONLY}
     train |= {f"kv {kv}": (kv, (2, 2), kv) for kv in TP_KV}
-    got = TPC.check_cases_in_one_launch(tmp / "tp", train, TP_KV)
+    stats["compressed_bounds"] = {"gnorm_rel": TPC.COMPRESSED_GNORM_REL,
+                                  "min_leaf_size": TPC.COMPRESS["min_leaf_size"]}
+    got = TPC.check_cases_in_one_launch(tmp / "tp", train, TP_KV, TP_COMPRESSED)
     for name, g in got.items():
         g = {k: v for k, v in g.items() if k != "local_shapes"}
         if name in train:
@@ -3774,6 +3830,23 @@ def dryrun_cells(dry: dict, archs: tuple, before: dict | None = None) -> dict:
     return out
 
 
+def ep_train_cells(dry: dict) -> dict:
+    """(d): the ``train_4k`` cells of the ``moe_ep`` configs on both meshes,
+    run through EP (phase 15 (a)'s sweeps), beside :data:`EP_DRY_BEFORE`."""
+    out = {}
+    for arch, before in EP_DRY_BEFORE.items():
+        for mesh, sweep in (("16x16", "single-pod"), ("2x16x16", "multi-pod")):
+            c = dry[sweep]["cell"][f"{arch}__train_4k__{mesh}"]
+            args, temp, coll = before[mesh]
+            out[f"{arch} train_4k {mesh}"] = {
+                "argument_gib": c["argument_bytes"] / 2**30, "temp_gib": c["temp_bytes"] / 2**30,
+                "fits": c["fits"], "collective_bytes": sum(c["collective_bytes"].values()),
+                "by_type": c["collective_bytes"], "before_argument_and_temp_gib": [args, temp],
+                "before_collective_bytes": coll}
+            check(c["fits"], f"(d) {arch} train_4k on {mesh} does not fit a card through EP")
+    return out
+
+
 def _local_tree(tree):
     """A cache tree's DTensors as their local tensors (whole on one rank)."""
     if isinstance(tree, dict):
@@ -3803,8 +3876,14 @@ def sharded_family_train(ops, TS, PP, place, opt_mod, build_model, cfg, seed: in
     """(f)'s train step: one sharded step of the cut model on ``mesh`` from
     params placed by ``param_shardings``, every state leaf and metric
     bit-equal to the one-device step on the same params and batch (run
-    first, its state kept on the host).  Returns (stats, flash launches)."""
+    first, its state kept on the host); a ``moe_ep`` config (deepseek,
+    llama4) trains its experts through the expert-parallel MoE, as its
+    rules say.  Returns (stats, flash launches)."""
+    from repro_torch.models import layers as L
     from repro_torch.training._tree import leaves, tree_map
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_tp_case import counting
 
     tc = train_cut(cfg)
     m = build_model(tc)
@@ -3831,9 +3910,12 @@ def sharded_family_train(ops, TS, PP, place, opt_mod, build_model, cfg, seed: in
     torch.cuda.empty_cache()
     placed = tree_map(lambda p, s: place(p, *s), params, PP.param_shardings(params, tc, mesh))
     ops.reset_launches()
-    (p2, o2, m2), sharded_s = sync_time(lambda: TS.make_train_step(m, mesh, opt)(
-        placed, fresh(), batch))
+    with counting(L, "_moe_apply_ep") as ep_calls:
+        (p2, o2, m2), sharded_s = sync_time(lambda: TS.make_train_step(m, mesh, opt)(
+            placed, fresh(), batch))
     launches = {k: ops.launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+    if tc.moe_ep:  # deepseek and llama4 train their experts through EP
+        check(len(ep_calls) > 0, f"(f) {cfg.name} train: the expert-parallel MoE did not run")
     got = leaves((p2, o2))
     # the card compares: each host leaf goes back to it, a leaf at a time
     equal, compare_s = sync_time(lambda: sum(torch.equal(local(a), b.to(dev))
@@ -3845,6 +3927,7 @@ def sharded_family_train(ops, TS, PP, place, opt_mod, build_model, cfg, seed: in
     del p2, o2, got, placed, params, want
     torch.cuda.empty_cache()
     return {"layers": tc.n_layers, "enc_layers": tc.n_enc_layers, "experts": tc.n_experts,
+            "moe_ep": tc.moe_ep, "expert_parallel_moe_calls": len(ep_calls),
             "batch": [FAMILY_TRAIN_ROWS, FAMILY_LEN], "state_leaves_equal": equal,
             "metrics_equal": True, "loss": got_m["loss"], "one_device_s": one_s,
             "sharded_s": sharded_s, "state_to_host_s": copy_s, "compare_s": compare_s,
@@ -4034,6 +4117,9 @@ def sharded_path(ops, FA, get_config, one: dict, lm_logits, lm_decoded: dict, dr
     stats["d_families"] = dryrun_cells(dry, tuple(FAMILY_DRY_BEFORE), FAMILY_DRY_BEFORE)
     print("sharded (d) the families' dry-run cells, 16x16: " + json.dumps(stats["d_families"]),
           flush=True)
+    stats["d_ep"] = ep_train_cells(dry)
+    print("sharded (d) the moe_ep configs' train cells through EP: " + json.dumps(stats["d_ep"]),
+          flush=True)
     launches = {k: stats["a"]["launches"].get(k, 0) + stats["b"]["launches"].get(k, 0)
                 for k in ("flash_attention", "flash_attention_bwd")}
     return stats, launches, f_launches
@@ -4196,6 +4282,11 @@ def main() -> None:
     rows.append(bwd_row)
     flash_row["launches_by_path"]["train (phase 13)"] = train_stats["entry_point"][
         "launches"]["flash_attention"]
+    comp = train_stats["compressed"]
+    for row in rows:
+        if row["name"] == "base_fit":  # (e)'s whole-params and sharded runs
+            row.setdefault("launches_by_path", {})["compressed step (phase 13)"] = (
+                comp["base_fit_launches"] + comp["sharded_base_fit_launches"])
     torch.cuda.empty_cache()
 
     # phase 14: the parallel layer on a DeviceMesh (data- and expert-parallel

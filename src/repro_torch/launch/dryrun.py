@@ -32,10 +32,10 @@ sequence over ``"model"``), so it holds S/16 of each cache.  The
 collectives are the step's own: the blocks' gathers and reduce-scatters,
 the dense family's tensor-parallel all-reduces, a decode's gathers of its
 query heads and merges of the ranks' partial softmaxes, the gradients'
-and metrics' mean and the norm.  The sharded train step runs
-the MoE's dense dispatch, so an ``moe_ep`` config trains with it
-(``notes`` says so); its prefill and decode take the expert-parallel
-route.  Decode writes cache position ``seq_len - 1``.
+and metrics' mean and the norm.  A ``moe_ep`` config takes the
+expert-parallel route in every step, train included, as the reference's
+does: each rank gathers only its own experts.  Decode writes cache
+position ``seq_len - 1``.
 
 ``--compressed`` counts the SHRINK cross-pod exchange stage
 (``make_crosspod_exchange``) against the plain float32 mean over
@@ -201,7 +201,6 @@ def run_cell(
         "devices": n_dev,
         "kind": shape.kind,
     }
-    notes = []
     t0 = time.time()
     with fake_world(n_dev):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
@@ -209,10 +208,6 @@ def run_cell(
             result.update(_exchange(cfg, mesh, build_model(cfg).init_shapes(), overrides))
             result.update(seconds={"trace": time.time() - t0}, tag=tag)
             return result
-        if shape.kind == "train" and cfg.moe_ep:
-            cfg = dataclasses.replace(cfg, moe_ep=False)
-            notes.append("moe_ep off in train: the sharded step runs the dense dispatch "
-                         "(expert parallelism runs in prefill and decode)")
         model = build_model(cfg)
         params = _placed(model.init_shapes(), cfg, mesh)
         rows = _rank_batch(shape, mesh)
@@ -250,7 +245,6 @@ def run_cell(
         roofline=_roofline(cost.flops, cost.bytes, cost.collective_bytes,
                            model_flops_total(cfg, shape), n_dev),
         batch_rows_per_device=rows,
-        notes=notes,
         tag=tag,
     )
     return result

@@ -19,9 +19,9 @@ each card from seed 0, then placed by ``param_shardings``) and training on
 its slice of the global ``--batch``.  Every rank takes part in gathering a
 checkpoint's leaves; rank 0 alone writes them into ``--ckpt-dir`` (a
 directory every rank can read, the same bytes as one device's) and every
-rank resumes from it onto its shards.  It raises ``ConfigError`` up front
-for ``moe_ep`` (expert parallelism runs in prefill and decode only), and
-in a world of another size, naming the 256 ranks it needs.
+rank resumes from it onto its shards.  A ``moe_ep`` config trains its
+experts expert parallel over ``"model"``.  It raises ``ConfigError`` up
+front in a world of another size, naming the 256 ranks it needs.
 
 Standard output carries the reference's lines; standard error two more:
 the median time of a step (from one step's start to the next's, which
@@ -42,7 +42,6 @@ import torch.distributed as dist
 
 from ..configs import get_config, reduced_config
 from ..core.device import resolve_device
-from ..core.errors import ConfigError
 from ..data.pipeline import TokenPipeline
 from ..models import build_model
 from ..parallel.partition import param_shardings
@@ -53,15 +52,6 @@ from ..training.fault_tolerance import TrainingRunner
 from ..training.optimizer import AdamWConfig, adamw_init
 from ..training.train_step import make_train_step
 from .mesh import make_production_mesh
-
-
-def _refuse_for_production(cfg) -> None:
-    """Raise ``ConfigError`` for a config that the sharded step cannot run
-    on the production mesh."""
-    if cfg.moe_ep:
-        raise ConfigError(f"--production: {cfg.name} sets moe_ep, and the sharded step runs "
-                          f"the MoE's dense dispatch (expert parallelism runs in prefill and "
-                          f"decode only)")
 
 
 def main(argv=None) -> int:
@@ -87,7 +77,6 @@ def main(argv=None) -> int:
         cfg = reduced_config(cfg)
     mesh = None
     if args.production:
-        _refuse_for_production(cfg)
         mesh = make_production_mesh()
         dev = torch.device("cuda", torch.cuda.current_device())
     else:

@@ -34,7 +34,9 @@ contributions in slot order in bf16, so the card's sum has one order
 the rules of a mesh with a ``"model"`` axis, a ``moe_ep`` config takes the
 reference's expert-parallel route: each model rank dispatches every token
 to its own experts only, and one all_reduce over the model group sums the
-ranks' outputs (bit-equal to the single-device MoE on one rank).  Under
+ranks' outputs (bit-equal to the single-device MoE on one rank); its
+backward sums the tokens' and gates' gradients over the model group, so a
+sharded train step trains each expert on the rank that holds it.  Under
 a sharded step's rules (``AxisRules.shards``) every family splits over
 ``"model"`` what the rules map there, Megatron-LM's way: a column-split
 product behind ``copy_to``, a row-split one before ``reduce_from``
@@ -58,7 +60,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -734,32 +735,36 @@ def _moe_experts(p: Params, xt: torch.Tensor, cfg: ModelConfig, expert_idx: torc
 def _moe_apply_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, rules) -> tuple:
     """Expert-parallel MoE (the reference's replicated-dispatch
     ``_moe_apply_ep``): the tokens are replicated over the ``"model"`` axis,
-    so each model rank routes every token, runs the tokens routed to its
-    E / msize experts (its capacity the single device's), and one bf16
-    all_reduce over the model group sums the ranks' [T, d] partial outputs.
-    Expert weights are a DTensor split over ``"model"`` on dim 0 or the
-    whole [E, ...] weight (each rank reads its experts).  Over more than
-    one model rank it runs forward only (prefill, decode): the all_reduce
-    is outside autograd, so it raises where a gradient is being recorded."""
+    so each model rank routes every token of its rows, runs the tokens
+    routed to its E / msize experts (the capacity from its own rows, as the
+    reference's ``body`` computes it), and one bf16 all_reduce over the
+    model group sums the ranks' [T, d] partial outputs.  Expert weights are
+    a DTensor split over ``"model"`` on dim 0, this rank's experts (a
+    sharded step gathers them over the fsdp axes only), or the whole
+    [E, ...] weight (each rank reads its experts).
+
+    The gradient: the tokens and the gates enter this rank's experts
+    through ``copy_to`` (each rank's gradient of them covers its own
+    experts, so the backward sums it over ``"model"``), and the output
+    leaves through ``reduce_from``; the aux loss, the same on every model
+    rank, reaches the router unsummed.  So every rank's gradient of x and
+    of the router is the single-device one, and each expert's gradient
+    lands on the rank that holds it.  On one model rank no collective runs
+    (the single-device MoE, bit for bit)."""
     b, s, d = x.shape
     e = cfg.n_experts
     msize = mesh_axes(rules.mesh).get("model", 1)
     count = e // msize
-    mrank = 0
+    mrank, group = 0, None
     if msize > 1:
-        if torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for t in p.values() if isinstance(t, torch.Tensor))):
-            raise ValueError("expert-parallel MoE over a model axis > 1 runs forward only; "
-                             "call it under torch.no_grad() or torch.inference_mode()")
         mrank = rules.mesh.get_coordinate()[rules.mesh.mesh_dim_names.index("model")]
+        group = rules.mesh.get_group("model")
     xt = x.reshape(b * s, d).to(COMPUTE_DTYPE)
     probs, gate_vals, expert_idx = _route(p, xt, cfg)
     aux = _moe_aux(probs, expert_idx, cfg)
-    if msize == 1:
-        y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, 0, count)
-    else:
-        y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, mrank * count, count)
-        dist.all_reduce(y, group=rules.mesh.get_group("model"))
+    y = _moe_experts(p, copy_to(xt, group), cfg, expert_idx, copy_to(gate_vals, group),
+                     mrank * count, count)
+    y = reduce_from(y, group)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -62,7 +62,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from .partition import _spec_for_leaf, fsdp_axes_for, param_specs, shard_shape
-from .sharding import P, local_shard, mesh_axes, spec_placements
+from .sharding import P, local_shard, mesh_axes, spec_placements, tree_map_with_path
 
 __all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "gather_dim", "merge_partials",
            "reduce_from", "step_specs", "sum_over", "vocab_whole"]
@@ -281,7 +281,7 @@ class Shards:
                 spec = _whole_dim(spec, _TABLES[path[0]])
             for dim, part in enumerate(spec):
                 for name in reversed(_names(part)):  # the inner axis first
-                    if name not in keep:
+                    if name not in keep and name in self.sizes:
                         steps.append((dim, self.groups[name], self.sizes[name],
                                       self.index[name], name != "model" or summed_model))
             steps = self._plans[key] = tuple(steps)
@@ -374,7 +374,8 @@ def step_specs(params, cfg: ModelConfig, mesh):
     """``param_specs`` as a sharded step places its params: where
     :func:`vocab_whole`, the vocabulary tables (``embed``, ``head``) whole
     over their vocabulary dim, split over their other axes as the spec
-    says.  Every other leaf keeps ``param_specs``' spec, and a dim that its
+    says; on a mesh without ``"model"`` (the compressed step's ``"pod"``
+    mesh) no leaf names it.  Every other leaf keeps ``param_specs``' spec, and a dim that its
     axes do not divide raises, as JAX's shardings refuse it
     (:meth:`Shards.local`)."""
     specs = param_specs(params, cfg, mesh)
@@ -382,7 +383,16 @@ def step_specs(params, cfg: ModelConfig, mesh):
         for name, dim in _TABLES.items():
             if name in specs:
                 specs[name] = _whole_dim(specs[name], dim)
+    axes = mesh_axes(mesh)
+    if "model" not in axes:  # a mesh of "pod" or ("pod", "data"): nothing splits over it
+        specs = tree_map_with_path(lambda _, s: P(*(_present(part, axes) for part in s)), specs)
     return specs
+
+
+def _present(part, axes):
+    """A spec entry without the axes that the mesh lacks."""
+    names = tuple(n for n in _names(part) if n in axes)
+    return names[0] if len(names) == 1 else (names or None)
 
 
 def _shape_key(tree):

@@ -20,7 +20,10 @@
   ``models.model``): attention's and MLA's heads, the RG-LRU's channels,
   RWKV6's heads and channel-mix, cross-attention, the encoder, the MLP
   and the MoE's shared experts; a dim that the axis does not divide stays
-  whole, and its leaves are gathered over ``"model"``.  The clip's norm
+  whole, and its leaves are gathered over ``"model"``.  A ``moe_ep``
+  config whose experts the ``"model"`` axis divides trains them expert
+  parallel, as the reference does (``models.layers._moe_apply_ep``): each
+  rank holds, gathers over its fsdp axes and trains its own experts.  The clip's norm
   sums each shard once over the mesh (one all_reduce), and AdamW is
   elementwise on the shards, so a one-rank mesh gives the one-device
   step's bits.  What depends on the
@@ -28,10 +31,13 @@
   buckets) is worked out on the first call and kept; later calls repeat
   only the collectives and the DTensors' wrapping.
 * ``make_compressed_train_step``: each pod takes its slice of the global
-  batch, computes its gradient, and the cross-pod mean rides the SHRINK
-  compressed exchange (``grad_compress.py``) with error feedback carried in
-  the step state.  ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
-  with a ``"pod"`` dimension, whose process group carries the collectives.
+  batch and computes its gradient as the sharded train step does inside
+  the pod (``param_specs`` shards, ``"data"`` for the batch, TP over
+  ``"model"``), and the cross-pod mean rides the SHRINK compressed
+  exchange on whole blocks of each leaf (``grad_compress.py``), with error
+  feedback carried in the step state, placed like the params.  ``mesh`` is
+  a ``torch.distributed.device_mesh.DeviceMesh`` with a ``"pod"``
+  dimension.
 * ``make_prefill_step`` / ``make_decode_step`` on a mesh take the params
   as the train step does (shards) and the **global** batch, as the train
   step does: each slices dim 0 of every batch leaf (``_DataParallel.slice``;
@@ -80,7 +86,7 @@ from ..parallel.collectives import Shards, vocab_whole
 from ..parallel.partition import param_specs, spec_axes
 from ..parallel.sharding import P, axis_rules, make_rules, mesh_axes, tree_map_with_path
 from ._tree import leaves, tree_map, unflatten
-from .grad_compress import GradCompressConfig, _concat, _split, compressed_psum_tree
+from .grad_compress import GradCompressConfig, PodBlocks, _concat, _split, compressed_psum_shards
 from .optimizer import AdamWConfig, adamw_update, clip_by_global_norm
 
 __all__ = [
@@ -207,18 +213,22 @@ def _plain(t):
 
 
 class _DataParallel:
-    """The batch axes of a DeviceMesh: this rank's index among the ranks
-    that share its ``"model"`` coordinate (pod major), their count, each
-    batch axis's group and the group of them all (the axis's own, or one
-    made for the pod x data plane: every rank makes every plane's group,
-    in one order)."""
+    """The batch axes of a DeviceMesh (``names``, default those of
+    ``("pod", "data")`` that it has): this rank's index among the ranks
+    that share its coordinates along the other axes (pod major), their
+    count, each batch axis's group and the group of them all (the axis's
+    own, or one made for the pod x data plane: every rank makes every
+    plane's group, in one order).  No batch axis is one rank: a slice is
+    the whole batch and a mean divides by 1."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, names=None):
         axes = mesh_axes(mesh)
-        self.names = tuple(a for a in ("pod", "data") if a in axes)
-        if not self.names:
-            raise ConfigError(f"data parallelism needs a 'data' or 'pod' axis; the mesh has "
-                              f"{tuple(axes)}")
+        if names is None:
+            names = tuple(a for a in ("pod", "data") if a in axes)
+            if not names:
+                raise ConfigError(f"data parallelism needs a 'data' or 'pod' axis; the mesh "
+                                  f"has {tuple(axes)}")
+        self.names = tuple(a for a in names if a in axes)
         coord = dict(zip(axes, mesh.get_coordinate()))
         self.n = math.prod(axes[a] for a in self.names)
         self._buckets: dict = {}
@@ -321,6 +331,44 @@ def _step_rules(mesh, cfg: ModelConfig, shards: Shards, overrides=None):
     return rules
 
 
+def _mesh_norm(sh: Shards, world, specs: list):
+    """The clip's norm of gradients held as shards placed by ``specs``:
+    each piece's squares summed once over the mesh (from 0, in leaf order,
+    as ``global_norm`` sums them), one all_reduce over ``world``."""
+    def norm(grads):
+        flat = leaves(grads)
+        sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        for g, s in zip(flat, specs):
+            if sh.counted(s):
+                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        dist.all_reduce(sq, group=world)
+        return torch.sqrt(sq)
+    return norm
+
+
+def _sharded_grads(model: Model, sh: Shards, dp: _DataParallel, rules, params, opt_state,
+                   batch):
+    """A sharded step's gradient: (the specs, this rank's shards of the
+    params and AdamW state, the batch ranks' mean gradient of ``model.loss``
+    on this rank's ``batch`` under ``rules``, and the metrics' mean)."""
+    specs = sh.specs(params)
+    local = sh.local(params, specs)
+    opt = {"m": sh.local(opt_state["m"], specs), "v": sh.local(opt_state["v"], specs),
+           "step": _plain(opt_state["step"])}
+    with axis_rules(rules):
+        loss, parts, grads = _value_and_grad(model, local, batch)
+    metrics = {"loss": loss, **parts}
+    got, vals = dp.mean(leaves(grads), leaves(specs), list(metrics.values()))
+    return specs, local, opt, unflatten(grads, got), dict(zip(metrics, vals))
+
+
+def _wrap_state(sh: Shards, specs, params, local, opt) -> tuple:
+    """The new params and AdamW state as DTensors placed by ``specs``."""
+    return sh.wrap(local, specs, params), {
+        "m": sh.wrap(opt["m"], specs, params), "v": sh.wrap(opt["v"], specs, params),
+        "step": opt["step"]}
+
+
 def make_train_step(model: Model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig()):
     if mesh is None:
         def one_device(params, opt_state, batch):
@@ -331,43 +379,16 @@ def make_train_step(model: Model, mesh=None, opt_cfg: AdamWConfig = AdamWConfig(
 
         return one_device
     cfg = model.cfg
-    if cfg.moe_ep and mesh_axes(mesh).get("model", 1) > 1:
-        raise ConfigError("the sharded step runs the MoE's dense dispatch; expert parallelism "
-                          "(moe_ep over a model axis) runs in prefill and decode")
     sh, dp, world = Shards(mesh, cfg), _DataParallel(mesh), _mesh_group(mesh)
     rules = _step_rules(mesh, cfg, sh)
 
-    def mesh_norm(specs):
-        def norm(grads):
-            """The global norm of sharded gradients: each piece's squares
-            summed once over the mesh (from 0, in leaf order, as
-            ``global_norm`` sums them)."""
-            flat = leaves(grads)
-            sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-            for g, s in zip(flat, specs):
-                if sh.counted(s):
-                    sq = sq + torch.sum(torch.square(g.to(torch.float32)))
-            dist.all_reduce(sq, group=world)
-            return torch.sqrt(sq)
-        return norm
-
     def step(params, opt_state, batch):
-        specs = sh.specs(params)
-        local = sh.local(params, specs)
-        opt = {"m": sh.local(opt_state["m"], specs), "v": sh.local(opt_state["v"], specs),
-               "step": _plain(opt_state["step"])}
-        batch = {k: dp.slice(v) for k, v in batch.items()}
-        with axis_rules(rules):
-            loss, parts, grads = _value_and_grad(model, local, batch)
-        flat_specs = leaves(specs)
-        metrics = {"loss": loss, **parts}
-        got, vals = dp.mean(leaves(grads), flat_specs, list(metrics.values()))
-        grads, metrics = unflatten(grads, got), dict(zip(metrics, vals))
-        local, opt, gnorm = _update(opt_cfg, local, opt, grads, norm=mesh_norm(flat_specs))
+        specs, local, opt, grads, metrics = _sharded_grads(
+            model, sh, dp, rules, params, opt_state, {k: dp.slice(v) for k, v in batch.items()})
+        local, opt, gnorm = _update(opt_cfg, local, opt, grads,
+                                    norm=_mesh_norm(sh, world, leaves(specs)))
         metrics = {"loss": metrics.pop("loss"), "grad_norm": gnorm, **metrics}
-        return sh.wrap(local, specs, params), {
-            "m": sh.wrap(opt["m"], specs, params), "v": sh.wrap(opt["v"], specs, params),
-            "step": opt["step"]}, metrics
+        return (*_wrap_state(sh, specs, params, local, opt), metrics)
 
     return step
 
@@ -379,8 +400,17 @@ def make_compressed_train_step(
     comp_cfg: GradCompressConfig = GradCompressConfig(),
 ):
     """Cross-pod SHRINK-compressed data parallelism: ``step(params,
-    opt_state, ef, batch)`` with the global batch; this pod trains on its
-    slice of dim 0 (the reference's ``P("pod")`` in-spec)."""
+    opt_state, ef, batch)`` with the global batch; each pod trains on its
+    slice of dim 0 (the reference's ``P("pod")`` in-spec) and, inside the
+    pod, as the sharded train step does under the reference's rules with
+    ``batch`` on ``"data"``: each rank holds its ``param_specs`` shards
+    (replicated over the pods), trains on its rows of the pod's slice, and
+    splits heads, ffn and vocab over ``"model"``.  The pod's mean gradient
+    then crosses the pods through the compressed exchange on whole blocks
+    of each leaf (``grad_compress.compressed_psum_shards``: the bits that
+    ``compressed_psum_tree`` gives the whole leaves), with the error
+    feedback ``ef`` placed like the params; the metrics are the pods'
+    mean.  A mesh of ``"pod"`` alone holds the params whole."""
     cfg = model.cfg
     if comp_cfg.axis not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"compressed step needs a {comp_cfg.axis!r} axis")
@@ -389,29 +419,41 @@ def make_compressed_train_step(
     group = mesh.get_group(comp_cfg.axis)
     n = dist.get_world_size(group)
     rank = dist.get_rank(group)
+    sh, dp, world = Shards(mesh, cfg), _DataParallel(mesh, ("data",)), _mesh_group(mesh)
+    # inside a pod the batch rides "data" only (the reference's override)
+    rules = _step_rules(mesh, cfg, sh, overrides={"batch": dp.names or None})
+    blocks = PodBlocks(mesh, comp_cfg.axis)
 
     def pod_slice(x):
         b = x.shape[0] // n
         return x[rank * b:(rank + 1) * b]
 
     def step(params, opt_state, ef, batch):
-        local = {k: pod_slice(v) for k, v in batch.items()}
-        loss, parts, grads = _value_and_grad(model, params, local)
-        grads, ef = compressed_psum_tree(grads, ef, comp_cfg, group=group)
-        params, opt_state, gnorm = _update(opt_cfg, params, opt_state, grads)
+        specs, local, opt, grads, metrics = _sharded_grads(
+            model, sh, dp, rules, params, opt_state,
+            {k: dp.slice(pod_slice(v)) for k, v in batch.items()})
+        flat_specs = leaves(specs)
+        grads, new_ef = compressed_psum_shards(grads, sh.local(ef, specs),
+                                               [p.shape for p in leaves(params)], flat_specs,
+                                               comp_cfg, blocks, group=group)
+        local, opt, gnorm = _update(opt_cfg, local, opt, grads,
+                                    norm=_mesh_norm(sh, world, flat_specs))
         # every metric is the pods' mean, as the reference's psum / n
-        metrics = {"loss": loss, "grad_norm": gnorm, **parts}
+        metrics = {"loss": metrics.pop("loss"), "grad_norm": gnorm, **metrics}
         vals = torch.stack([metrics[k].to(torch.float32) for k in metrics])
         if n > 1:
             dist.all_reduce(vals, group=group)
         vals = torch.div(vals, torch.tensor(float(n), device=vals.device))
-        return params, opt_state, ef, dict(zip(metrics, vals.unbind()))
+        return (*_wrap_state(sh, specs, params, local, opt), sh.wrap(new_ef, specs, params),
+                dict(zip(metrics, vals.unbind())))
 
     return step
 
 
 def make_ef_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    """Zero error feedback in float32, a leaf of each param's global shape
+    (a DTensor placed as the param is where it is one)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 # ------------------------------------------------------------- serve steps

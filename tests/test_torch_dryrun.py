@@ -5,7 +5,9 @@ process-wide default group), so the pytest worker keeps no process group
 and no environment variable (``torch_dist_helpers.dist_guard``).  The
 cells: qwen3-0.6b ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
 16x16 mesh, the ``--compressed`` exchange on 2x16x16, llama3-8b
-``train_4k``, and an unknown arch (a ``FAILED__`` file and exit code 1).
+``train_4k``, deepseek-v2-lite-16b's ``train_4k`` cut to 2 layers with and
+without ``moe_ep``, and an unknown arch (a ``FAILED__`` file and exit code
+1).
 Each written cell has the reference's JSON keys.  Every step holds this
 rank's ``param_specs`` shards: a cell's ``argument_bytes`` are the local
 shards' bytes (and the moments' and step count's in a train cell) plus
@@ -53,6 +55,12 @@ RUNS = {  # name -> dry-run arguments
     "qwen_decode": ["--arch", "qwen3-0.6b", "--shape", "decode_32k"],
     "qwen_comp": ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod", "--compressed"],
     "llama_train": ["--arch", "llama3-8b", "--shape", "train_4k"],
+    # deepseek cut to its dense first layer and one MoE layer, expert
+    # parallel (its moe_ep) and on the dense dispatch
+    "ep_train": ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k",
+                 "--override", "n_layers=2"],
+    "dense_train": ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k",
+                    "--override", "n_layers=2", "--override", "moe_ep=False"],
     "unknown": ["--arch", "no-such-arch", "--shape", "train_4k"],
 }
 
@@ -218,6 +226,31 @@ def test_llama3_8b_train_does_not_fit_a_card(runs):
     assert cell["memory"]["argument_bytes"] < 2**30
     assert cell["memory"]["fits"] is True
     assert cell["memory"]["argument_bytes"] + cell["memory"]["temp_bytes"] <= 80 * 1024**3
+
+
+def test_moe_ep_train_cell_runs_expert_parallel(runs):
+    """A ``moe_ep`` train cell trains its experts expert parallel (no
+    "moe_ep off" note: the reference's cells carry no notes): each rank
+    gathers only its 4 of the 64 experts, so the gradients' reduce-scatters
+    hand back exactly 15 x its expert shards' float32 bytes fewer than the
+    dense dispatch's (which gathers all 64 over "model" and scatters their
+    gradients over "data"), and the peak falls."""
+    ep, dense = _cell(runs, "ep_train"), _cell(runs, "dense_train")
+    assert "notes" not in ep and KEYS <= set(ep)
+    cfg = PC.get_config("deepseek-v2-lite-16b")
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    params = build_model(dataclasses.replace(cfg, n_layers=2)).init_shapes()
+    specs = param_specs(params, cfg, mesh)
+    moe = params["groups"]["pos0"]["moe"]
+    shard = sum(math.prod(shard_shape(moe[k].shape, specs["groups"]["pos0"]["moe"][k], mesh))
+                for k in ("wg", "wu", "wd"))
+    scatter = {n: c["collectives"]["by_type"]["reduce-scatter"]
+               for n, c in (("ep", ep), ("dense", dense))}
+    assert scatter["dense"] - scatter["ep"] == 15 * 4 * shard
+    gather = {n: c["collectives"]["by_type"]["all-gather"] for n, c in (("ep", ep),
+                                                                         ("dense", dense))}
+    assert gather["ep"] * 10 < gather["dense"]
+    assert ep["memory"]["temp_bytes"] < dense["memory"]["temp_bytes"]
 
 
 def test_a_failed_cell_writes_its_traceback(runs):

@@ -3,10 +3,10 @@ the CPU: a reduced qwen3-0.6b trains, exits 0 with the reference's printed
 lines, and a second call resumes from its checkpoint directory; a resumed
 run takes only the steps after the checkpoint.  ``--production`` (the
 16 x 16 mesh) in a world of one raises ``ConfigError`` naming the 256
-ranks it needs; before that, for a config its sharded step cannot run
-(``moe_ep``), naming the reason.  A state larger than one card is no
-reason: each rank holds only its shards of it, so llama3-8b (89 GiB of
-params, gradients and moments whole) reaches the 256-rank error."""
+ranks it needs, for every config: an ``moe_ep`` config (deepseek) trains
+its experts expert parallel, and a state larger than one card is no
+reason either (each rank holds only its shards of it, so llama3-8b, 89 GiB
+of params, gradients and moments whole, reaches the same error)."""
 import os
 import pathlib
 import re
@@ -62,7 +62,7 @@ def test_production_raises_config_error():
 
 
 @pytest.mark.parametrize("arch,reason", [
-    ("deepseek-v2-lite-16b", "sets moe_ep"),
+    ("deepseek-v2-lite-16b", "needs a world of 256 ranks.*this world has 1"),
     ("llama3-8b", "needs a world of 256 ranks.*this world has 1"),
 ])
 def test_production_refuses_what_the_step_cannot_run(arch, reason):

@@ -103,12 +103,13 @@ from repro.parallel.sharding import axis_rules, make_rules
 from repro.training.optimizer import AdamWConfig, adamw_init
 from repro.training.train_step import make_train_step, train_state_specs
 d, tiny, opt, keys = sys.argv[1], eval(sys.argv[2]), eval(sys.argv[3]), eval(sys.argv[4])
+shape = eval(sys.argv[5])
 model = build_model(ModelConfig(**tiny))
 inp = np.load(f"{d}/ref_in.npz")
 like = jax.eval_shape(model.init, jax.random.PRNGKey(0))
 params = jax.tree.unflatten(jax.tree.structure(like), [jnp.asarray(inp[f"arr_{i}"])
                                                        for i in range(len(jax.tree.leaves(like)))])
-mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 
 def named(specs):
     return jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
@@ -132,35 +133,62 @@ with mesh:
     new, _, metrics = step(params, adamw_init(params), batch)
 np.savez(f"{d}/ref_out.npz", *[np.asarray(t) for t in jax.tree.leaves(new)],
          **{f"g{i}": np.asarray(g) for i, g in enumerate(jax.tree.leaves(grads))},
-         loss=np.asarray(metrics["loss"]), gnorm=np.asarray(metrics["grad_norm"]))
+         loss=np.asarray(metrics["loss"]), gnorm=np.asarray(metrics["grad_norm"]),
+         aux=np.asarray(metrics["moe_aux"]))
 """
+
+
+def start_reference(case, tmp_path, mesh: tuple = (2, 2)) -> subprocess.Popen:
+    """The reference's step of ``setup(case)``'s first global batch, jitted
+    with its shardings on 4 host devices (a ("data", "model") mesh of
+    ``mesh``), started in a subprocess that writes ``ref_out.npz``; the
+    reference's params are saved as ``params.npz``, from which the port's
+    ranks start."""
+    model, _, batches = setup(case)
+    config = dataclasses.asdict(model.cfg)
+    rp = RM.build_model(RC.ModelConfig(**config)).init(jax.random.PRNGKey(0))
+    batch = {k: v.numpy() for k, v in batches[0].items()}
+    np.savez(tmp_path / "ref_in.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)], **batch)
+    np.savez(tmp_path / "params.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)])
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    return subprocess.Popen([sys.executable, "-c", _REF_STEP, str(tmp_path), repr(config),
+                             repr(OPT), repr(sorted(batch)), repr(mesh)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_reference(ref: subprocess.Popen, tmp_path):
+    """The reference's arrays, once its subprocess has exited 0."""
+    try:
+        log = ref.communicate(timeout=RANK_TIMEOUT)[0]
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, log
+    return np.load(tmp_path / "ref_out.npz")
+
+
+def hold_to_reference(got, want) -> None:
+    """The port's one step (a rank's saved arrays) against the reference's
+    within the bounds above."""
+    assert abs(float(got["loss"][0]) - float(want["loss"])) < REF_LOSS_TOL
+    np.testing.assert_allclose(float(got["gnorm"][0]), float(want["gnorm"]), rtol=REF_GNORM_RTOL)
+    lr = float(_schedule(AdamWConfig(**OPT), torch.tensor(1)))
+    for i in range(sum(k.startswith("arr_") for k in want.files)):
+        g, w = got[f"g{i}"], want[f"g{i}"]
+        assert g.shape == w.shape and np.abs(g - w).max() <= GRAD_REL * np.abs(w).max(), i
+        np.testing.assert_allclose(got[f"arr_{i}"], want[f"arr_{i}"], rtol=0, atol=2.1 * lr)
 
 
 def _against_the_reference(case, tmp_path):
     """The port's step on 4 gloo ranks against the reference's jitted with
     its shardings on 4 host devices, from the reference's params, one step
     of the global batch (``setup(case)``'s first)."""
-    model, _, batches = setup(case)
-    config = dataclasses.asdict(model.cfg)
-    rp = RM.build_model(RC.ModelConfig(**config)).init(jax.random.PRNGKey(0))
-    batch = {k: v.numpy() for k, v in batches[0].items()}
-    np.savez(tmp_path / "ref_in.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)], **batch)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    ref = subprocess.run([sys.executable, "-c", _REF_STEP, str(tmp_path), repr(config),
-                          repr(OPT), repr(sorted(batch))],
-                         env=env, capture_output=True, text=True, timeout=RANK_TIMEOUT)
-    assert ref.returncode == 0, ref.stdout + ref.stderr
-    np.savez(tmp_path / "params.npz", *[np.asarray(t) for t in jax.tree.leaves(rp)])
-    got, want = run_workers(tmp_path, case, steps=1)[0], np.load(tmp_path / "ref_out.npz")
-    assert abs(float(got["loss"][0]) - float(want["loss"])) < REF_LOSS_TOL
-    np.testing.assert_allclose(float(got["gnorm"][0]), float(want["gnorm"]), rtol=REF_GNORM_RTOL)
-    lr = float(_schedule(AdamWConfig(**OPT), torch.tensor(1)))
-    for i in range(len(jax.tree.leaves(rp))):
-        g, w = got[f"g{i}"], want[f"g{i}"]
-        assert g.shape == w.shape and np.abs(g - w).max() <= GRAD_REL * np.abs(w).max(), i
-        np.testing.assert_allclose(got[f"arr_{i}"], want[f"arr_{i}"], rtol=0, atol=2.1 * lr)
+    ref = start_reference(case, tmp_path)
+    got = run_workers(tmp_path, case, steps=1)[0]
+    hold_to_reference(got, finish_reference(ref, tmp_path))
 
 
 @pytest.mark.parametrize("kv", [1, 2])

@@ -8,8 +8,8 @@ them.  The reduced configs and their batches are
 ``tests/torch_tp_case.py``'s ``FAMILY_CASES`` (the MoE routes every
 expert, ``top_k`` 4 of 4: its near-uniform router at random init flips
 the k-th expert under the rounding of split contractions, which moves a
-token's output by a whole expert; the dense dispatch, as the sharded step
-refuses ``moe_ep`` over a model axis > 1).  The dense cases and the
+token's output by a whole expert; the dense dispatch; the expert-parallel
+cases are ``tests/test_torch_moe_ep.py``'s).  The dense cases and the
 bounds' origin are in ``tests/test_torch_tensor_parallel.py``.
 
 * (i) A one-rank (1, 1) mesh: 3 train steps and a prefill bit-equal to
@@ -36,8 +36,8 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from test_torch_tensor_parallel import F32_REL, _against_the_reference
 from torch_dist_helpers import dist_guard, one_rank, whole  # noqa: F401
-from torch_tp_case import (FAMILY_CASES, OPT, cache_tensors, gaps, leaf_names, prompt_of, run,
-                           run_workers, setup, within)
+from torch_tp_case import (EP_CASES, FAMILY_CASES, OPT, cache_tensors, gaps, leaf_names,
+                           prompt_of, run, run_workers, setup, within)
 
 from repro_torch.core.errors import ConfigError
 from repro_torch.models import transformer as T
@@ -49,7 +49,8 @@ from repro_torch.training import AdamWConfig, make_prefill_step, make_train_step
 from repro_torch.training import train_step as TS
 from repro_torch.training._tree import leaves
 
-FAMILIES = [c for c in FAMILY_CASES if c != "uneven"]
+# the expert-parallel cases run in tests/test_torch_moe_ep.py
+FAMILIES = [c for c in FAMILY_CASES if c not in ("uneven", *EP_CASES)]
 
 
 def _local_shapes_are_the_specs(g: dict, model, params, mesh: tuple) -> None:
@@ -62,7 +63,7 @@ def _local_shapes_are_the_specs(g: dict, model, params, mesh: tuple) -> None:
     assert all(shapes == want for shapes in g["local_shapes"].values())
 
 
-@pytest.mark.parametrize("case", list(FAMILY_CASES))
+@pytest.mark.parametrize("case", [*FAMILIES, "uneven"])
 def test_families_one_rank_mesh_is_bit_equal_to_one_device(case, one_rank):
     """3 train steps and a prefill of each family on a (1, 1) mesh: every
     state leaf, metric, logit and cache bit-equal to one device."""

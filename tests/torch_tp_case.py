@@ -103,11 +103,18 @@ CHAIN_DTYPES = {"bfloat16": "", "float32": "_f32"}
 # device's by more, and the float32 chains of the same cases hold 1e-5
 CACHE_REL_CASES = ("ring", "cross", "rwkv6")
 # the families' train cases (reduced configs; ``setup`` takes the key):
-# MLA with its shared expert (the dense MoE dispatch: the sharded step
-# refuses moe_ep over a model axis > 1), RG-LRU with local attention, RWKV6
-# on its chunked WKV (chunks of 8 in a sequence of 32), the VLM's cross
-# layer, seamless's encoder, and a vocabulary of 510 that a model axis of 4
-# (or 2 x 2's 2: 510 = 2 x 255) does not divide
+# MLA with its shared expert on the dense MoE dispatch, RG-LRU with local
+# attention, RWKV6 on its chunked WKV (chunks of 8 in a sequence of 32), the
+# VLM's cross layer, seamless's encoder, a vocabulary of 510 that a model
+# axis of 4 (or 2 x 2's 2: 510 = 2 x 255) does not divide, and the
+# expert-parallel MoE (EP_CASES: deepseek's moe_ep, each model rank training
+# its own experts), routing every expert (top 4 of 4, as "mla": no flips,
+# and an aux loss of 1 whose gradient is 0, so the step is one device's
+# function on any mesh) and its own top 2 of 4 ("mla_ep_k2": the aux loss's
+# router gradient is live; on more than one data rank the reference's EP
+# gradient is the mean of the data shards' aux gradients, not the whole
+# batch's, so it is held to one device on a model-only mesh, in float32:
+# in bf16 its near-uniform router flips under TP's rounding)
 # the families' bfloat16 bounds on the 2 x 2 mesh (and the uneven
 # vocabulary's on 1 x 4): TINY's do not hold there, by the rounding of bf16
 # partial sums (each rank's row-split product rounded, then their bf16 sum)
@@ -121,12 +128,15 @@ CACHE_REL_CASES = ("ring", "cross", "rwkv6")
 FAMILY_BF16 = dict(grad=0.12, param=0.12, moved=0.10, gnorm=(5e-3, 6e-3, 1.5e-2), caches=0.03)
 FAMILY_CASES = {
     "mla": ("deepseek-v2-lite-16b", {"moe_ep": False, "top_k": 4}),
+    "mla_ep": ("deepseek-v2-lite-16b", {"top_k": 4}),
+    "mla_ep_k2": ("deepseek-v2-lite-16b", {}),
     "rglru": ("recurrentgemma-9b", {}),
     "rwkv6": ("rwkv6-1.6b", {"rwkv_chunked": 8}),
     "vlm": ("llama-3.2-vision-11b", {}),
     "seamless": ("seamless-m4t-medium", {}),
     "uneven": ("seamless-m4t-medium", {"vocab_size": 510, "vocab_pad_multiple": 2}),
 }
+EP_CASES = ("mla_ep", "mla_ep_k2")  # tests/test_torch_moe_ep.py runs them
 
 
 def setup(case):
@@ -317,6 +327,7 @@ def train_rank(d, rank: int, case, dtype: str = "bfloat16", steps: int = STEPS,
              **{f"c{i}": t.float().numpy() for i, t in enumerate(cache_tensors(caches))},
              logits=logits.full_tensor().float().numpy(), shapes=np.array(json.dumps(shapes)),
              loss=np.array([float(m["loss"]) for m in metrics]),
+             aux=np.array([float(m["moe_aux"]) for m in metrics]),
              gnorm=np.array([float(m["grad_norm"]) for m in metrics]))
 
 
@@ -438,12 +449,17 @@ def check_in_subprocesses(directory: pathlib.Path, kv, dtype: str = "bfloat16",
     return dict(g, within=within(g, dtype, kv))
 
 
-def check_cases_in_one_launch(directory: pathlib.Path, train: dict, decode: tuple) -> dict:
+def check_cases_in_one_launch(directory: pathlib.Path, train: dict, decode: tuple,
+                              compressed: dict | None = None) -> dict:
     """Bfloat16 train cases ``train`` (name -> (``setup``'s case, mesh,
-    the case whose bounds hold it)) and the decode cases of ``decode`` (kv
-    head counts) on one launch of 4 gloo processes that see no card (one
-    start-up for them all): each case's :func:`gaps` with ``within``, and
-    :func:`decode_gaps`' result, by name (``decode kv <n>``)."""
+    the case whose bounds hold it)), the decode cases of ``decode`` (kv
+    head counts) and the compressed cases on the ("pod", "data", "model")
+    meshes of ``compressed`` (name -> shape) on one launch of 4 gloo
+    processes that see no card (one start-up for them all): each case's
+    :func:`gaps` with ``within``, :func:`decode_gaps`' result, by name
+    (``decode kv <n>``), and each compressed mesh's rank-0
+    :func:`compressed_rank` result with ``within`` (every rank's held)
+    (``compressed <name>``)."""
     for kv in decode:
         (directory / f"decode_kv{kv}").mkdir(parents=True)
         decode_reference(directory / f"decode_kv{kv}", kv)
@@ -453,6 +469,10 @@ def check_cases_in_one_launch(directory: pathlib.Path, train: dict, decode: tupl
         body += f"train_rank(d + '/{name}', rank, {case!r}, 'bfloat16', {STEPS}, {mesh})\n"
     for kv in decode:
         body += f"decode_rank(d + '/decode_kv{kv}', rank, {kv})\n"
+    if compressed:
+        (directory / "compressed").mkdir(parents=True)
+        body += (f"from torch_tp_case import compressed_rank\n"
+                 f"compressed_rank(d + '/compressed', rank, {compressed!r})\n")
     with _no_card():
         run_ranks(body, 4, directory)
     out = {}
@@ -461,6 +481,11 @@ def check_cases_in_one_launch(directory: pathlib.Path, train: dict, decode: tupl
         out[name] = dict(g, within=within(g, "bfloat16", held))
     for kv in decode:
         out[f"decode kv {kv}"] = decode_result(directory / f"decode_kv{kv}")
+    ranks = [json.loads((directory / "compressed" / f"compressed{r}.json").read_text())
+             for r in range(4)] if compressed else []
+    for name in compressed or {}:
+        out[f"compressed {name}"] = dict(ranks[0][name], within=all(
+            compressed_within(r[name]) for r in ranks))
     return out
 
 
@@ -693,4 +718,185 @@ MODEL_WORKER = """
     y = L.merge_partials(*L._sdpa_partials(q, k[:, mine], v[:, mine], mask[..., mine]),
                          mesh.get_group("model"), torch.float32)
     np.save(f"{d}/empty{rank}.npy", y.numpy())
+"""
+
+
+# ------------------------------------------------- the sharded compressed step
+# (tests/test_torch_crosspod.py, chip_smoke.py's phase 16 (c)): TINY with 2 kv
+# heads on ("pod", "data", "model") meshes of 4 gloo ranks; the exchange takes
+# every leaf of at least 64 elements through its blocks (TINY's norms of 128
+# are one block; the default, 65,536, would send them all plain)
+COMPRESSED_MESHES = {"pod2_data2": (2, 2, 1), "pod2_model2": (2, 1, 2), "pod4": (4, 1, 1)}
+COMPRESS = dict(min_leaf_size=64)
+# extra leaves for the exchange alone: (shape, spec) a leaf of 4 blocks split
+# by rows over "data", one of 2 blocks (a pod's 2 ranks would each take one:
+# c is held at 2 so that the fit keeps its many-row order) split over
+# "model", and one split over both on dim 0
+# the sharded compressed step against the whole-params one (bfloat16): each
+# step's grad norm (steps 2-3 looser than TINY's 2e-3: a split contraction's
+# rounding moves a block's int8 residuals by whole steps; measured 1.03e-3 on
+# (2, 2, 1) and 4.1e-3 on (2, 1, 2) at step 3), the rest TINY's; float32
+# compute holds losses and grad norms within 1e-5 (measured at most 6.9e-7)
+COMPRESSED_GNORM_REL = (1e-3, 2e-3, 6e-3)
+EXCHANGE_LEAVES = {"rows": ((4, 200), ("data", None)), "pair": ((2, 256), (None, "model")),
+                   "both": ((16, 40), (("data", "model"), None))}
+
+
+def whole_params_compressed_step(model, mesh, opt_cfg, comp_cfg):
+    """The compressed step on whole params (every rank of a pod computes
+    the pod's slice of the global batch, no rules), its gradient through
+    ``compressed_psum_tree`` over the pod group: the oracle of the sharded
+    step, written out."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.training.grad_compress import compressed_psum_tree
+
+    group = mesh.get_group(comp_cfg.axis)
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def step(params, opt_state, ef, batch):
+        b = batch["tokens"].shape[0] // n
+        local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        with axis_rules(None):
+            loss, parts, grads = TS._value_and_grad(model, params, local)
+        grads, ef = compressed_psum_tree(grads, ef, comp_cfg, group=group)
+        params, opt_state, gnorm = TS._update(opt_cfg, params, opt_state, grads)
+        metrics = {"loss": loss, "grad_norm": gnorm, **parts}
+        vals = torch.stack([metrics[k].to(torch.float32) for k in metrics])
+        dist.all_reduce(vals, group=group)
+        vals = torch.div(vals, torch.tensor(float(n)))
+        return params, opt_state, ef, dict(zip(metrics, vals.unbind()))
+
+    return step
+
+
+def _exchange_case(model, params, mesh, bits: int) -> dict:
+    """Seeded gradients and error feedback (each pod its own) of TINY's
+    leaves and :data:`EXCHANGE_LEAVES`: ``compressed_psum_shards`` on this
+    rank's shards against ``compressed_psum_tree`` on the whole leaves over
+    the pod group, each mean and error feedback piece bit for bit."""
+    from repro_torch.parallel.collectives import step_specs
+    from repro_torch.parallel.sharding import P, local_shard, spec_placements
+    from repro_torch.training import grad_compress as GC
+
+    pod = mesh.get_coordinate()[0]
+    rng = np.random.default_rng(100 + pod)
+    shapes = [tuple(p.shape) for p in leaves(params)]
+    specs = leaves(step_specs(params, model.cfg, mesh))
+    for shape, spec in EXCHANGE_LEAVES.values():
+        shapes.append(shape)
+        specs.append(P(*spec))
+    g = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.01) for s in shapes]
+    e = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 1e-4) for s in shapes]
+    cfg = GC.GradCompressConfig(bits=bits, **COMPRESS)
+    group = mesh.get_group("pod")
+    want, want_e = GC.compressed_psum_tree(g, e, cfg, group=group)
+    piece = lambda t, s: local_shard(t, mesh, spec_placements(mesh, s))  # noqa: E731
+    got, got_e = GC.compressed_psum_shards([piece(t, s) for t, s in zip(g, specs)],
+                                           [piece(t, s) for t, s in zip(e, specs)], shapes,
+                                           specs, cfg, GC.PodBlocks(mesh, "pod"), group=group)
+    equal = [torch.equal(a, piece(b, s)) and torch.equal(x, piece(y, s))
+             for a, b, x, y, s in zip(got, want, got_e, want_e, specs)]
+    return {"leaves": len(equal), "equal": sum(equal),
+            "blocks": sum(-(-int(np.prod(s)) // cfg.block) for s in shapes
+                          if np.prod(s) >= cfg.min_leaf_size)}
+
+
+def compressed_rank(d, rank: int, meshes: dict = COMPRESSED_MESHES,
+                    dtypes: tuple = ("bfloat16",)) -> None:
+    """One rank's part of the compressed cases: on each ("pod", "data",
+    "model") mesh of ``meshes``, the exchange on shards against whole leaves
+    (8 and 4 bits), then STEPS sharded compressed steps of TINY (2 kv
+    heads) from params placed by ``param_shardings`` against the
+    whole-params oracle from the same params: the rows and loss of each
+    rank's first step, the gaps after the steps (``gaps``' measures) and
+    whether every leaf and metric is bit-equal.  Saves
+    ``d/compressed<rank>.json``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torch_dist_helpers import placed_as_specs, whole
+    from repro_torch.parallel import param_shardings
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training import grad_compress as GC
+    from repro_torch.training._tree import tree_map
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    model, params, batches = setup(2)
+    comp, opt_cfg = GC.GradCompressConfig(**COMPRESS), AdamWConfig(**OPT)
+    out = {}
+    for (name, shape), dtype in ((m, t) for m in meshes.items() for t in dtypes):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data", "model"))
+        res = {f"exchange_bits{b}": _exchange_case(model, params, mesh, b) for b in (8, 4)}
+        cm = compute_in(dtype)
+        cm.__enter__()
+        placed = tree_map(lambda p, s: place(p, *s), params,
+                          param_shardings(params, model.cfg, mesh))
+        seen, vg = [], TS._value_and_grad
+
+        def recorded(m, p, batch):
+            loss, parts, grads = vg(m, p, batch)
+            seen.append((batch["tokens"].clone(), loss))
+            return loss, parts, grads
+
+        TS._value_and_grad = recorded
+        try:
+            step = TS.make_compressed_train_step(model, mesh, opt_cfg, comp)
+            p, o, ef, got_m = placed, adamw_init(placed), TS.make_ef_state(placed), []
+            for b in batches:
+                p, o, ef, m = step(p, o, ef, b)
+                got_m.append({k: float(v) for k, v in m.items()})
+            rows, loss = seen[0]
+            seen.clear()
+            oracle = whole_params_compressed_step(model, mesh, opt_cfg, comp)
+            q, qo, qef, want_m = params, adamw_init(params), TS.make_ef_state(params), []
+            for b in batches:
+                q, qo, qef, m = oracle(q, qo, qef, b)
+                want_m.append({k: float(v) for k, v in m.items()})
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            n_rows = batches[0]["tokens"].shape[0] // (shape[0] * shape[1])
+            first = (coord["pod"] * shape[1] + coord["data"]) * n_rows
+            want_rows = batches[0]["tokens"][first:first + n_rows]
+            with torch.no_grad():  # one device on this rank's rows
+                own_loss, _ = model.loss(params, {k: v[first:first + n_rows]
+                                                  for k, v in batches[0].items()})
+        finally:
+            TS._value_and_grad = vg
+            cm.__exit__(None, None, None)
+        got_l, want_l = whole((p, o, ef)), leaves((q, qo, qef))
+        res.update(
+            rows_are_this_ranks=bool(torch.equal(rows, want_rows)),
+            loss_of_its_rows_rel=abs(float(loss) - float(own_loss)) / float(own_loss),
+            placed_as_specs=all(placed_as_specs(model, params, mesh, t) for t in (p, o["m"], ef)),
+            bit_equal=all(torch.equal(a, b) for a, b in zip(got_l, want_l, strict=True))
+            and got_m == want_m,
+            param=max(float((a - b).abs().max() / b.abs().max()) for a, b in
+                      zip(leaves(whole(p)), leaves(q))),
+            moved=max(float((a - b).abs().mean() / (b - p0).abs().mean()) for a, b, p0 in
+                      zip(leaves(whole(p)), leaves(q), leaves(params))),
+            loss_rel=[abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(got_m, want_m)],
+            gnorm_rel=[abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                       for a, b in zip(got_m, want_m)])
+        out[name + ("" if dtype == "bfloat16" else "_" + dtype)] = res
+    (pathlib.Path(d) / f"compressed{rank}.json").write_text(json.dumps(out))
+
+
+def compressed_within(res: dict, dtype: str = "bfloat16") -> bool:
+    """Whether a mesh's :func:`compressed_rank` result keeps the bounds:
+    the exchange bit-equal on every leaf, each rank's first step on its own
+    rows, the state placed by the specs, and the steps within TINY's
+    bounds (grad norms :data:`COMPRESSED_GNORM_REL`; float32: losses and
+    grad norms within 1e-5) of the whole-params step."""
+    gnorm = COMPRESSED_GNORM_REL if dtype == "bfloat16" else (1e-5,) * STEPS
+    loss = LOSS_REL if dtype == "bfloat16" else 1e-5
+    return (all(e["equal"] == e["leaves"] for k, e in res.items() if k.startswith("exchange"))
+            and res["rows_are_this_ranks"] and res["placed_as_specs"]
+            and res["param"] <= GRAD_REL and res["moved"] <= MOVED_REL
+            and all(x <= loss for x in res["loss_rel"])
+            and all(x <= y for x, y in zip(res["gnorm_rel"], gnorm, strict=True)))
+
+
+COMPRESSED_WORKER = """
+    from torch_tp_case import compressed_rank
+    compressed_rank(d, rank, dtypes=("bfloat16", "float32"))
 """
