@@ -307,13 +307,16 @@ result line):
    run's seconds beside phase 12's; then the flash pair against its plain
    versions at a rank's shapes under 16-way TP (deepseek's 1 MLA head at
    d 192, V padded from 128; the VLM's 2 heads of 128; seamless's 1 head
-   of 64); (c) on the host's CPU during phase 15's sweeps, one launch of
-   4 gloo processes for all its cases:
+   of 64; llama4's forced tiles: 3 heads on 1 kv head, 3 on 3, 1 on 1),
+   each timed beside its bound, the plain forward and SDPA's; (c) on the
+   host's CPU during phase 15's sweeps, one launch of 4 gloo processes for
+   all its cases:
    ``tests/torch_tp_case.py``'s reduced dense config (4 heads, 1 kv head
    replicated over "model" and 2 split) and its family cases (deepseek's
    MLA and shared expert, its expert-parallel MoE (``mla_ep``),
-   recurrentgemma, rwkv6, the VLM, seamless on 2 x 2; a vocabulary of 510
-   on 1 x 4) on 4 gloo processes, 3 sharded steps
+   recurrentgemma, rwkv6, the VLM, seamless on 2 x 2; llama4's 6 heads
+   forced over a model axis of 4 on 1 x 4, ranks holding 2, 2, 2 and 0
+   heads) on 4 gloo processes, 3 sharded steps
    and a prefill of the global batch against the one-device step within
    the bounds that ``tests/test_torch_tensor_parallel.py`` holds, then
    for the dense config a prefill and 6 sharded decode steps (the caches'
@@ -329,9 +332,12 @@ result line):
    and temporary bytes, fit and collective bytes (the families' beside
    the tree's before their TP), and deepseek's and llama4's ``train_4k``
    on both meshes through EP beside the tree's before it (each must
-   fit).  The flash rows gain ``launches_by_path["sharded
-   (phase 16)"]`` ((a)'s 3 steps and (b)) and ``["sharded families (phase
-   16)"]`` ((f)'s prefills and train steps).  The card's name and power
+   fit), and llama4's ``train_4k`` and ``prefill_32k`` on both meshes
+   with its 40 heads split over 16 ranks in GSPMD's tiles, rank 0's flops
+   beside the tree's before (at least 3x fewer; each must fit).  The
+   flash rows gain ``launches_by_path["sharded (phase 16)"]`` ((a)'s 3
+   steps and (b)) and ``["sharded families (phase 16)"]`` ((f)'s prefills
+   and train steps).  The card's name and power
    limit open the phase's summary line.
 
 Each path's launch counts are zeroed just before it and read just after;
@@ -3329,6 +3335,8 @@ def finish_dryruns(jobs: dict) -> dict:
             k: {"dominant": c["roofline"]["dominant"], "fits": c.get("memory", {}).get("fits"),
                 "compute_s": c["roofline"]["compute_s"], "memory_s": c["roofline"]["memory_s"],
                 "collective_s": c["roofline"]["collective_s"],
+                "flops_per_device": c.get("cost", {}).get("flops_per_device"),
+                "useful_flops_ratio": c["roofline"].get("useful_flops_ratio"),
                 "argument_bytes": c.get("memory", {}).get("argument_bytes"),
                 "temp_bytes": c.get("memory", {}).get("temp_bytes"),
                 "collective_bytes": c.get("collectives", {}).get("by_type")}
@@ -3536,8 +3544,11 @@ TP_KV = (1, 2)  # (c): kv heads replicated over "model" (1), split (2)
 TP_FLOAT32_ONLY = ("mla_ep_k2",)
 TP_COMPRESSED = {"pod2_data2": (2, 2, 1)}
 # (c): the families' train cases (tests/torch_tp_case.py's FAMILY_CASES) and
-# their meshes: 2 x 2, and 1 x 4 for the vocabulary that 4 does not divide
-TP_FAMILY_MESH = {"uneven": (1, 4)}
+# their meshes: 2 x 2, and 1 x 4 for llama4's 6 heads that 4 does not divide
+# (force_head_sharding: 2, 2, 2 and 0 heads a rank); the one-rank vocabulary
+# of 510 and the (2, 2) head split run in the tests only
+TP_FAMILY_MESH = {"heads6": (1, 4)}
+TP_FAMILY_SKIP = ("uneven", "heads5")
 # (f): the other families at phase 12's full width on a one-rank mesh; the
 # train step on the first group of layers, FAMILY_TRAIN_ROWS x FAMILY_LEN;
 # llama4's train step at 2 experts (its widths kept): 128 experts' bf16
@@ -3547,10 +3558,20 @@ FAMILY_TRAIN_EXPERTS = {"llama4-maverick-400b-a17b": 2}
 # (f): the flash pair at a rank's shapes under 16-way TP (q shape, kv heads,
 # V's width before its zero padding): deepseek 1 MLA head at d 192, the VLM
 # 2 of its 32 heads (8 kv heads stay whole: each rank reads 1), seamless 1
-# head of 64 over its decoder's 1024 tokens
+# head of 64 over its decoder's 1024 tokens; llama4's 40 heads forced over
+# 16 ranks in GSPMD's tiles of 3 (8 kv heads whole): ranks 0-12 hold 3 heads
+# on 1 kv head (a tile inside one group of 5, heads 0-2) or on 3 (a tile
+# across two groups, heads 3-5 read kv 0, 0, 1: one kv head a query head),
+# rank 13 head 39 alone
 TP16_FLASH = {"deepseek-v2-lite-16b": ((FAMILY_BATCH, FAMILY_LEN, 1, 192), 1, 128),
               "llama-3.2-vision-11b": ((FAMILY_BATCH, FAMILY_LEN, 2, 128), 1, 128),
-              "seamless-m4t-medium": ((FAMILY_BATCH, FAMILY_LEN // 2, 1, 64), 1, 64)}
+              "seamless-m4t-medium": ((FAMILY_BATCH, FAMILY_LEN // 2, 1, 64), 1, 64),
+              "llama4-maverick-400b-a17b 3 heads on 1": (
+                  (FAMILY_BATCH, FAMILY_LEN, 3, 128), 1, 128),
+              "llama4-maverick-400b-a17b 3 heads on 3": (
+                  (FAMILY_BATCH, FAMILY_LEN, 3, 128), 3, 128),
+              "llama4-maverick-400b-a17b 1 head on 1": (
+                  (FAMILY_BATCH, FAMILY_LEN, 1, 128), 1, 128)}
 # (d): the five families' dry-run cells before their tensor parallelism (GiB
 # of a rank's arguments + peak temporaries, 16x16; launch/dryrun.py --all on
 # the tree before it, PERF.md section 6)
@@ -3573,6 +3594,15 @@ EP_DRY_BEFORE = {
     "deepseek-v2-lite-16b": {"16x16": (0.62, 30.68, 1.384e11), "2x16x16": (0.62, 15.86, 1.024e11)},
     "llama4-maverick-400b-a17b": {"16x16": (14.48, 101.38, 1.886e12),
                                   "2x16x16": (7.24, 95.12, 3.277e12)}}
+# (d): llama4's cells with its 40 heads whole on every model rank, before
+# force_head_sharding split them (rank 0's flops a step, all-reduce bytes
+# and GiB of peak temporaries, on 16x16 and 2x16x16; launch/dryrun.py on
+# the tree before it, PERF.md section 6); the split must cut the flops at
+# least HEADS_FLOPS_CUT-fold and keep the cell fitting a card
+HEADS_DRY_BEFORE = {
+    "train_4k": {"16x16": (2.516e15, 2.282e11, 48.04), "2x16x16": (1.258e15, 1.141e11, 24.08)},
+    "prefill_32k": {"16x16": (1.534e15, 9.80e10, 25.26), "2x16x16": (7.669e14, 4.90e10, 12.63)}}
+HEADS_FLOPS_CUT = 3.0
 SHARDED_ROUNDS = 3  # (a): rounds of one device, sharded, control, control, sharded, one device
 DENSE_ARCHS = ("qwen3-0.6b", "llama3-8b", "stablelm-12b", "command-r-35b")
 
@@ -3584,7 +3614,7 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
     ``tests/test_torch_decode_parallel.py`` hold) against one device on
     this host's CPU, all on one launch of 4 gloo processes: the sharded
     train steps and prefill of the dense config for each kv case and of
-    each family (the vocabulary of 510 on 1 x 4, held to the dense bounds;
+    each family (llama4's 6 heads forced over a model axis of 4 on 1 x 4;
     deepseek's expert-parallel MoE, ``mla_ep``), then the dense prefill and
     6 sharded decode steps for each kv case, then the compressed step on a
     (pod 2, data 2) mesh against the whole-params step (and its exchange
@@ -3600,8 +3630,8 @@ def tp_gloo_ranks(tmp: pathlib.Path) -> dict:
                         "caches": TPC.CACHE_TOL, "families": TPC.FAMILY_BF16},
              "decode": {"prompt": TPC.PROMPT, "buffer": TPC.DECODE_LEN,
                         "steps": TPC.DECODE_STEPS}}
-    train = {f"family {c}": (c, TP_FAMILY_MESH.get(c, (2, 2)), 1 if c == "uneven" else c)
-             for c in TPC.FAMILY_CASES if c not in TP_FLOAT32_ONLY}
+    train = {f"family {c}": (c, TP_FAMILY_MESH.get(c, (2, 2)), c)
+             for c in TPC.FAMILY_CASES if c not in TP_FLOAT32_ONLY + TP_FAMILY_SKIP}
     train |= {f"kv {kv}": (kv, (2, 2), kv) for kv in TP_KV}
     stats["compressed_bounds"] = {"gnorm_rel": TPC.COMPRESSED_GNORM_REL,
                                   "min_leaf_size": TPC.COMPRESS["min_leaf_size"]}
@@ -3847,6 +3877,29 @@ def ep_train_cells(dry: dict) -> dict:
     return out
 
 
+def heads_cells(dry: dict) -> dict:
+    """(d): llama4's ``train_4k`` and ``prefill_32k`` cells on both meshes
+    (phase 15 (a)'s sweeps), its heads split over "model" in GSPMD's tiles
+    (rank 0: 3 of 40), beside :data:`HEADS_DRY_BEFORE`: rank 0's flops a
+    step must fall at least ``HEADS_FLOPS_CUT``-fold, and the cell fit."""
+    out, arch = {}, "llama4-maverick-400b-a17b"
+    for shape, meshes in HEADS_DRY_BEFORE.items():
+        for mesh, (flops, all_reduce, temp) in meshes.items():
+            sweep = "single-pod" if mesh == "16x16" else "multi-pod"
+            c = dry[sweep]["cell"][f"{arch}__{shape}__{mesh}"]
+            out[f"{arch} {shape} {mesh}"] = {
+                "flops_per_device": c["flops_per_device"], "before_flops": flops,
+                "flops_cut": flops / c["flops_per_device"],
+                "useful_flops_ratio": c["useful_flops_ratio"],
+                "collective_bytes": c["collective_bytes"], "before_all_reduce": all_reduce,
+                "temp_gib": c["temp_bytes"] / 2**30, "before_temp_gib": temp, "fits": c["fits"]}
+            check(flops >= HEADS_FLOPS_CUT * c["flops_per_device"],
+                  f"(d) {arch} {shape} on {mesh}: flops {c['flops_per_device']} not "
+                  f"{HEADS_FLOPS_CUT}x below {flops}")
+            check(c["fits"], f"(d) {arch} {shape} on {mesh} does not fit a card")
+    return out
+
+
 def _local_tree(tree):
     """A cache tree's DTensors as their local tensors (whole on one rank)."""
     if isinstance(tree, dict):
@@ -3999,8 +4052,12 @@ def sharded_family(ops, TS, PP, place, opt_mod, build_model, cfg, ref: dict, p12
 def check_flash_tp16(FA, seed: int, dev) -> dict:
     """(f): the flash forward and backward against their plain versions at a
     rank's shapes under 16-way TP (TP16_FLASH; random bf16 inputs from the
-    seed), within the kernels' bounds; the padded V columns stay 0."""
+    seed), within the kernels' bounds; the padded V columns stay 0.  Each
+    pair timed (CUDA events) beside its bound (the operations of the causal
+    pairs at the bf16 peak, or q, k, v and the output over the memory
+    rate), the plain forward's and SDPA's forward's time."""
     out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for arch, (shape, kvh, v_dim) in TP16_FLASH.items():
         q, k, v, o, dout, lse = flash_bwd_case(FA, shape, kvh, v_dim, seed, dev)
         got = FA.flash_attention_cuda(q, k, v, causal=True)
@@ -4019,11 +4076,28 @@ def check_flash_tp16(FA, seed: int, dev) -> dict:
             check(e <= FLASH_BWD_TOL * scale,
                   f"(f) flash_attention_bwd at {arch}'s 16-way shape, {name}: {e} over "
                   f"{FLASH_BWD_TOL} x {scale}")
+        b, sq, h, d = shape
+        pairs = b * h * sq * (sq + 1) // 2  # causal (q, k) pairs
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out[arch] = {"q": list(shape), "kv_heads": kvh, "v_dim": v_dim, "fwd_max_abs_err": err,
                      "fwd_tolerance": FLASH_BF16_TOL, "bwd_rel_err": errs,
                      "bwd_tolerance": FLASH_BWD_TOL,
-                     "route": FA.last_route["flash_attention_bwd"]}
-        del q, k, v, o, dout, lse, got, want, bwd, plain
+                     "route": FA.last_route["flash_attention_bwd"],
+                     "fwd_ms": event_ms(lambda: FA.flash_attention_cuda(q, k, v, causal=True), 10),
+                     "fwd_bound_ms": 1e3 * max(
+                         4 * pairs * d / BF16_OPS_PER_S,
+                         (2 * q.numel() + k.numel() + v.numel()) * 2 / HBM_BYTES_PER_S),
+                     "fwd_plain_ms": event_ms(
+                         lambda: FA.flash_attention_plain(q, k, v, causal=True), 1),
+                     "sdpa_fwd_ms": event_ms(
+                         lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+                     "bwd_ms": event_ms(
+                         lambda: FA.flash_attention_bwd_cuda(q, k, v, o, dout, True, lse=lse), 10),
+                     "bwd_bound_ms": 1e3 * max(
+                         10 * pairs * d / BF16_OPS_PER_S,
+                         (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * o.numel()) * 2
+                         / HBM_BYTES_PER_S)}
+        del q, k, v, o, dout, lse, got, want, bwd, plain, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
@@ -4120,6 +4194,9 @@ def sharded_path(ops, FA, get_config, one: dict, lm_logits, lm_decoded: dict, dr
     stats["d_ep"] = ep_train_cells(dry)
     print("sharded (d) the moe_ep configs' train cells through EP: " + json.dumps(stats["d_ep"]),
           flush=True)
+    stats["d_heads"] = heads_cells(dry)
+    print("sharded (d) llama4's cells, heads split unevenly over 16: "
+          + json.dumps(stats["d_heads"]), flush=True)
     launches = {k: stats["a"]["launches"].get(k, 0) + stats["b"]["launches"].get(k, 0)
                 for k in ("flash_attention", "flash_attention_bwd")}
     return stats, launches, f_launches

@@ -41,7 +41,9 @@ a sharded step's rules (``AxisRules.shards``) every family splits over
 ``"model"`` what the rules map there, Megatron-LM's way: a column-split
 product behind ``copy_to``, a row-split one before ``reduce_from``
 (``parallel.collectives``).  Attention, cross-attention and MLA run on this
-rank's heads, the MLP and the MoE's shared experts on its slice of the
+rank's heads (grouped-query attention also on an uneven split of them,
+GSPMD's padded tiling under ``force_head_sharding``: a rank's tile may be
+short or empty), the MLP and the MoE's shared experts on its slice of the
 ffn, the RG-LRU on its channels and RWKV6's time-mix on its heads (its
 channel-mix on its slice of the ffn); decode does the same on its one
 token.  Decode caches in ``cache_specs``' layout hold this rank's piece of
@@ -65,8 +67,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from ..parallel.collectives import (Piece, all_gather_dim, copy_to, gather_dim, merge_partials,
-                                    reduce_from, sum_over)
+from ..parallel.collectives import (Piece, all_gather_dim, copy_to, gather_dim, gather_heads,
+                                    head_range, merge_partials, reduce_from, sum_over)
 from ..parallel.sharding import current_rules, mesh_axes
 
 __all__ = [
@@ -322,18 +324,18 @@ def _piece(t: torch.Tensor, dim: int, sh, size: int) -> torch.Tensor:
     return t.narrow(dim, sh.index["model"] * size, size)
 
 
-def _tp_kv_weights(p: Params, cfg: ModelConfig, sh, hl: int, kv_split: bool,
+def _tp_kv_weights(p: Params, cfg: ModelConfig, sh, h0: int, hl: int, kv_split: bool,
                    cached: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """(wk, wv, first) for this rank's ``hl`` query heads: ``wk`` and ``wv``
-    as the block gathered them (this rank's kv heads where the rules split
-    ``kv_heads`` over ``"model"``, else all of them), cut to the kv heads
-    that the local query heads read unless a prefill or decode caches them
-    all (``cached``); ``first`` is the global index of their first kv
-    head."""
+    """(wk, wv, first) for this rank's ``hl`` query heads from global head
+    ``h0``: ``wk`` and ``wv`` as the block gathered them (this rank's kv
+    heads where the rules split ``kv_heads`` over ``"model"``, else all of
+    them), cut to the kv heads that the local query heads read (none for
+    no heads) unless a prefill or decode caches them all (``cached``);
+    ``first`` is the global index of their first kv head."""
     hd, rep, r = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads, sh.index["model"]
     if kv_split:
         return p["wk"], p["wv"], r * (cfg.n_kv_heads // sh.sizes["model"])
-    first, last = (r * hl) // rep, (r * hl + hl - 1) // rep
+    first, last = h0 // rep, (h0 + hl - 1) // rep
     if cached or (first, last + 1) == (0, cfg.n_kv_heads):
         return p["wk"], p["wv"], 0
     return p["wk"][:, first * hd:(last + 1) * hd], p["wv"][:, first * hd:(last + 1) * hd], first
@@ -344,7 +346,9 @@ def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, hl: int, rep: int,
     """``k`` and ``v`` [B, S, nk, D] (kv heads from global index ``first``)
     cut to what query heads h0 .. h0 + hl - 1 read (query head h reads kv
     head h // rep): a slice where the query heads of one kv head sit
-    together, else one kv head a query head."""
+    together, else one kv head a query head; none for no query heads."""
+    if not hl:
+        return k[:, :, :0], v[:, :, :0]
     idx = [(h0 + i) // rep - first for i in range(hl)]
     lo, n = idx[0], idx[-1] - idx[0] + 1
     if hl % n == 0 and idx == [lo + i // (hl // n) for i in range(hl)]:
@@ -353,6 +357,30 @@ def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, hl: int, rep: int,
         return k, v
     sel = torch.tensor(idx, device=k.device)
     return k.index_select(2, sel), v.index_select(2, sel)
+
+
+class _NoHeads(torch.autograd.Function):
+    """The attention of a rank whose tile of an uneven head split is empty:
+    an empty output [B, S, 0, D], no kernel.  Its backward hands zeros to
+    q, k and v, so that the collectives behind them (the gathers' and
+    ``copy_to``'s) run on this rank as on the others."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.kv = (k.shape, v.shape)
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, dy.new_zeros(ctx.kv[0]), dy.new_zeros(ctx.kv[1])
+
+
+def _own_heads(w: torch.Tensor, dim: int, h0: int, hl: int, size: int) -> torch.Tensor:
+    """``w``'s ``size``-wide head slices of heads h0 .. h0 + hl - 1 along
+    ``dim``, where ``w`` holds more (a leaf that the block gathered whole
+    because ``"model"`` splits the heads unevenly; one device), else ``w``
+    itself (this rank's shard)."""
+    return w if w.shape[dim] == hl * size else w.narrow(dim, h0 * size, hl * size)
 
 
 def attention_apply(
@@ -385,6 +413,12 @@ def attention_apply(
     then ``reduce_from``.  A prefill or decode caches every kv head
     (gathered over ``"model"`` where the rules split them), the cross
     cache too; ``"decode_cross"`` reads the local query heads' kv heads.
+    Where ``"model"`` does not divide the heads (``force_head_sharding``)
+    the rank's heads are its GSPMD tile (``head_range``): ``wq`` and ``wo``
+    come whole (the block gathered them, their gradients summed over
+    ``"model"``) and are read for those heads; a rank with none launches
+    no attention kernel (``_NoHeads``), adds zeros and still makes every
+    collective of the others.
 
     ``piece``: the decode caches are this rank's piece of the sequence
     (``parallel.collectives.Piece``, from ``cache_specs``' layout).  The
@@ -400,8 +434,10 @@ def attention_apply(
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     xc = copy_to(x.to(COMPUTE_DTYPE), group)
-    hl = p["wq"].shape[-1] // hd  # this rank's query heads (all of them off a sharded step)
-    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, hl, hd)
+    # this rank's query heads (all of them off a sharded step)
+    h0, hl = (0, cfg.n_heads) if sh is None else head_range(cfg.n_heads, sh)
+    wq, wo = _own_heads(p["wq"], -1, h0, hl, hd), _own_heads(p["wo"], 0, h0, hl, hd)
+    q = (xc @ wq.to(COMPUTE_DTYPE)).reshape(b, s, hl, hd)
     is_cross = (kv_source is not None) or mode == "decode_cross"
     first = 0  # the global index of k's first kv head
     if mode == "decode_cross":
@@ -415,7 +451,7 @@ def attention_apply(
         sk_in = src.shape[1]
         wk, wv = p["wk"], p["wv"]
         if sh is not None:
-            wk, wv, first = _tp_kv_weights(p, cfg, sh, hl, kv_split, mode != "train")
+            wk, wv, first = _tp_kv_weights(p, cfg, sh, h0, hl, kv_split, mode != "train")
         nk = wk.shape[-1] // hd
         k = (src @ wk.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
         v = (src @ wv.to(COMPUTE_DTYPE)).reshape(b, sk_in, nk, hd)
@@ -468,19 +504,20 @@ def attention_apply(
         flash = True  # causal self-attention over the whole sequence
 
     if piece is not None:  # every head over this rank's keys, merged over "model"
-        qa = q if sh is None else all_gather_dim(q, 2, group, sh.sizes["model"])
+        qa = q if sh is None else gather_heads(q, 2, cfg.n_heads, sh)
         y = merge_partials(*_sdpa_partials(qa, k, v, mask), piece.group, q.dtype)
         if sh is not None:
-            y = y[:, :, sh.index["model"] * hl:(sh.index["model"] + 1) * hl]
+            y = y[:, :, h0:h0 + hl]
     else:
         if sh is not None:
-            k, v = _kv_for_heads(k, v, sh.index["model"] * hl, hl,
-                                 cfg.n_heads // cfg.n_kv_heads, first)
-        if flash:
+            k, v = _kv_for_heads(k, v, h0, hl, cfg.n_heads // cfg.n_kv_heads, first)
+        if not hl:
+            y = _NoHeads.apply(q, k, v)
+        elif flash:
             y = ops.flash_attention(q, k, v, causal=True)
         else:
             y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
-    out = reduce_from(y.reshape(b, s, hl * hd) @ p["wo"].to(COMPUTE_DTYPE), group)
+    out = reduce_from(y.reshape(b, s, hl * hd) @ wo.to(COMPUTE_DTYPE), group)
     return out.to(x.dtype), new_cache
 
 
@@ -534,7 +571,9 @@ def mla_apply(
     b, s, _ = x.shape
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     xc = copy_to(x.to(COMPUTE_DTYPE), group)
-    hl = p["wq"].shape[-1] // (nd + rd)  # this rank's heads (all of them off a sharded step)
+    # this rank's heads (all of them off a sharded step; the rules split
+    # MLA's heads only where "model" divides them)
+    h0, hl = (0, cfg.n_heads) if sh is None else head_range(cfg.n_heads, sh)
     q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, hl, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
@@ -553,8 +592,7 @@ def mla_apply(
         w_kup = p["w_kup"].to(COMPUTE_DTYPE).reshape(-1, hl, nd)  # [lora, H, nd]
         q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_kup)  # [B, 1, H, lora]
         if piece is not None and sh is not None:  # every head over this rank's keys
-            q_lat, q_rope = (all_gather_dim(t, 2, group, sh.sizes["model"])
-                             for t in (q_lat, q_rope))
+            q_lat, q_rope = (gather_heads(t, 2, cfg.n_heads, sh) for t in (q_lat, q_rope))
         s_lat = torch.einsum("bshl,bkl->bhsk", q_lat, ck)
         s_rope = torch.einsum("bshr,bkr->bhsk", q_rope, cr)
         scores = (s_lat + s_rope).float() * ((nd + rd) ** -0.5)
@@ -569,7 +607,7 @@ def mla_apply(
             o = torch.einsum("bshk,bkl->bshl", e, ck.float())
             ctx_lat = merge_partials(m, l, o, piece.group, COMPUTE_DTYPE)
             if sh is not None:
-                ctx_lat = ctx_lat[:, :, sh.index["model"] * hl:(sh.index["model"] + 1) * hl]
+                ctx_lat = ctx_lat[:, :, h0:h0 + hl]
         w_vup = p["w_vup"].to(COMPUTE_DTYPE).reshape(-1, hl, vd)
         ctx = torch.einsum("bshl,lhv->bshv", ctx_lat, w_vup)
     else:

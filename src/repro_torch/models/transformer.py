@@ -230,22 +230,29 @@ def _gather_block(p: Params, cfg: ModelConfig) -> Params:
     MoE's expert stacks where the expert-parallel route runs); ``wk`` and
     ``wv``, gathered over it where the kv heads do not divide it while the
     query heads do, are read for each rank's own kv heads, so their
-    gradients sum over it; a leaf of :data:`_SUMMED` goes through
-    ``copy_to``; every other leaf is gathered whole, its compute the same
-    on every rank."""
+    gradients sum over it; so are the query heads' leaves (``wq``, ``wo``)
+    where ``force_head_sharding`` splits heads that ``"model"`` does not
+    divide: each rank reads its GSPMD tile of them
+    (``parallel.collectives.head_range``), a slice that no shard boundary
+    follows; a leaf of :data:`_SUMMED` goes through ``copy_to``; every
+    other leaf is gathered whole, its compute the same on every rank."""
     rules, sh = _sharded()
     if sh is None:
         return p
     ep = expert_parallel(cfg, rules)
     heads = rules.resolve("heads") == "model"
+    uneven = heads and cfg.n_heads % sh.sizes["model"] != 0
 
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         name, parent = path[-1], (path[-2] if len(path) > 1 else None)
         axis = model_axis(path, tree)
-        keep = axis is not None and (ep if axis == "experts" else rules.resolve(axis) == "model")
-        summed = parent in ("attn", "cross_attn") and name in ("wk", "wv") and heads
+        attn = parent in ("attn", "cross_attn")
+        whole_heads = uneven and attn and name in ("wq", "wo")
+        keep = (axis is not None and not whole_heads
+                and (ep if axis == "experts" else rules.resolve(axis) == "model"))
+        summed = whole_heads or (attn and name in ("wk", "wv") and heads)
         leaf = sh.gather(tree, path, ("model",) if keep else (), summed)
         axis = _SUMMED.get(parent, {}).get(name)
         if axis is not None and rules.resolve(axis) == "model":

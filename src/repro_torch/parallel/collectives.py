@@ -40,12 +40,14 @@ tells each attention layer where its piece of the sequence sits (a
 combine of the ranks' partial softmaxes.  A recurrent or WKV state's
 piece is what the layer's split compute reads and writes itself.
 
-A step's params are placed by :func:`step_specs`: ``param_specs``, but
-the vocabulary tables stay whole over ``"model"`` where the axis does not
-divide the padded vocabulary (:func:`vocab_whole`; the rules then leave
-``vocab`` whole, where JAX's shardings would refuse the split).  No
-configured model takes that route: each pads its vocabulary to a multiple
-of 128.
+A step's params are placed by :func:`step_specs`: ``param_specs``, and a
+leaf whose dim its axes do not divide (a padded vocabulary that
+``"model"`` does not divide) raises, as JAX's shardings refuse it.
+
+Query heads that ``force_head_sharding`` splits over a ``"model"`` axis
+that does not divide them take GSPMD's padded tiling (:func:`head_range`:
+tiles of ceil(n / m) heads, the last ones short or empty);
+:func:`gather_heads` gathers such uneven pieces of an activation.
 
 A group of one still runs its collectives (each then copies), and every
 gathered tensor is contiguous in the leaf's own layout, so a one-rank mesh
@@ -64,10 +66,8 @@ from ..configs.base import ModelConfig
 from .partition import _spec_for_leaf, fsdp_axes_for, param_specs, shard_shape
 from .sharding import P, local_shard, mesh_axes, spec_placements, tree_map_with_path
 
-__all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "gather_dim", "merge_partials",
-           "reduce_from", "step_specs", "sum_over", "vocab_whole"]
-
-_TABLES = {"embed": 0, "head": 1}  # the vocabulary tables: name -> their vocabulary dim
+__all__ = ["Piece", "Shards", "all_gather_dim", "copy_to", "gather_dim", "gather_heads",
+           "head_range", "merge_partials", "reduce_from", "step_specs", "sum_over"]
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -245,7 +245,6 @@ class Shards:
         self.index = dict(zip(self.sizes, mesh.get_coordinate()))
         self.groups = {a: mesh.get_group(a) for a in self.sizes}
         self.fsdp = fsdp_axes_for(cfg, mesh)
-        self.whole_vocab = vocab_whole(cfg, mesh)
         self._specs: dict = {}  # a tree's leaf shapes -> its specs
         self._placements: dict = {}  # spec -> placements
         self._plans: dict = {}  # (path, ndim, keep, summed_model) -> gather steps
@@ -277,8 +276,6 @@ class Shards:
         if steps is None:
             steps = []
             spec = _spec_for_leaf(path, x, self.fsdp)
-            if self.whole_vocab and len(path) == 1 and path[0] in _TABLES:
-                spec = _whole_dim(spec, _TABLES[path[0]])
             for dim, part in enumerate(spec):
                 for name in reversed(_names(part)):  # the inner axis first
                     if name not in keep and name in self.sizes:
@@ -358,35 +355,63 @@ class Shards:
         return all(self.index[a] == 0 for a in self.sizes if a not in split)
 
 
-def vocab_whole(cfg: ModelConfig, mesh) -> bool:
-    """Whether a sharded step keeps the vocabulary whole over ``"model"``:
-    the axis does not divide ``cfg.padded_vocab`` (510 on 4 ranks).  The
-    step's rules then leave ``vocab`` whole (``train_step._step_rules``)
-    and :func:`step_specs` places the tables so."""
-    return cfg.padded_vocab % mesh_axes(mesh).get("model", 1) != 0
+def head_range(n_heads: int, sh: Shards) -> tuple[int, int]:
+    """(first, count) of the query heads that this rank computes where a
+    step's rules split ``n_heads`` over ``"model"``: GSPMD's padded tiling,
+    tiles of c = ceil(n_heads / m) heads on the m model ranks in order,
+    rank r holding [r c, min(r c + c, n_heads)), short or empty at the end
+    (40 heads on 16 ranks: 3 each on ranks 0-12, head 39 on rank 13, none
+    on 14-15).  Where m divides the heads: r * (n_heads / m) and
+    n_heads / m."""
+    c = -(-n_heads // sh.sizes["model"])
+    first = min(sh.index["model"] * c, n_heads)
+    return first, min(c, n_heads - first)
 
 
-def _whole_dim(spec: P, dim: int) -> P:
-    return P(*(None if d == dim else part for d, part in enumerate(spec)))
+def gather_heads(x: torch.Tensor, dim: int, n_heads: int, sh: Shards) -> torch.Tensor:
+    """Every rank's query heads along ``dim`` of ``x`` (this rank's
+    :func:`head_range` of ``n_heads``), concatenated in head order, no
+    gradient: each piece padded with zeros to the tile of ceil(n_heads / m)
+    heads, gathered over ``"model"``, the padding at the end dropped, as
+    GSPMD pads an uneven split."""
+    m = sh.sizes["model"]
+    c = -(-n_heads // m)
+    dim %= x.ndim
+    if x.shape[dim] < c:
+        pad = list(x.shape)
+        pad[dim] = c - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    out = all_gather_dim(x, dim, sh.groups["model"], m)
+    return out if m * c == n_heads else out.narrow(dim, 0, n_heads)
 
 
 def step_specs(params, cfg: ModelConfig, mesh):
-    """``param_specs`` as a sharded step places its params: where
-    :func:`vocab_whole`, the vocabulary tables (``embed``, ``head``) whole
-    over their vocabulary dim, split over their other axes as the spec
-    says; on a mesh without ``"model"`` (the compressed step's ``"pod"``
-    mesh) no leaf names it.  Every other leaf keeps ``param_specs``' spec, and a dim that its
-    axes do not divide raises, as JAX's shardings refuse it
-    (:meth:`Shards.local`)."""
+    """``param_specs`` as a sharded step places its params; on a mesh
+    without ``"model"`` (the compressed step's ``"pod"`` mesh) no leaf
+    names it.  A leaf with a dim that its axes do not divide (a padded
+    vocabulary that ``"model"`` does not divide) raises ``ValueError``
+    naming the leaf, its spec and the mesh axes, as JAX's shardings refuse
+    it."""
     specs = param_specs(params, cfg, mesh)
-    if vocab_whole(cfg, mesh):
-        for name, dim in _TABLES.items():
-            if name in specs:
-                specs[name] = _whole_dim(specs[name], dim)
     axes = mesh_axes(mesh)
     if "model" not in axes:  # a mesh of "pod" or ("pod", "data"): nothing splits over it
         specs = tree_map_with_path(lambda _, s: P(*(_present(part, axes) for part in s)), specs)
+
+    def divides(path, leaf):
+        spec = _leaf_at(specs, path)
+        try:
+            shard_shape(leaf.shape, spec, mesh)
+        except ValueError as e:
+            raise ValueError(f"{'.'.join(map(str, path))}: {e} (mesh {axes})") from None
+
+    tree_map_with_path(divides, params)
     return specs
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _present(part, axes):

@@ -82,7 +82,7 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ModelConfig
 from ..core.errors import ConfigError
 from ..models import Model
-from ..parallel.collectives import Shards, vocab_whole
+from ..parallel.collectives import Shards
 from ..parallel.partition import param_specs, spec_axes
 from ..parallel.sharding import P, axis_rules, make_rules, mesh_axes, tree_map_with_path
 from ._tree import leaves, tree_map, unflatten
@@ -300,17 +300,24 @@ def _step_rules(mesh, cfg: ModelConfig, shards: Shards, overrides=None):
     whole over ``"model"`` and computes all of it):
 
     * ``heads`` and ``kv_heads``: query heads (RWKV's ``d_model //
-      rwkv_head_dim``, as ``cache_specs`` splits its state) that
-      ``force_head_sharding`` may ask to split unevenly stay whole, their
-      kv heads with them;
+      rwkv_head_dim``, as ``cache_specs`` splits its state) stay whole,
+      their kv heads with them, unless ``cfg.force_head_sharding``: then
+      ``heads`` maps to ``"model"`` as ``make_rules`` maps it, and each
+      rank computes the heads of its GSPMD tile
+      (``parallel.collectives.head_range``: llama4's 40 heads on 16 ranks,
+      3 a rank and none on the last two), while ``kv_heads`` keeps
+      ``make_rules``' divisibility (llama4's 8 kv heads stay whole).  The
+      uneven split runs in the grouped-query attention (self, cross and
+      the encoder's); MLA and RWKV6 heads that the axis does not divide
+      raise ``ConfigError``;
     * ``ffn``: ``d_ff`` and the shared experts' width;
     * ``lru_width`` (the RG-LRU's channels; the reference shards its input
-      branch on ``ffn``);
-    * ``vocab``: the padded vocabulary (``parallel.collectives.vocab_whole``;
-      its tables then whole over ``"model"``, ``step_specs``; every
-      configured model pads it to a multiple of 128).
+      branch on ``ffn``).
 
-    Which leaf's dim carries which of these axes is
+    The padded vocabulary maps to ``"model"`` as ``make_rules`` maps it; a
+    vocabulary that the axis does not divide is refused by the step's
+    placement (``parallel.collectives.step_specs``), as JAX's shardings
+    refuse it.  Which leaf's dim carries which of these axes is
     ``parallel.partition.model_axis``'s table."""
     rules = make_rules(mesh, cfg, overrides)
     msize = mesh_axes(mesh).get("model", 1)
@@ -320,13 +327,16 @@ def _step_rules(mesh, cfg: ModelConfig, shards: Shards, overrides=None):
 
     heads = cfg.d_model // cfg.rwkv_head_dim if "rwkv" in cfg.block_group else cfg.n_heads
     if whole(heads):
-        rules.mapping.update(heads=None, kv_heads=None)
+        if not cfg.force_head_sharding:
+            rules.mapping.update(heads=None, kv_heads=None)
+        elif cfg.mla or "rwkv" in cfg.block_group:
+            raise ConfigError(f"{cfg.name}: force_head_sharding splits {heads} heads over "
+                              f"{msize} ranks unevenly in grouped-query attention only, "
+                              f"not in MLA or RWKV6")
     if whole(cfg.d_ff, cfg.moe_d_ff * cfg.n_shared_experts):
         rules.mapping["ffn"] = None
     split = "model" in mesh_axes(mesh) and not whole(cfg.lru_width or cfg.d_model)
     rules.mapping["lru_width"] = "model" if split else None
-    if vocab_whole(cfg, mesh):
-        rules.mapping["vocab"] = None
     rules.shards = shards
     return rules
 

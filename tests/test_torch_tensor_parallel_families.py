@@ -13,7 +13,7 @@ cases are ``tests/test_torch_moe_ep.py``'s).  The dense cases and the
 bounds' origin are in ``tests/test_torch_tensor_parallel.py``.
 
 * (i) A one-rank (1, 1) mesh: 3 train steps and a prefill bit-equal to
-  one device for every family (and the uneven vocabulary).
+  one device for every family (and a vocabulary of 510, which 1 divides).
 * (ii) 4 gloo ranks on a 2 x 2 mesh: 3 sharded steps and a prefill of the
   global batch against one device, in bfloat16 within
   ``torch_tp_case.FAMILY_BF16`` and in float32 within the dense bounds,
@@ -24,9 +24,9 @@ bounds' origin are in ``tests/test_torch_tensor_parallel.py``.
   gradients 6% of a leaf's largest |value|, params 2.1 x lr).  The
   reference ran for every family.
 * (v) A vocabulary of 510 on a (1, 4) mesh (the axis does not divide it):
-  whole over ``"model"``, within the dense bounds of one device.  No
-  configured model takes that route: each pads its vocabulary to a
-  multiple of 128.
+  the train and prefill steps refuse it, as JAX's shardings refuse the
+  reference's ``param_specs`` there.  Every configured model pads its
+  vocabulary to a multiple of 128.
 * ``cross_prefill_cache`` runs on one device only (the sharded steps
   make the cross caches in the block's prefill) and raises under a
   sharded step's rules.
@@ -36,21 +36,23 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from test_torch_tensor_parallel import F32_REL, _against_the_reference
 from torch_dist_helpers import dist_guard, one_rank, whole  # noqa: F401
-from torch_tp_case import (EP_CASES, FAMILY_CASES, OPT, cache_tensors, gaps, leaf_names,
-                           prompt_of, run, run_workers, setup, within)
+from torch_tp_case import (EP_CASES, FAMILY_CASES, HEADS_CASES, OPT, cache_tensors, gaps,
+                           leaf_names, prompt_of, run, run_workers, setup, within)
 
 from repro_torch.core.errors import ConfigError
+from repro_torch.launch.dryrun import fake_world
 from repro_torch.models import transformer as T
 from repro_torch.parallel import param_specs
 from repro_torch.parallel.collectives import Shards, step_specs
 from repro_torch.parallel.partition import shard_shape
 from repro_torch.parallel.sharding import abstract_mesh, axis_rules
-from repro_torch.training import AdamWConfig, make_prefill_step, make_train_step
+from repro_torch.training import AdamWConfig, adamw_init, make_prefill_step, make_train_step
 from repro_torch.training import train_step as TS
 from repro_torch.training._tree import leaves
 
-# the expert-parallel cases run in tests/test_torch_moe_ep.py
-FAMILIES = [c for c in FAMILY_CASES if c not in ("uneven", *EP_CASES)]
+# the expert-parallel cases run in tests/test_torch_moe_ep.py, the uneven
+# head splits in tests/test_torch_uneven_heads.py
+FAMILIES = [c for c in FAMILY_CASES if c not in ("uneven", *EP_CASES, *HEADS_CASES)]
 
 
 def _local_shapes_are_the_specs(g: dict, model, params, mesh: tuple) -> None:
@@ -112,24 +114,25 @@ def test_families_match_the_references_sharded_step(case, tmp_path):
     _against_the_reference(case, tmp_path)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_uneven_vocabulary_on_a_model_only_mesh(dtype, tmp_path):
+@pytest.mark.parametrize("step", ["train", "prefill"])
+def test_uneven_vocabulary_on_a_model_only_mesh(step):
     """A vocabulary of 510 (padded to a multiple of 2) that a model axis of
-    4 does not divide: the rules leave ``vocab`` whole, the embedding and
-    the head stay whole over "model" (each rank holds all 510 rows), and 3
-    steps and a prefill on a (1, 4) mesh match one device within TINY's
-    bounds (measured bf16: gradients 2.3%, params 5.1%, grad norms 4.3e-4;
-    float32: gradients 1.2e-6)."""
-    model, params, _ = setup("uneven")
+    4 does not divide: the rules map ``vocab`` to "model" as
+    ``make_rules`` does, and the sharded step raises ``ValueError`` naming
+    the table and the mesh before any collective, as JAX refuses the
+    reference's ``P("model", "data")`` there (rank 0 of a fake world of 4)."""
+    model, params, batches = setup("uneven")
     am = abstract_mesh((1, 4), ("data", "model"))
     assert tuple(param_specs(params, model.cfg, am)["embed"]) == ("model", "data")
-    assert tuple(step_specs(params, model.cfg, am)["embed"]) == (None, "data")
-    assert tuple(step_specs(params, model.cfg, am)["head"]) == ("data", None)
-    assert TS._step_rules(am, model.cfg, None).resolve("vocab") is None
-    g = gaps(run_workers(tmp_path, "uneven", dtype, mesh=(1, 4)), "uneven", dtype)
-    assert within(g, dtype), {k: v for k, v in g.items() if k != "local_shapes"}
-    _local_shapes_are_the_specs(g, model, params, (1, 4))
-    assert all(shapes["embed"] == [510, 64] for shapes in g["local_shapes"].values())
+    assert TS._step_rules(am, model.cfg, None).resolve("vocab") == "model"
+    with fake_world(4):
+        mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+        with pytest.raises(ValueError, match=r"embed: .* 4 ways.*'model': 4"):
+            if step == "train":
+                make_train_step(model, mesh, AdamWConfig(**OPT))(params, adamw_init(params),
+                                                                 batches[0])
+            else:
+                make_prefill_step(model, mesh)(params, prompt_of(batches[0]))
 
 
 def test_cross_prefill_cache_runs_on_one_device_only(one_rank):

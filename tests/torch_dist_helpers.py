@@ -80,9 +80,12 @@ def one_rank(tmp_path):
         dist.destroy_process_group()
 
 
-def run_ranks(body: str, world: int, directory: pathlib.Path) -> None:
+def run_ranks(body: str, world: int, directory: pathlib.Path,
+              timeout: float = RANK_TIMEOUT) -> None:
     """Run ``body`` (Python source) on ``world`` gloo ranks in
-    subprocesses; every rank must exit 0 within ``RANK_TIMEOUT``."""
+    subprocesses; every rank must exit 0 within ``timeout`` seconds (a
+    rank that waits on a collective that another never makes is killed
+    there)."""
     script = _PREAMBLE.replace("{body}", textwrap.indent(textwrap.dedent(body), "    "))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
     procs = [subprocess.Popen([sys.executable, "-c", script, str(directory), str(r), str(world)],
@@ -91,7 +94,7 @@ def run_ranks(body: str, world: int, directory: pathlib.Path) -> None:
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -105,8 +105,9 @@ CACHE_REL_CASES = ("ring", "cross", "rwkv6")
 # the families' train cases (reduced configs; ``setup`` takes the key):
 # MLA with its shared expert on the dense MoE dispatch, RG-LRU with local
 # attention, RWKV6 on its chunked WKV (chunks of 8 in a sequence of 32), the
-# VLM's cross layer, seamless's encoder, a vocabulary of 510 that a model
-# axis of 4 (or 2 x 2's 2: 510 = 2 x 255) does not divide, and the
+# VLM's cross layer, seamless's encoder, a vocabulary of 510 (a one-rank
+# case: a model axis of 4 does not divide it, and the sharded steps refuse
+# it there), llama4's uneven head splits (HEADS_CASES), and the
 # expert-parallel MoE (EP_CASES: deepseek's moe_ep, each model rank training
 # its own experts), routing every expert (top 4 of 4, as "mla": no flips,
 # and an aux loss of 1 whose gradient is 0, so the step is one device's
@@ -115,8 +116,8 @@ CACHE_REL_CASES = ("ring", "cross", "rwkv6")
 # gradient is the mean of the data shards' aux gradients, not the whole
 # batch's, so it is held to one device on a model-only mesh, in float32:
 # in bf16 its near-uniform router flips under TP's rounding)
-# the families' bfloat16 bounds on the 2 x 2 mesh (and the uneven
-# vocabulary's on 1 x 4): TINY's do not hold there, by the rounding of bf16
+# the families' bfloat16 bounds on the 2 x 2 mesh (and llama4's uneven heads
+# on 1 x 4 and 2 x 2): TINY's do not hold there, by the rounding of bf16
 # partial sums (each rank's row-split product rounded, then their bf16 sum)
 # through more layers, recurrences and a shared expert; the float32 witness
 # holds every family's first-step gradients and losses within 1e-5, so the
@@ -135,8 +136,16 @@ FAMILY_CASES = {
     "vlm": ("llama-3.2-vision-11b", {}),
     "seamless": ("seamless-m4t-medium", {}),
     "uneven": ("seamless-m4t-medium", {"vocab_size": 510, "vocab_pad_multiple": 2}),
+    "heads6": ("llama4-maverick-400b-a17b", {"n_heads": 6, "top_k": 4}),
+    "heads5": ("llama4-maverick-400b-a17b", {"n_heads": 5, "n_kv_heads": 1, "top_k": 4}),
 }
 EP_CASES = ("mla_ep", "mla_ep_k2")  # tests/test_torch_moe_ep.py runs them
+# llama4's uneven head split (force_head_sharding) and their meshes
+# (tests/test_torch_uneven_heads.py runs them): 6 heads over 2 kv heads on
+# (1, 4), tiles of 2 (ranks hold 2, 2, 2, 0; rank 1's heads 2-3 read kv
+# heads 0 and 1), and 5 over 1 kv head on (2, 2), tiles of 3 (3, 2; a
+# rank's wq shard of 2.5 heads ends inside a head); every expert routed
+HEADS_CASES = {"heads6": (1, 4), "heads5": (2, 2)}
 
 
 def setup(case):
@@ -560,6 +569,54 @@ def decode_rank(d, rank: int, kv: int) -> None:
                              make_decode_step(model, mesh), prompt, forced)
     save_chain(f"{d}/dec{rank}.npz", chain)
     np.save(f"{d}/merges{rank}.npy", np.array(len(merges)))
+
+
+@contextlib.contextmanager
+def recording_heads():
+    """Yields the list of query-head counts of this rank's tile, one a call
+    of ``head_range`` by the layers (an attention layer's call on a sharded
+    step)."""
+    seen, fn = [], L.head_range
+
+    def recorded(n_heads, sh):
+        out = fn(n_heads, sh)
+        seen.append(out[1])
+        return out
+
+    L.head_range = recorded
+    try:
+        yield seen
+    finally:
+        L.head_range = fn
+
+
+def heads_rank(d, rank: int, case: str, mesh: tuple) -> None:
+    """One rank's part of an uneven-heads case (:data:`HEADS_CASES`), in
+    bfloat16 and in float32 compute, each into ``d/<dtype>``: the train
+    case (:func:`train_rank`: 3 sharded steps and a prefill), then the
+    decode case's chain (a prefill of ``PROMPT`` tokens, ``DECODE_STEPS``
+    sharded decode steps over buffers of ``DECODE_LEN`` split by sequence
+    over ``"model"``, fed ``forced.npy``) saved as ``dec<rank>.npz``, with
+    the query-head counts that this rank computed, its train case's flash
+    calls and its decode's merges in ``heads<rank>.json``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+
+    for dtype in ("bfloat16", "float32"):
+        out = f"{d}/{dtype}"
+        with recording_heads() as train_heads, counting(ops, "flash_attention") as flash:
+            train_rank(out, rank, case, dtype, STEPS, mesh)
+        grid = init_device_mesh("cpu", mesh, mesh_dim_names=("data", "model"))
+        model, params, prompt, forced = decode_inputs(case, out)
+        with compute_in(dtype), recording_heads() as decode_heads, \
+                counting(L, "merge_partials") as merges:
+            chain = decode_chain(model, params, make_prefill_step(model, grid),
+                                 make_decode_step(model, grid), prompt, forced)
+        save_chain(f"{out}/dec{rank}.npz", chain)
+        pathlib.Path(f"{out}/heads{rank}.json").write_text(json.dumps(
+            {"train": sorted(set(train_heads)), "decode": sorted(set(decode_heads)),
+             "calls": len(train_heads), "flash": len(flash), "merges": len(merges)}))
 
 
 # the decode worker (run_ranks' body): the decode case
