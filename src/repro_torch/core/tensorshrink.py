@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops
+from . import trace
 
 __all__ = [
     "CompressedTensor",
@@ -106,30 +107,35 @@ def compress_tensor(
     ``step`` [M, 1] may come from outside (a max across replicas, so that
     all quantize on one grid); by default it is each block's
     ``max |r| / qmax``, at least 1e-12."""
-    xb, n = _blockify(x, cfg.block)
-    theta, slope = linear_base_fit(xb)
-    # bf16-truncate the base (Alg. 5's few-digit slope, binary radix)
-    theta = theta.to(torch.bfloat16).to(torch.float32)
-    slope = slope.to(torch.bfloat16).to(torch.float32)
-    if step is None:
-        step = _default_step(xb, theta, slope, cfg.qmax)
-    step = torch.clamp(step.to(torch.float32), min=1e-12)
-    wire = torch.int8 if cfg.bits <= 8 else torch.int16
-    q, err = ops.residual_quant(xb, theta, slope, step, qmax=cfg.qmax, out_dtype=wire)
-    comp = CompressedTensor(
-        q=q,
-        theta=theta.to(torch.bfloat16),
-        slope=slope.to(torch.bfloat16),
-        step=step,
-        orig_len=n,
-        shape=tuple(x.shape),
-    )
+    with trace.span("codec.blockify"):
+        xb, n = _blockify(x, cfg.block)
+    with trace.span("codec.fit"):
+        theta, slope = linear_base_fit(xb)
+        # bf16-truncate the base (Alg. 5's few-digit slope, binary radix)
+        theta = theta.to(torch.bfloat16).to(torch.float32)
+        slope = slope.to(torch.bfloat16).to(torch.float32)
+    with trace.span("codec.step"):
+        if step is None:
+            step = _default_step(xb, theta, slope, cfg.qmax)
+        step = torch.clamp(step.to(torch.float32), min=1e-12)
+    with trace.span("codec.quant"):
+        wire = torch.int8 if cfg.bits <= 8 else torch.int16
+        q, err = ops.residual_quant(xb, theta, slope, step, qmax=cfg.qmax, out_dtype=wire)
+        comp = CompressedTensor(
+            q=q,
+            theta=theta.to(torch.bfloat16),
+            slope=slope.to(torch.bfloat16),
+            step=step,
+            orig_len=n,
+            shape=tuple(x.shape),
+        )
     return comp, err.reshape(-1)[:n]
 
 
 def decompress_tensor(comp: CompressedTensor) -> torch.Tensor:
     """float32 reconstruction of the compressed tensor, in its shape."""
-    xh = ops.dequant(
-        comp.q, comp.theta.to(torch.float32), comp.slope.to(torch.float32), comp.step
-    )
-    return xh.reshape(-1)[: comp.orig_len].reshape(comp.shape)
+    with trace.span("codec.dequant"):
+        xh = ops.dequant(
+            comp.q, comp.theta.to(torch.float32), comp.slope.to(torch.float32), comp.step
+        )
+        return xh.reshape(-1)[: comp.orig_len].reshape(comp.shape)

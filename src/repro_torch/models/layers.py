@@ -66,6 +66,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..core import trace
 from ..kernels import ops
 from ..parallel.collectives import (Piece, all_gather_dim, copy_to, gather_dim, gather_heads,
                                     head_range, merge_partials, reduce_from, sum_over)
@@ -514,9 +515,11 @@ def attention_apply(
         if not hl:
             y = _NoHeads.apply(q, k, v)
         elif flash:
-            y = ops.flash_attention(q, k, v, causal=True)
+            with trace.span("attn.flash"):
+                y = ops.flash_attention(q, k, v, causal=True)
         else:
-            y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
+            with trace.span("attn.flash"):
+                y = _sdpa(q, k, v, mask, softmax_bf16=cfg.attn_softmax_bf16)
     out = reduce_from(y.reshape(b, s, hl * hd) @ wo.to(COMPUTE_DTYPE), group)
     return out.to(x.dtype), new_cache
 
@@ -616,12 +619,16 @@ def mla_apply(
         qq = torch.cat([q_nope, q_rope], dim=-1)
         kk = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(b, s, hl, rd)], dim=-1)
         if cfg.attn_softmax_bf16:
-            ctx = _sdpa(qq, kk, vv, _causal_mask(s, s, device=x.device))
+            mask = _causal_mask(s, s, device=x.device)
+            with trace.span("attn.flash"):
+                ctx = _sdpa(qq, kk, vv, mask)
         else:
             if vd > nd + rd:
                 raise ValueError(f"MLA: v_head_dim {vd} exceeds the q/k head dim {nd + rd}")
             v_pad = F.pad(vv, (0, nd + rd - vd))  # zero columns change no other column
-            ctx = ops.flash_attention(qq, kk, v_pad, causal=True)[..., :vd]
+            with trace.span("attn.flash"):
+                ctx = ops.flash_attention(qq, kk, v_pad, causal=True)
+            ctx = ctx[..., :vd]
         if mode == "prefill":
             new_cache = MLACache(c_kv=c_kv.to(COMPUTE_DTYPE), k_rope=k_rope_new.to(COMPUTE_DTYPE),
                                  kpos=positions.to(torch.int32))
@@ -705,12 +712,13 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 def _route(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> tuple:
     """Top-k routing of the tokens xt [T, d]: (float32 router probabilities
     [T, E], the gates [T, k] normalized over the k, the experts [T, k])."""
-    # bf16 @ float32 promotes to a float32 product in the reference
-    probs = _softmax(xt.float() @ p["router"].float())
-    # top-k by a stable descending sort: ties take the lower expert first
-    gate_vals, expert_idx = (t[:, : cfg.top_k] for t in torch.sort(
-        probs, dim=-1, descending=True, stable=True))
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    with trace.span("moe.route"):
+        # bf16 @ float32 promotes to a float32 product in the reference
+        probs = _softmax(xt.float() @ p["router"].float())
+        # top-k by a stable descending sort: ties take the lower expert first
+        gate_vals, expert_idx = (t[:, : cfg.top_k] for t in torch.sort(
+            probs, dim=-1, descending=True, stable=True))
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     return probs, gate_vals, expert_idx
 
 
@@ -736,37 +744,47 @@ def _moe_experts(p: Params, xt: torch.Tensor, cfg: ModelConfig, expert_idx: torc
     e, k = cfg.n_experts, cfg.top_k
     cap = max(8, int(cfg.capacity_factor * n_tok * k / e))
 
-    # position of each (token, slot) within its expert, by a one-hot cumsum;
-    # the one-hot is [count, T*k] so the scan runs along its contiguous last
-    # axis (CUDA torch scans an outer axis column by column, serially)
-    eidx = expert_idx.reshape(-1) - first  # [T*k], in [0, count) iff this rank's
-    if count == e:
-        mine = None
-        onehot = _one_hot(eidx, e).T.contiguous()
-    else:
-        mine = (eidx >= 0) & (eidx < count)
-        eidx = torch.clamp(eidx, 0, count - 1)
-        onehot = (_one_hot(eidx, count) * mine[:, None]).T.contiguous()
-    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(0)
-    keep = pos < cap if mine is None else mine & (pos < cap)
-    gates = (gate_vals.reshape(-1) * keep).to(COMPUTE_DTYPE)
-    token_src = torch.arange(n_tok, device=xt.device).repeat_interleave(k)
-    safe_pos = torch.where(keep, pos, cap - 1)
+    with trace.span("moe.dispatch"):
+        # position of each (token, slot) within its expert, by a one-hot cumsum;
+        # the one-hot is [count, T*k] so the scan runs along its contiguous last
+        # axis (CUDA torch scans an outer axis column by column, serially)
+        eidx = expert_idx.reshape(-1) - first  # [T*k], in [0, count) iff this rank's
+        if count == e:
+            mine = None
+            onehot = _one_hot(eidx, e).T.contiguous()
+        else:
+            mine = (eidx >= 0) & (eidx < count)
+            eidx = torch.clamp(eidx, 0, count - 1)
+            onehot = (_one_hot(eidx, count) * mine[:, None]).T.contiguous()
+        pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(0)
+        keep = pos < cap if mine is None else mine & (pos < cap)
+        if trace.recording():
+            with trace.span("moe.count"):
+                trace.count("moe.kept", keep.sum())
+                trace.count("moe.routed", n_tok * k if mine is None else mine.sum())
+            trace.count("moe.slots", count * cap)
+        gates = (gate_vals.reshape(-1) * keep).to(COMPUTE_DTYPE)
+        token_src = torch.arange(n_tok, device=xt.device).repeat_interleave(k)
+        safe_pos = torch.where(keep, pos, cap - 1)
 
-    # dispatch into [count, cap, d]: the kept rows, each once; a dropped row
-    # goes to a scratch slot (cap) that is never read
-    buf = torch.zeros((count, cap + 1, d), dtype=COMPUTE_DTYPE, device=xt.device)
-    buf.view(count * (cap + 1), d)[eidx * (cap + 1) + torch.where(keep, pos, cap)] = xt[token_src]
-    buf = buf[:, :cap]
-    wg, wu, wd = (_local_experts(p[n], first, count).to(COMPUTE_DTYPE) for n in ("wg", "wu", "wd"))
-    h = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    yb = torch.bmm(h, wd)  # [count, cap, d]
+        # dispatch into [count, cap, d]: the kept rows, each once; a dropped row
+        # goes to a scratch slot (cap) that is never read
+        buf = torch.zeros((count, cap + 1, d), dtype=COMPUTE_DTYPE, device=xt.device)
+        slot = eidx * (cap + 1) + torch.where(keep, pos, cap)
+        buf.view(count * (cap + 1), d)[slot] = xt[token_src]
+        buf = buf[:, :cap]
+    with trace.span("moe.experts"):
+        wg, wu, wd = (_local_experts(p[n], first, count).to(COMPUTE_DTYPE)
+                      for n in ("wg", "wu", "wd"))
+        h = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        yb = torch.bmm(h, wd)  # [count, cap, d]
 
-    # gather back: each token's k gated contributions added in slot order
-    contrib = (yb[eidx, safe_pos] * gates[:, None]).reshape(n_tok, k, d)
-    y = torch.zeros((n_tok, d), dtype=COMPUTE_DTYPE, device=xt.device)
-    for j in range(k):
-        y = y + contrib[:, j]
+    with trace.span("moe.combine"):
+        # gather back: each token's k gated contributions added in slot order
+        contrib = (yb[eidx, safe_pos] * gates[:, None]).reshape(n_tok, k, d)
+        y = torch.zeros((n_tok, d), dtype=COMPUTE_DTYPE, device=xt.device)
+        for j in range(k):
+            y = y + contrib[:, j]
     return y
 
 
@@ -804,16 +822,18 @@ def _moe_apply_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, rules) -> tuple:
                      mrank * count, count)
     y = reduce_from(y, group)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
+        with trace.span("moe.shared"):
+            y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
 def _moe_aux(probs: torch.Tensor, expert_idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Load-balancing aux loss (Switch): E * sum_e f_e * p_e."""
     e, k = cfg.n_experts, cfg.top_k
-    me = probs.mean(0)
-    ce = _one_hot(expert_idx, e).sum(1).float().mean(0) / k
-    return e * torch.sum(me * ce)
+    with trace.span("moe.aux"):
+        me = probs.mean(0)
+        ce = _one_hot(expert_idx, e).sum(1).float().mean(0) / k
+        return e * torch.sum(me * ce)
 
 
 def expert_parallel(cfg: ModelConfig, rules) -> bool:
@@ -841,7 +861,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     aux = _moe_aux(probs, expert_idx, cfg)
     y = _moe_experts(p, xt, cfg, expert_idx, gate_vals, 0, cfg.n_experts)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
+        with trace.span("moe.shared"):
+            y = y + mlp_apply(p["shared"], xt).to(COMPUTE_DTYPE)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 

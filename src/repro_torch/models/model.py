@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig, ShapeSpec
+from ..core import trace
 from ..core.device import resolve_device
 from ..parallel.collectives import reduce_from
 from ..parallel.sharding import current_rules
@@ -113,11 +114,15 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = T.embed_tokens(params, tokens, cfg)
-        x, caches, _ = T.apply_stack(params, x, cfg, mode="prefill",
-                                     positions=_positions(b, s, tokens.device),
-                                     cross_source=self._cross(params, batch))
-        return T.whole_vocab(T.logits_from(params, x[:, -1:, :], cfg)), caches
+        with trace.span("model.embed"):
+            x = T.embed_tokens(params, tokens, cfg)
+        with trace.span("model.stack"):
+            x, caches, _ = T.apply_stack(params, x, cfg, mode="prefill",
+                                         positions=_positions(b, s, tokens.device),
+                                         cross_source=self._cross(params, batch))
+        with trace.span("model.head"):
+            logits = T.whole_vocab(T.logits_from(params, x[:, -1:, :], cfg))
+        return logits, caches
 
     def decode_step(self, params: Params, tokens: torch.Tensor, caches: dict,
                     cache_index: int, pieces=None) -> tuple[torch.Tensor, dict]:

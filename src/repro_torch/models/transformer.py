@@ -52,6 +52,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ModelConfig
+from ..core import trace
 from ..core.errors import ConfigError
 from ..parallel.collectives import all_gather_dim, copy_to, reduce_from
 from ..parallel.partition import model_axis
@@ -156,53 +157,56 @@ def block_apply(
     piece = piece or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if kind in ("attn", "local", "cross"):
-        if cfg.mla and not encoder:
-            y, c = mla_apply(p["attn"], h, cfg, positions=positions, mode=mode,
-                             cache=cache.get("self") if cache else None, cache_index=cache_index,
-                             piece=piece.get("self"))
-        else:
-            y, c = attention_apply(
-                p["attn"], h, cfg, positions=positions, mode=mode,
-                mask_kind="none" if encoder else ("local" if kind == "local" else "causal"),
-                cache=cache.get("self") if cache else None, cache_index=cache_index,
-                window=cfg.local_window, piece=piece.get("self"),
-            )
-        if c is not None:
-            new_cache["self"] = c
-        x = x + y
-        if kind == "cross" and not encoder:
-            hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-            if mode == "decode":
-                yc, _ = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
-                                        mode="decode_cross", cache=cache.get("cross"),
-                                        piece=piece.get("cross"))
-                new_cache["cross"] = cache["cross"]
+    with trace.span("block.mixer"):
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if kind in ("attn", "local", "cross"):
+            if cfg.mla and not encoder:
+                y, c = mla_apply(p["attn"], h, cfg, positions=positions, mode=mode,
+                                 cache=cache.get("self") if cache else None,
+                                 cache_index=cache_index, piece=piece.get("self"))
             else:
-                yc, cc = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
-                                         mode=mode, kv_source=cross_source)
-                if mode == "prefill" and cc is not None:
-                    new_cache["cross"] = cc
-            x = x + yc
-    elif kind == "rec":
-        y, st = rglru_apply(p["rec"], h, cfg, mode=mode, state=cache.get("rec") if cache else None)
-        if st is not None:
-            new_cache["rec"] = st
-        x = x + y
-    elif kind == "rwkv":
-        y, st = rwkv_apply(p["rwkv"], h, cfg, mode=mode,
-                           state=cache.get("rwkv") if cache else None)
-        if st is not None:
-            new_cache["rwkv"] = st
-        return x + y, (new_cache or None), aux
+                y, c = attention_apply(
+                    p["attn"], h, cfg, positions=positions, mode=mode,
+                    mask_kind="none" if encoder else ("local" if kind == "local" else "causal"),
+                    cache=cache.get("self") if cache else None, cache_index=cache_index,
+                    window=cfg.local_window, piece=piece.get("self"),
+                )
+            if c is not None:
+                new_cache["self"] = c
+            x = x + y
+            if kind == "cross" and not encoder:
+                hc = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+                if mode == "decode":
+                    yc, _ = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
+                                            mode="decode_cross", cache=cache.get("cross"),
+                                            piece=piece.get("cross"))
+                    new_cache["cross"] = cache["cross"]
+                else:
+                    yc, cc = attention_apply(p["cross_attn"], hc, cfg, positions=positions,
+                                             mode=mode, kv_source=cross_source)
+                    if mode == "prefill" and cc is not None:
+                        new_cache["cross"] = cc
+                x = x + yc
+        elif kind == "rec":
+            y, st = rglru_apply(p["rec"], h, cfg, mode=mode,
+                                state=cache.get("rec") if cache else None)
+            if st is not None:
+                new_cache["rec"] = st
+            x = x + y
+        elif kind == "rwkv":
+            y, st = rwkv_apply(p["rwkv"], h, cfg, mode=mode,
+                               state=cache.get("rwkv") if cache else None)
+            if st is not None:
+                new_cache["rwkv"] = st
+            return x + y, (new_cache or None), aux
 
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if "moe" in p:
-        y2, aux = moe_apply(p["moe"], h2, cfg)
-    else:
-        y2 = mlp_apply(p["mlp"], h2)
-    return x + y2, (new_cache or None), aux
+    with trace.span("block.ffn"):
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            y2, aux = moe_apply(p["moe"], h2, cfg)
+        else:
+            y2 = mlp_apply(p["mlp"], h2)
+        return x + y2, (new_cache or None), aux
 
 
 def _sharded():
@@ -531,7 +535,8 @@ def apply_stack(
                 if mode == "prefill" and nc is not None:
                     emitted[f"pos{p}"].append(nc)
         if mode == "prefill":
-            new_groups = {k: _stack(v) for k, v in emitted.items() if v}
+            with trace.span("model.caches"):
+                new_groups = {k: _stack(v) for k, v in emitted.items() if v}
         elif mode == "decode":
             new_groups = caches["groups"]
     new_tail = [run(tp, _block_kind(cfg, i), caches["tail"][i] if caches else None,

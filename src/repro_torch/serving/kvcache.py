@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from ..core import trace
 from ..core.tensorshrink import (
     CompressedTensor,
     TensorCodecConfig,
@@ -83,16 +84,16 @@ class QuantizedKV:
 
 
 def quantize_cache(cache: AttnCache, cfg: TensorCodecConfig = TensorCodecConfig()) -> QuantizedKV:
-    ck, _ = compress_tensor(cache.k, cfg)
-    cv, _ = compress_tensor(cache.v, cfg)
+    with trace.span("kv.park"):
+        ck, _ = compress_tensor(cache.k, cfg)
+        cv, _ = compress_tensor(cache.v, cfg)
     return QuantizedKV(k=ck, v=cv, kpos=cache.kpos)
 
 
 def dequantize_cache(q: QuantizedKV, cfg: TensorCodecConfig = TensorCodecConfig()) -> AttnCache:
     """The cache back in bf16.  ``cfg`` is the reference's argument; the
     compressed tensors carry their block, so the port reads nothing from it."""
-    return AttnCache(
-        k=decompress_tensor(q.k).to(torch.bfloat16),
-        v=decompress_tensor(q.v).to(torch.bfloat16),
-        kpos=q.kpos,
-    )
+    with trace.span("kv.restore"):
+        k = decompress_tensor(q.k).to(torch.bfloat16)
+        v = decompress_tensor(q.v).to(torch.bfloat16)
+    return AttnCache(k=k, v=v, kpos=q.kpos)
